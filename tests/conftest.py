@@ -45,3 +45,9 @@ def view_test_scene(assets_dir):
     from orion_tpu.scene import load_scene
 
     return load_scene(assets_dir / "view_test.rtc")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (PyTorch/CUDA port kernels); "
+        "skipped without one")
