@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device and build: the card's name and power limit; both CUDA kernels
+  1. device and build: the card's name and power limit; every CUDA source
      built from orion_tpu_torch/csrc/ (one nvcc each, in parallel).
   2. scenes: a Cornell box written as OBJ/MTL/RTC text (36 triangles, one
      two-triangle emissive quad, no point lights), its midpoint
-     subdivisions (levels 2 and 4) and a two-emitter variant.
-  3. each kernel against its plain PyTorch version on the card: the brute
-     sweep on 2^18 random rays (some dead), the fused path kernel at
-     64x64, 4 spp, depth 4, 2 light samples on all four scenes.
+     subdivisions (levels 2 and 4), a two-emitter variant, and a
+     point-light (Whitted) variant whose tall box is a glossy mirror.
+  3. each kernel against its plain PyTorch version on the card, at 64x64,
+     4 spp, depth 4, 2 light samples: the brute sweep on 2^18 random rays
+     (some dead), the fused path kernel on the four path scenes, the PRB
+     training forward (image and per-sample radiance) and replay
+     (material gradients) on Cornell, levels-2 and levels-4, the Whitted
+     kernel on the point-light Cornell.
   4. the main path through the CLI: Cornell at 1920x1080, 16 spp, 2 light
      samples, depth 8 on the fused path kernel, written as .hdr.
   5. the second entry point: `--backend brute` wavefront at 256x256,
@@ -21,6 +25,22 @@ Phases (any failure raises and the script exits non-zero):
      of one 256x256 wavefront sample (recorded from `render`). CUDA-event
      medians of each kernel and of its plain version, with the roofline
      bound of the same work.
+  7. the training path at full width (bench.py's cornell_prb_train_fhd_4spp):
+     Cornell 1920x1080, 4 spp, depth 8, 2 light samples, red wall's albedo
+     scaled by 0.6 against a target the fused kernel renders at the true
+     albedo: (a) one make_fused_train_step(dynamic_params=True) step
+     through the autograd.Function, held against the plain versions at
+     these shapes; (b) CUDA-event times of the two PRB kernels and of the
+     whole step (fwd+bwd primary rays/s), with plain times and bounds;
+     (c) a 10-step optim.fit on the PRB route whose loss and red wall's
+     albedo error fall.
+  8. Whitted: the point-light Cornell through the CLI at 1920x1080, 4 spp,
+     depth 4 on the Whitted kernel; the kernel against its plain version
+     at those shapes, with times; the kernel against the wavefront
+     render(mode="whitted") at 256x256, 16 spp, depth 2 (means within
+     2.5%, error under 3x the wavefront's own seed-to-seed error + 1e-4);
+     a 5-step Whitted optim.fit (mat_diffuse, mat_specular) on the brute
+     kernel whose loss falls.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -50,6 +70,10 @@ WOOP_TEST_FLOPS = 39
 
 MAIN = dict(xres=1920, yres=1080, samples=16, light_samples=2, depth=8)
 SECOND = dict(xres=256, yres=256, samples=16, light_samples=2, depth=4)
+TRAIN = dict(xres=1920, yres=1080, samples=4, light_samples=2, depth=8)
+WHITTED = dict(xres=1920, yres=1080, samples=4, light_samples=1, depth=4)
+# kernel vs plain gradients: max |difference| <= this x the largest entry
+GRAD_TOL = 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +168,21 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
     return rtc
 
 
+def write_cornell_whitted(directory, *, xres: int = 64, yres: int = 64,
+                          depth: int = 4) -> Path:
+    """The Cornell box lit by one rtc point light (Whitted mode), its tall
+    box a glossy mirror (Ks 0.5, Ns 20) so that reflection chains run;
+    the ceiling emitter stays (depth-0 emission)."""
+    rtc = write_cornell(directory, xres=xres, yres=yres, depth=depth)
+    obj, mtl = rtc.with_suffix(".obj"), rtc.with_suffix(".mtl")
+    obj.write_text(obj.read_text().replace("o tall_box\nusemtl white",
+                                           "o tall_box\nusemtl mirror"))
+    mtl.write_text(mtl.read_text() + "\nnewmtl mirror\nKd 0.73 0.73 0.73\n"
+                   "Ks 0.5 0.5 0.5\nNs 20\n")
+    rtc.write_text(rtc.read_text() + "L 0 1.8 0.5 255 255 255 2.0\n")
+    return rtc
+
+
 def two_emitter(scene):
     """The Cornell scene with a second emissive mesh: the first non-emitter
     mesh of <= 8 triangles gets Ke = (0.5, 0.4, 0.3)."""
@@ -210,6 +249,34 @@ def fused_agree(name: str, k, p) -> float:
     check(mean_rel <= 1e-3, f"fused {name}: mean rel {mean_rel}")
     check(p.mean() > 0, f"fused {name}: black image")
     return err
+
+
+def grad_agree(name: str, kernel, plain) -> float:
+    """Hold gradient tables against the plain version's: max |difference|
+    <= GRAD_TOL x the largest |entry|. Returns the max |difference|."""
+    k, p = kernel.cpu().numpy(), plain.cpu().numpy()
+    check(np.isfinite(k).all(), f"grad {name}: non-finite")
+    scale = float(np.abs(p).max())
+    err = float(np.abs(k - p).max())
+    print(f"[grad {name}] max abs {err:.4g}, largest entry {scale:.4g} "
+          f"(rel {err / max(scale, 1e-30):.3g})")
+    check(scale > 0, f"grad {name}: all zero")
+    check(err <= GRAD_TOL * scale,
+          f"grad {name}: {err} > {GRAD_TOL} x {scale}")
+    return err
+
+
+def once_ms(fn):
+    """CUDA-event time of one call of `fn` (no warm-up): (ms, result)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
 
 
 def brute_agree(name: str, kernel, plain) -> float:
@@ -281,6 +348,8 @@ def main() -> int:
     from orion_tpu_torch.ops import brute_intersect as bi
     from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
+    from orion_tpu_torch.ops import whitted as wh
     from orion_tpu_torch.render import render
     from orion_tpu_torch.scene import load_scene, subdivide_scene
 
@@ -299,7 +368,8 @@ def main() -> int:
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{kind}")
     t0 = time.perf_counter()
-    built = cuda_build.build(["fused_path", "brute_intersect"])
+    built = cuda_build.build(["fused_path", "brute_intersect", "prb",
+                              "whitted"])
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -315,10 +385,14 @@ def main() -> int:
         lv4 = subdivide_scene(cornell, levels=4)
         em2 = two_emitter(cornell)
         cam64 = camera_from_rtc(rtc, device=dev)
+        wrtc64 = write_cornell_whitted(tmp / "whitted64", xres=64, yres=64,
+                                       depth=4)
+        wsc64, wr64 = load_scene(wrtc64, device=dev)
         print(f"[2] cornell {cornell.num_triangles} tris, levels-2 "
               f"{lv2.num_triangles} (T_pad {fp._fused_t_pad(lv2.num_triangles)}"
               f"), levels-4 {lv4.num_triangles}, two-emitter "
-              f"{em2.num_emissive} emitters")
+              f"{em2.num_emissive} emitters, Whitted {wsc64.num_lights} "
+              f"light(s)")
 
         # 3. kernels against their plain versions --------------------------
         brute_err = 0.0
@@ -333,12 +407,39 @@ def main() -> int:
         fused_err = 0.0
         for name, sc in (("cornell", cornell), ("levels-2", lv2),
                          ("levels-4", lv4), ("two-emitter", em2)):
-            args = _fused_args(fp, sc, cam64, dev)
+            args = fp.fused_args(sc, cam64)
             cfg = (64, 64, 4, 4, 2)
             k = fp.fused_path(*args, 1234, *cfg)
             torch.cuda.synchronize()
             fused_err = max(fused_err, fused_agree(
                 f"{name} 64x64", k, fp.fused_path_plain(*args, 1234, *cfg)))
+
+        # the PRB pair (one emitter: the two-emitter scene is outside the
+        # training gate), each kernel fed its own forward's record
+        fwd_err = replay_err = 0.0
+        for name, sc in (("cornell", cornell), ("levels-2", lv2),
+                         ("levels-4", lv4)):
+            args = fp.fused_args(sc, cam64)
+            cfg = (64, 64, 4, 4, 2)
+            img_k, ls_k = prb.fused_fwd_ls(*args, 1234, *cfg)
+            torch.cuda.synchronize()
+            img_p, ls_p = fp.fused_fwd_ls_plain(*args, 1234, *cfg)
+            fwd_err = max(fwd_err,
+                          fused_agree(f"prb fwd {name} 64x64", img_k, img_p),
+                          fused_agree(f"prb fwd L_s {name} 64x64", ls_k, ls_p))
+            w = _cotangent(img_p, 4, 7)
+            g_k = prb.prb_replay(*args, 1234, w, ls_k, *cfg)
+            torch.cuda.synchronize()
+            g_p = prb.prb_replay_plain(*args, 1234, w, ls_p, *cfg)
+            replay_err = max(replay_err, grad_agree(
+                f"prb replay {name} 64x64", g_k, g_p))
+
+        wargs = wh.whitted_args(wsc64, camera_from_rtc(wr64, device=dev))
+        cfg = (64, 64, 4, 4, True)
+        k = wh.fused_whitted(*wargs, 1234, *cfg)
+        torch.cuda.synchronize()
+        whitted_err = fused_agree("whitted 64x64", k,
+                                  wh.fused_whitted_plain(*wargs, 1234, *cfg))
 
         # 4. main path ------------------------------------------------------
         fp.KERNEL.launches = 0
@@ -376,16 +477,16 @@ def main() -> int:
         # 6. times at the main-path shapes ----------------------------------
         cam_main = camera_from_rtc(_resized(parse_rtc(rtc_path), MAIN),
                                    device=dev)
-        args = _fused_args(fp, cornell, cam_main, dev)
+        args = fp.fused_args(cornell, cam_main)
         cfg = (MAIN["xres"], MAIN["yres"], MAIN["samples"], MAIN["depth"],
                MAIN["light_samples"])
         f_ms, f_times, k_main = event_ms(
             lambda: fp.fused_path(*args, 0, *cfg), 3)
         stats = {}
-        f_plain_ms, _, p_main = event_ms(
-            lambda: fp.fused_path_plain(*args, 0, *cfg, stats=stats), 1)
+        f_plain_ms, p_main = once_ms(
+            lambda: fp.fused_path_plain(*args, 0, *cfg, stats=stats))
         fused_err = max(fused_err, fused_agree("main 1080p", k_main, p_main))
-        tests = stats["tests"] / 2          # warm-up + one timed run
+        tests = stats["tests"]
         f_bound, f_by = bound_ms(
             tests * WOOP_TEST_FLOPS,
             args[0].numel() * 4 + rays // MAIN["samples"] * 12)
@@ -448,6 +549,9 @@ def main() -> int:
               f"launched eagerly, {b_plain_ms:.4f} ms plain, bound "
               f"{b_bound:.6f} ms ({b_by})")
 
+        train = _phase_train(tmp, dev, card, fwd_err, replay_err)
+        whit = _phase_whitted(tmp, dev, whitted_err)
+
     kernels = [
         {"name": "fused_path", "route": "cuda",
          "source": "orion_tpu_torch/csrc/fused_path.cu",
@@ -461,6 +565,15 @@ def main() -> int:
          "launches": brute_launches, "max_abs_err": brute_err,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None},
+        {"name": "prb_fwd_ls", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/prb.cu",
+         "replaces": "orion_tpu/ops/pallas_prb.py:90", **train["fwd"]},
+        {"name": "prb_replay", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/prb.cu",
+         "replaces": "orion_tpu/ops/pallas_prb.py:282", **train["replay"]},
+        {"name": "whitted", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/whitted.cu",
+         "replaces": "orion_tpu/ops/pallas_whitted.py:101", **whit},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -475,16 +588,230 @@ def _resized(rtc, cfg):
     return rtc
 
 
-def _fused_args(fp, scene, camera, dev):
-    """(tab, clo, chi, em, cam) device tensors of the fused kernel."""
+def _cotangent(img, samples: int, seed: int):
+    """A per-lane adjoint [n, 3] shaped like an MSE cotangent against a
+    jittered copy of `img` (mostly positive, so gradient entries do not
+    cancel), divided by `samples` as the lanes sum their samples."""
     import torch
 
-    lo, hi = fp.fused_chunk_bounds(scene)
-    return (torch.as_tensor(fp.pack_fused_tri_table(scene), device=dev),
-            torch.as_tensor(lo, device=dev).contiguous(),
-            torch.as_tensor(hi, device=dev).contiguous(),
-            torch.as_tensor(fp.pack_emitters(scene), device=dev),
-            fp.camera_vec(camera).to(dev))
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.uniform(-0.5, 1.0, img.shape), dtype=torch.float32,
+                        device=img.device)
+    return (img * u / (img.shape[0] * 3 * samples)).contiguous()
+
+
+def _phase_train(tmp: Path, dev, card: str, fwd_err: float,
+                 replay_err: float) -> dict:
+    """Phase 7: the PRB training path at full width. Returns the kernel
+    records of the two PRB kernels."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
+    from orion_tpu_torch.optim import fit
+
+    W, H = TRAIN["xres"], TRAIN["yres"]
+    S, D, LS = TRAIN["samples"], TRAIN["depth"], TRAIN["light_samples"]
+    seed = 3
+    ps = prepare(write_cornell(tmp / "train", xres=W, yres=H, depth=D),
+                 device=dev)
+    target = fp.make_fused_path_renderer(ps.scene, ps.camera, samples=S,
+                                         max_depth=D, light_samples=LS)(seed)
+    kd_true = ps.scene.mat_diffuse.clone()
+    red = int(torch.argmax(kd_true[:, 0] - kd_true[:, 1]))
+    kd_pert = kd_true.clone()
+    kd_pert[red] *= 0.6
+    pert = dataclasses.replace(ps.scene, mat_diffuse=kd_pert)
+    params = {"mat_diffuse": kd_pert, "mat_emissive": pert.mat_emissive}
+    M = pert.num_meshes
+
+    # (a) one step through the autograd.Function
+    step = prb.make_fused_train_step(pert, ps.camera, target, samples=S,
+                                     max_depth=D, light_samples=LS,
+                                     dynamic_params=True)
+    prb.FWD_KERNEL.launches = prb.REPLAY_KERNEL.launches = 0
+    loss_k, g_k = step(params, seed)
+    torch.cuda.synchronize()
+    launches = (prb.FWD_KERNEL.launches, prb.REPLAY_KERNEL.launches)
+    print(f"[7] train step {TRAIN}: loss {float(loss_k):.6g}, launches "
+          f"(fwd, replay) {launches}")
+    check(launches == (1, 1), f"train step launches {launches}")
+
+    args = fp.fused_args(pert, ps.camera)
+    cfg = (W, H, S, D, LS)
+    f_stats, r_stats = {}, {}
+    f_plain_ms, (img_p, ls_p) = once_ms(
+        lambda: fp.fused_fwd_ls_plain(*args, seed, *cfg, stats=f_stats))
+    diff = img_p.reshape(H, W, 3) - target
+    loss_p = float(torch.mean(diff * diff))
+    w = (diff * (2.0 / (H * W * 3 * S))).reshape(-1, 3).contiguous()
+    r_plain_ms, g_p = once_ms(
+        lambda: prb.prb_replay_plain(*args, seed, w, ls_p, *cfg,
+                                     stats=r_stats))
+    loss_rel = abs(float(loss_k) - loss_p) / loss_p
+    print(f"[7] loss kernel {float(loss_k):.7g} vs plain {loss_p:.7g} (rel "
+          f"{loss_rel:.3g})")
+    check(loss_rel <= 1e-3, f"train loss rel {loss_rel}")
+    replay_err = max(replay_err,
+                     grad_agree("train mat_diffuse 1080p", g_k["mat_diffuse"],
+                                g_p[0:3, :M].t()),
+                     grad_agree("train mat_emissive 1080p",
+                                g_k["mat_emissive"], g_p[3:6, :M].t()))
+
+    # (b) times at these shapes
+    f_ms, f_times, (img_k, ls_k) = event_ms(
+        lambda: prb.fused_fwd_ls(*args, seed, *cfg), 3)
+    fwd_err = max(fwd_err, fused_agree("prb fwd 1080p", img_k, img_p),
+                  fused_agree("prb fwd L_s 1080p", ls_k, ls_p))
+    r_ms, r_times, _ = event_ms(
+        lambda: prb.prb_replay(*args, seed, w, ls_k, *cfg), 3)
+    s_ms, s_times, _ = event_ms(lambda: step(params, seed), 3)
+    rays = W * H * S
+    tab_bytes, ls_bytes = args[0].numel() * 4, W * H * 12 * S
+    f_bound, f_by = bound_ms(f_stats["tests"] * WOOP_TEST_FLOPS,
+                             tab_bytes + W * H * 12 + ls_bytes)
+    r_bound, r_by = bound_ms(r_stats["tests"] * WOOP_TEST_FLOPS,
+                             tab_bytes + W * H * 12 + ls_bytes
+                             + 6 * prb.M_LANES * 4)
+    print(f"[7] prb fwd: {f_ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in f_times)}), {f_plain_ms:.1f} ms "
+          f"plain, {f_stats['tests']:.6g} Woop tests, bound {f_bound:.4f} ms "
+          f"({f_by})")
+    print(f"[7] prb replay: {r_ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in r_times)}), {r_plain_ms:.1f} ms "
+          f"plain, {r_stats['tests']:.6g} Woop tests, bound {r_bound:.4f} ms "
+          f"({r_by})")
+    print(f"[7] train step (fwd + replay + loss + table): {s_ms:.3f} ms "
+          f"(runs {', '.join(f'{x:.3f}' for x in s_times)}) = "
+          f"{rays / (s_ms * 1e-3):.4g} fwd+bwd primary rays/s on {card}")
+
+    # (c) the user's entry point: optim.fit on the PRB route
+    ps_pert = dataclasses.replace(ps, scene=pert)
+    prb.FWD_KERNEL.launches = prb.REPLAY_KERNEL.launches = 0
+    stamps = [time.perf_counter()]      # the callback syncs via float(loss)
+    res = fit(ps_pert, target, params=("mat_diffuse",), steps=10,
+              learning_rate=0.05, samples=S, max_depth=D, light_samples=LS,
+              seed=seed, resample_keys=False, use_prb=True,
+              callback=lambda i, loss: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - stamps[0]
+    per_step = np.diff(stamps[1:]) * 1e3
+    launches = (prb.FWD_KERNEL.launches, prb.REPLAY_KERNEL.launches)
+    # the red wall's albedo error (sum over its three channels)
+    err0 = float((kd_pert[red] - kd_true[red]).abs().sum())
+    err1 = float((res.params["mat_diffuse"][red] - kd_true[red]).abs().sum())
+    print(f"[7] fit wall time: first step {(stamps[1] - stamps[0]) * 1e3:.1f}"
+          f" ms (set-up included), later steps median "
+          f"{float(np.median(per_step)):.3f} ms (min {per_step.min():.3f}, "
+          f"max {per_step.max():.3f})")
+    print(f"[7] fit 10 steps in {secs:.3f} s: losses "
+          f"{', '.join(f'{x:.6g}' for x in res.losses)}; red wall albedo "
+          f"error {err0:.5f} -> {err1:.5f}; launches (fwd, replay) "
+          f"{launches}")
+    check(min(launches) > 0, "fit never launched the PRB kernels")
+    check(res.losses[-1] < res.losses[0], "fit loss did not fall")
+    check(err1 < err0, "fit: the red wall's albedo error did not fall")
+    return {
+        "fwd": {"launches": launches[0], "max_abs_err": fwd_err, "ms": f_ms,
+                "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
+                "library_ms": None},
+        "replay": {"launches": launches[1], "max_abs_err": replay_err,
+                   "ms": r_ms, "plain_ms": r_plain_ms, "bound_ms": r_bound,
+                   "bound_by": r_by, "library_ms": None},
+    }
+
+
+def _phase_whitted(tmp: Path, dev, whitted_err: float) -> dict:
+    """Phase 8: the Whitted render route and the Whitted trainer. Returns
+    the Whitted kernel's record."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import whitted as wh
+    from orion_tpu_torch.optim import fit
+    from orion_tpu_torch.render import render
+    from orion_tpu_torch.scene import load_scene
+
+    W, H, S, D = (WHITTED["xres"], WHITTED["yres"], WHITTED["samples"],
+                  WHITTED["depth"])
+    rtc = write_cornell_whitted(tmp / "whitted", xres=W, yres=H, depth=D)
+    wh.KERNEL.launches = 0
+    img = run_cli(rtc, tmp / "whitted.hdr", WHITTED)
+    launches = wh.KERNEL.launches
+    print(f"[8] Whitted {WHITTED} through the CLI: Whitted kernel launches "
+          f"{launches}, image mean {img.mean():.6g}")
+    check(launches > 0, "the CLI never launched the Whitted kernel")
+    check(img.shape == (H, W, 3) and np.isfinite(img).all()
+          and img.mean() > 0, "Whitted image")
+
+    scene, r = load_scene(rtc, device=dev)
+    args = wh.whitted_args(scene, camera_from_rtc(r, device=dev))
+    cfg = (W, H, S, D, scene.num_emissive > 0)
+    ms, times, k = event_ms(lambda: wh.fused_whitted(*args, 0, *cfg), 3)
+    stats = {}
+    plain_ms, p = once_ms(
+        lambda: wh.fused_whitted_plain(*args, 0, *cfg, stats=stats))
+    whitted_err = max(whitted_err, fused_agree("whitted 1080p", k, p))
+    bound, by = bound_ms(stats["tests"] * WOOP_TEST_FLOPS,
+                         args[0].numel() * 4 + W * H * 12)
+    print(f"[8] whitted: {ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in times)}), {plain_ms:.1f} ms plain, "
+          f"{stats['tests']:.6g} Woop tests, bound {bound:.4f} ms ({by})")
+
+    # statistically against the wavefront (tests/test_whitted_fused.py)
+    cam = camera_from_rtc(_resized(parse_rtc(rtc), dict(xres=256, yres=256)),
+                          device=dev)
+
+    def wavefront(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return render(scene, cam, gen, samples=16, max_depth=2,
+                      mode="whitted").cpu().numpy()
+
+    img_f = wh.make_fused_whitted_renderer(scene, cam, samples=16,
+                                           max_depth=2)(5).cpu().numpy()
+    img_w, img_w2 = wavefront(5), wavefront(77)
+    err_fw = float(np.abs(img_f - img_w).mean())
+    err_ww = float(np.abs(img_w2 - img_w).mean())
+    mrel = abs(img_f.mean() - img_w.mean()) / img_w.mean()
+    print(f"[8] Whitted kernel vs wavefront 256^2 16 spp: means "
+          f"{img_f.mean():.6g} vs {img_w.mean():.6g} (rel {mrel:.3g}), "
+          f"mean |diff| {err_fw:.5g} vs seed-to-seed {err_ww:.5g}")
+    check(mrel < 0.025, f"Whitted mean rel {mrel}")
+    check(err_fw < 3.0 * err_ww + 1e-4, f"Whitted err {err_fw} vs {err_ww}")
+
+    # the closed-form Whitted trainer through fit, on the brute kernel
+    ps = prepare(rtc, device=dev, xres=128, yres=128)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    target = render(ps.scene, ps.camera, gen, samples=2, max_depth=2,
+                    mode="whitted")
+    kd = torch.clamp(ps.scene.mat_diffuse * 0.5 + 0.2, 0.05, 0.95)
+    ps_p = dataclasses.replace(ps, scene=dataclasses.replace(
+        ps.scene, mat_diffuse=kd))
+    bi.KERNEL.launches = 0
+    res = fit(ps_p, target, params=("mat_diffuse", "mat_specular"), steps=5,
+              learning_rate=0.02, samples=2, max_depth=2, light_samples=1,
+              mode="whitted", seed=0, resample_keys=False)
+    print(f"[8] Whitted fit 5 steps at 128x128: losses "
+          f"{', '.join(f'{x:.6g}' for x in res.losses)}; brute launches "
+          f"{bi.KERNEL.launches}")
+    check(bi.KERNEL.launches > 0, "Whitted fit never launched the brute kernel")
+    # each step lowers the loss (an overshoot or a gradient of the wrong
+    # sign would raise it)
+    check(all(b < a for a, b in zip(res.losses, res.losses[1:])),
+          "Whitted fit loss did not fall at every step")
+    return {"launches": launches, "max_abs_err": whitted_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -9,8 +9,12 @@ jax nor orion_tpu.
 Ported so far: .rtc/.obj/.mtl/image I/O, the SoA Scene, the camera, the
 Woop intersection, shading, the wavefront renderer (path and Whitted
 modes), the path megakernel (ops/fused_path.py) and the brute-force sweep
-(ops/brute_intersect.py), the engine and the CLI. Entry points run on
-`cuda` unless the caller asks for `cpu`.
+(ops/brute_intersect.py), the Whitted megakernel (ops/whitted.py), the
+engine and the CLI; training: the path-replay kernels (ops/prb.py), the
+closed-form Whitted trainer (ops/prb_whitted.py) and `fit` (optim.py).
+Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 
 __version__ = "0.1.0"
+
+from orion_tpu_torch.optim import FitResult, fit  # noqa: E402,F401

@@ -41,7 +41,7 @@ def _orthogonalize(base: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v - base * (torch.dot(base, v) / torch.dot(base, base))
 
 
-def camera_from_rtc(rtc: RTCData, device="cpu") -> Camera:
+def camera_from_rtc(rtc: RTCData, device="cuda") -> Camera:
     """Float32 camera basis, computed on the host and moved to `device`."""
     f32 = dict(dtype=torch.float32)
     view_point = torch.tensor(rtc.view_point, **f32)

@@ -7,17 +7,19 @@ shadow-ray (light) samples.
 Routing (as in the JAX package, cli.py:74-143):
   - path-mode scenes inside the fused gate -> the path megakernel
     (ops/fused_path.py);
+  - Whitted-mode scenes inside the fused-Whitted gate -> the Whitted
+    megakernel (ops/whitted.py);
   - --backend brute -> the wavefront renderer (render.py) over the brute
     sweep kernel (ops/brute_intersect.py), path or Whitted mode;
-  - everything else (the Whitted megakernels, path megakernels past the
-    fused gate, the BVH backend, --regen, --shard, --checkpoint,
+  - everything else (the BVH Whitted megakernels, path megakernels past
+    the fused gate, the BVH backend, --regen, --shard, --checkpoint,
     --normal-maps) is not ported yet: the command exits non-zero and names
     the missing piece. It never substitutes another route.
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.
 
---seed seeds the render: the fused kernel takes it as its int32 PCG seed
+--seed seeds the render: the megakernels take it as their int32 PCG seed
 (the JAX package derives that seed from a threefry key), the wavefront
 seeds a torch.Generator with it; the same seed therefore gives a different
 but equally valid sample stream than the JAX package.
@@ -53,8 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["brute", "bvh", "fused"],
                    default=None,
                    help="Force the backend: 'brute' = wavefront over the "
-                        "brute sweep kernel, 'fused' = path megakernel "
-                        "(errors outside its gate); 'bvh' is not ported")
+                        "brute sweep kernel, 'fused' = path or Whitted "
+                        "megakernel (errors outside its gate); 'bvh' is "
+                        "not ported")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device (default %(default)s; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -104,13 +107,25 @@ def main(argv=None) -> int:
     mode = args.mode or ("whitted" if ps.scene.num_lights > 0 else "path")
 
     fused_fn = None
-    if args.backend in (None, "fused"):
+    if args.backend in (None, "fused") and mode == "whitted":
+        from orion_tpu_torch.ops.whitted import (fused_whitted_supported,
+                                                 make_fused_whitted_renderer)
+
+        if not fused_whitted_supported(ps.scene):
+            if args.backend == "fused":
+                _fail("--backend fused, but the scene is outside the Whitted "
+                      "megakernel gate (textures / lights / triangle count); "
+                      "see ops/whitted.py")
+            _fail("the Whitted megakernels past the fused-Whitted gate (BVH "
+                  "Whitted, deferred-texturing BVH Whitted) are not ported "
+                  "yet (use --backend brute for the Whitted wavefront)")
+        fused_fn = make_fused_whitted_renderer(
+            ps.scene, ps.camera, samples=args.samples, max_depth=max_depth)
+        ps.backend = "fused-whitted-kernel"
+    elif args.backend in (None, "fused"):
         from orion_tpu_torch.ops.fused_path import (fused_path_supported,
                                                     make_fused_path_renderer)
 
-        if mode != "path":
-            _fail("the Whitted megakernels are not ported yet "
-                  "(use --backend brute for the Whitted wavefront)")
         if not fused_path_supported(ps.scene):
             if args.backend == "fused":
                 _fail("--backend fused, but the scene is outside the "

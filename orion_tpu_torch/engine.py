@@ -40,6 +40,9 @@ class PreparedScene:
     intersect: IntersectFn
     backend: str                       # "brute-kernel" | BVH_NOT_PORTED | ...
     build_seconds: float = 0.0
+    # occlusion-only (any-hit) intersect for Whitted shadow rays, where
+    # only hit.mask is read; None => reuse `intersect` (as on brute)
+    shadow_intersect: Optional[IntersectFn] = None
 
 
 def _bvh_not_ported(scene, orig, dirs, *, alive=None):

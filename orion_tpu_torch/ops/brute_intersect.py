@@ -19,7 +19,8 @@ import ctypes
 
 import torch
 
-from orion_tpu_torch.ops.cuda_build import CudaKernel, stream_ptr
+from orion_tpu_torch.ops.cuda_build import (CudaKernel, check_inputs,
+                                            stream_ptr)
 from orion_tpu_torch.ops.intersect import Hit
 from orion_tpu_torch.ops.woop import nearest_rows, woop_rows
 from orion_tpu_torch.scene import Scene
@@ -61,17 +62,11 @@ def brute_sweep(tri: torch.Tensor, orig: torch.Tensor, dirs: torch.Tensor,
     if orig.device.type != "cuda":
         raise ValueError(f"brute_sweep: unsupported device {orig.device}")
     N = orig.shape[0]
-    for name, x, shape, dtype in (("tri", tri, (tri.shape[0], TRI_COLS),
-                                   torch.float32),
-                                  ("orig", orig, (N, 3), torch.float32),
-                                  ("dirs", dirs, (N, 3), torch.float32),
-                                  ("alive", alive, (N,), torch.bool)):
-        if (x.device != orig.device or tuple(x.shape) != shape
-                or x.dtype != dtype or not x.is_contiguous()):
-            raise ValueError(f"brute_sweep: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on "
-                             f"{orig.device}, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
+    check_inputs("brute_sweep", orig.device,
+                 (("tri", tri, (tri.shape[0], TRI_COLS), torch.float32),
+                  ("orig", orig, (N, 3), torch.float32),
+                  ("dirs", dirs, (N, 3), torch.float32),
+                  ("alive", alive, (N,), torch.bool)))
     t = torch.empty((N,), dtype=torch.float32, device=orig.device)
     ids = torch.empty((N,), dtype=torch.int32, device=orig.device)
     KERNEL.launch(orig.data_ptr(), dirs.data_ptr(), alive.data_ptr(),

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (`extern "C"`), built at first use into
-`orion_tpu_torch/_build/` under a name that carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. `build()` starts one nvcc per source, all at once.
+`orion_tpu_torch/_build/` under a name that carries a hash of the source,
+the shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused. `build()` starts one nvcc per source, all at once.
 
 Nothing here is imported at package import time by the CPU paths: a
 kernel is built only when a wrapper is handed a CUDA tensor. There is no
@@ -39,7 +39,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of `csrc/<name>.cu`, named by a hash of the source, the
+    shared headers (`csrc/*.cuh`) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
@@ -104,6 +108,18 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
+
+
+def check_inputs(name: str, device, specs) -> None:
+    """Raise ValueError unless each (what, tensor, shape, dtype) of `specs`
+    is a contiguous tensor of that shape and dtype on `device`: what a
+    kernel reads through a raw pointer."""
+    for what, x, shape, dtype in specs:
+        if (x.device != device or tuple(x.shape) != tuple(shape)
+                or x.dtype != dtype or not x.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
+                             f"tensor of shape {tuple(shape)} on {device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def stream_ptr(device) -> int:

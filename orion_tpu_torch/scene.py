@@ -180,7 +180,7 @@ def build_scene(
     rtc: Optional[RTCData] = None,
     pad_to: int = LANE,
     load_textures: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Flatten an ObjScene (+ rtc lights) into a Scene on `device`."""
     meshes = obj.meshes
@@ -392,7 +392,7 @@ def subdivide_scene(scene: Scene, levels: int = 1,
 
 def load_scene(rtc_path: str | Path, pad_to: int = LANE,
                load_textures: bool = True,
-               device="cpu") -> Tuple[Scene, RTCData]:
+               device="cuda") -> Tuple[Scene, RTCData]:
     """Parse an .rtc file and load its OBJ scene onto `device`
     (traceRTC's setup phase, raytracer.cpp:19-41)."""
     rtc_path = Path(rtc_path)

@@ -118,7 +118,7 @@ def test_plain_matches_jax_kernel(cornell, name):
         js, jcamera_from_rtc(jrtc), ray_block=128, interpret=True,
         **cfg)(key))
     seed = int(jf.seed_scalar(key)[0])
-    ours = fp.make_fused_path_renderer(to_torch(js), camera_from_rtc(jrtc),
+    ours = fp.make_fused_path_renderer(to_torch(js), camera_from_rtc(jrtc, device="cpu"),
                                        **cfg)(seed).numpy()
     assert ours.shape == theirs.shape == (16, 16, 3)
     assert np.isfinite(ours).all() and theirs.mean() > 0
@@ -139,7 +139,7 @@ def test_plain_counts_real_triangle_tests(cornell, name):
     args = (torch.as_tensor(fp.pack_fused_tri_table(ts)),
             torch.as_tensor(lo), torch.as_tensor(hi),
             torch.as_tensor(fp.pack_emitters(ts)),
-            fp.camera_vec(camera_from_rtc(jrtc)))
+            fp.camera_vec(camera_from_rtc(jrtc, device="cpu")))
     stats = {}
     fp.fused_path_plain(*args, 3, 16, 16, 1, 0, 1, stats=stats)
     n = 16 * 16
@@ -149,7 +149,7 @@ def test_plain_counts_real_triangle_tests(cornell, name):
 
 def test_renderer_seed_and_gate(cornell, tmp_path):
     js, jrtc = cornell
-    ts, cam = to_torch(js), camera_from_rtc(jrtc)
+    ts, cam = to_torch(js), camera_from_rtc(jrtc, device="cpu")
     fn = fp.make_fused_path_renderer(ts, cam, samples=1, max_depth=2,
                                      light_samples=1)
     a, b, c = fn(7), fn(7), fn(8)

@@ -66,7 +66,7 @@ def test_woop_rows_f32_path(cornell):
 
 def test_camera_and_primary_rays(cornell):
     _, jrtc, _ = cornell
-    jc, tc = jcamera_from_rtc(jrtc), camera_from_rtc(jrtc)
+    jc, tc = jcamera_from_rtc(jrtc), camera_from_rtc(jrtc, device="cpu")
     for k in ("origin", "front", "up", "right"):
         np.testing.assert_allclose(getattr(tc, k).numpy(),
                                    np.asarray(getattr(jc, k)), rtol=1e-6,

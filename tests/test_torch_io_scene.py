@@ -100,7 +100,7 @@ def test_scene_fields_equal(tmp_path, variant):
               "textured": write_textured}[variant]
     rtc = writer(tmp_path)
     js, _ = jload_scene(rtc)
-    ts, _ = load_scene(rtc)
+    ts, _ = load_scene(rtc, device="cpu")
     _assert_scene_equal(js, ts)
     if variant == "textured":
         assert ts.numpy("tex_hw").max() == 8
@@ -110,7 +110,7 @@ def test_scene_fields_equal(tmp_path, variant):
 def test_subdivide_equal(tmp_path, levels):
     rtc = write_cornell(tmp_path)
     js, _ = jload_scene(rtc)
-    ts, _ = load_scene(rtc)
+    ts, _ = load_scene(rtc, device="cpu")
     _assert_scene_equal(jsubdivide(js, levels=levels),
                         subdivide_scene(ts, levels=levels))
 
@@ -130,7 +130,7 @@ def test_scene_from_numpy_round_trip(tmp_path):
 
 def test_validation(tmp_path):
     rtc_path = write_cornell(tmp_path)
-    ts, rtc = load_scene(rtc_path)
+    ts, rtc = load_scene(rtc_path, device="cpu")
     validate_rtc(rtc)
     validate_scene(ts)
     rtc.xres = 0
@@ -141,3 +141,17 @@ def test_validation(tmp_path):
     fields["tri_v0"][0, 0] = np.nan
     with pytest.raises(SceneValidationError):
         validate_scene(scene_from_numpy(fields, "cpu"))
+
+
+def test_entry_points_default_to_cuda():
+    """Scene loading, scene building and the camera run on the card unless
+    the caller asks for the CPU, as engine.prepare does."""
+    import inspect
+
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.scene import build_scene
+
+    for fn in (load_scene, build_scene, camera_from_rtc, prepare):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", (
+            fn.__name__)
