@@ -42,6 +42,29 @@ Phases (any failure raises and the script exits non-zero):
      a 5-step Whitted optim.fit (mat_diffuse, mat_specular) on the brute
      kernel whose loss falls.
 
+  9. big path at full width: the levels-5 subdivided Cornell box (34,818
+     triangles, written as OBJ text) through the CLI with no backend
+     forced at 1920x1080, 16 spp, depth 8, 2 light samples: the report's
+     backend is bvh-path-kernel, the image mean within 2% of phase 4's
+     (the same box, a finer mesh); the BVH path kernel's time by CUDA
+     events; the kernel against its plain version over the whole image
+     (whose box and triangle test counts give the bound) and on 48 tiles
+     of 1,024 lanes spread evenly over the image, rendered through
+     pix_base; BVH build seconds of the native and the NumPy builder.
+ 10. BVH wavefront: the same scene through `--backend bvh` at 256x256,
+     16 spp, depth 4, against a 256x256 BVH-path-kernel render (corr >
+     0.93, mean rel 0.15); the same wavefront with sort_bounces="morton";
+     `--regen` at 256x256, 16 spp, depth 8 (mean within 2.5% of the
+     depth-8 wavefront); the levels-5 Whitted box through `--backend bvh`
+     at 512x512, 4 spp, depth 4 (any-hit launches > 0, mean within 2.5%
+     of `--backend brute`); the walk kernel timed by CUDA-graph replay on
+     one wavefront sample's recorded sweeps.
+Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
+version on random rays and on a wavefront's recorded rays for levels-4 and
+levels-5 at leaf widths 128 and the engine's, against the brute kernel on
+levels-4, and the BVH path kernel against its plain version at 64x64 on
+levels-2 and levels-5 and against the brute training forward on levels-2.
+
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script fails before printing either.
@@ -49,6 +72,8 @@ script fails before printing either.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -67,11 +92,18 @@ PEAK_BYTES = 3.35e12
 # transform 3 x (3 mul + 3 add), direction transform 3 x (3 mul + 2 add),
 # one divide, u/v 2 x (mul + add), the eps product; compares not counted
 WOOP_TEST_FLOPS = 39
+# FP32 arithmetic per slab (ray-box) test of the BVH walks: 6 subtracts and
+# 6 multiplies; the 10 min/max and the compares not counted
+SLAB_TEST_FLOPS = 12
 
 MAIN = dict(xres=1920, yres=1080, samples=16, light_samples=2, depth=8)
 SECOND = dict(xres=256, yres=256, samples=16, light_samples=2, depth=4)
 TRAIN = dict(xres=1920, yres=1080, samples=4, light_samples=2, depth=8)
 WHITTED = dict(xres=1920, yres=1080, samples=4, light_samples=1, depth=4)
+BIG_LEVELS = 5          # 34 * 4**5 + 2 = 34,818 triangles
+REGEN = dict(xres=256, yres=256, samples=16, light_samples=2, depth=8)
+BIG_WHITTED = dict(xres=512, yres=512, samples=4, light_samples=1, depth=4)
+TILE_LANES, N_TILES = 1024, 48     # phase 9's tiles through pix_base
 # kernel vs plain gradients: max |difference| <= this x the largest entry
 GRAD_TOL = 1e-3
 
@@ -130,13 +162,31 @@ def cornell_objects():
     return objs
 
 
+def _midpoint_subdivide(tris: np.ndarray, levels: int) -> np.ndarray:
+    """[n, 3, 3] triangles -> [n * 4**levels, 3, 3]: 4-to-1 midpoint
+    subdivision, children in subdivide_scene's order (corner a, corner b,
+    corner c, centre), winding kept."""
+    for _ in range(levels):
+        a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+        ab, ac, bc = 0.5 * (a + b), 0.5 * (a + c), 0.5 * (b + c)
+        tris = np.stack([np.stack(t, 1) for t in
+                         ((a, ab, ac), (ab, b, bc), (ac, bc, c),
+                          (ab, bc, ac))], 1).reshape(-1, 3, 3)
+    return tris
+
+
 def write_cornell(directory, *, xres: int = 64, yres: int = 64,
-                  depth: int = 4) -> Path:
+                  depth: int = 4, levels: int = 0) -> Path:
     """Write cornell.obj/.mtl/.rtc into `directory`; returns the .rtc path.
 
     Every triangle is wound so that cross(e1, e2) points along its listed
     normal (into the room for walls, out of the boxes, down for the light),
     and carries that normal as its vertex normal.
+
+    levels > 0 subdivides every triangle but the emitter's 4-to-1 at its
+    edge midpoints `levels` times in the OBJ text: the same box with
+    34 * 4**levels + 2 triangles (levels=5: 34,818), the count
+    scene.subdivide_scene gives.
     """
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
@@ -153,9 +203,20 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
             q = np.asarray(quad, np.float64)
             if np.dot(np.cross(q[1] - q[0], q[2] - q[0]), nrm) < 0:
                 q = q[::-1]
-            lines += ["v %.9g %.9g %.9g" % tuple(v) for v in q]
-            lines.append("vn %.9g %.9g %.9g" % tuple(nrm))
             nn += 1
+            vn = "vn %.9g %.9g %.9g" % tuple(nrm)
+            if levels > 0 and mat != "light":
+                tris = _midpoint_subdivide(
+                    np.stack([q[[0, 1, 2]], q[[0, 2, 3]]]), levels)
+                lines += ["v %.9g %.9g %.9g" % tuple(v)
+                          for v in tris.reshape(-1, 3)]
+                lines.append(vn)
+                lines += [f"f {k}//{nn} {k + 1}//{nn} {k + 2}//{nn}"
+                          for k in range(nv + 1, nv + 1 + 3 * len(tris), 3)]
+                nv += 3 * len(tris)
+                continue
+            lines += ["v %.9g %.9g %.9g" % tuple(v) for v in q]
+            lines.append(vn)
             a, b, c, e = nv + 1, nv + 2, nv + 3, nv + 4
             lines.append(f"f {a}//{nn} {b}//{nn} {c}//{nn}")
             lines.append(f"f {a}//{nn} {c}//{nn} {e}//{nn}")
@@ -169,11 +230,12 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
 
 
 def write_cornell_whitted(directory, *, xres: int = 64, yres: int = 64,
-                          depth: int = 4) -> Path:
+                          depth: int = 4, levels: int = 0) -> Path:
     """The Cornell box lit by one rtc point light (Whitted mode), its tall
     box a glossy mirror (Ks 0.5, Ns 20) so that reflection chains run;
     the ceiling emitter stays (depth-0 emission)."""
-    rtc = write_cornell(directory, xres=xres, yres=yres, depth=depth)
+    rtc = write_cornell(directory, xres=xres, yres=yres, depth=depth,
+                        levels=levels)
     obj, mtl = rtc.with_suffix(".obj"), rtc.with_suffix(".mtl")
     obj.write_text(obj.read_text().replace("o tall_box\nusemtl white",
                                            "o tall_box\nusemtl mirror"))
@@ -297,6 +359,44 @@ def brute_agree(name: str, kernel, plain) -> float:
     return err
 
 
+def mask_agree(name: str, kernel, plain) -> None:
+    """Any-hit results (t, row): the hit masks must be equal, t is 1.0 on
+    a hit and +inf on a miss."""
+    import torch
+
+    (t_k, r_k), (_, r_p) = kernel, plain
+    same = float(((r_k >= 0) == (r_p >= 0)).float().mean())
+    print(f"[any-hit {name}] {r_p.numel()} rays, masks equal {same:.6f}, "
+          f"hits {int((r_p >= 0).sum())}")
+    check(same == 1.0, f"any-hit {name}: masks equal on {same}")
+    check(bool((t_k[r_k >= 0] == 1.0).all())
+          and bool(torch.isinf(t_k[r_k < 0]).all()), f"any-hit {name}: t")
+
+
+def record_sweeps(scene, cam, intersect, cfg: dict, seed: int = 0):
+    """Every sweep (orig, dirs, alive) that one wavefront sample of
+    `render` hands to its intersect function."""
+    import torch
+
+    from orion_tpu_torch.render import render
+
+    calls = []
+
+    def recorder(sc, orig, dirs, *, alive=None):
+        a = alive if alive is not None else torch.ones(
+            orig.shape[0], dtype=torch.bool, device=orig.device)
+        calls.append(tuple(x.detach().contiguous().clone()
+                           for x in (orig.float(), dirs.float(), a)))
+        return intersect(sc, orig, dirs, alive=alive)
+
+    gen = torch.Generator(device=scene.device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        render(scene, cam, gen, samples=1, max_depth=cfg["depth"],
+               light_samples=cfg["light_samples"], intersect=recorder)
+    return calls
+
+
 def bound_ms(flops: float, nbytes: float):
     """(ms, 'operations' | 'bytes'): the larger of the two floors."""
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -317,19 +417,28 @@ def random_rays(n: int, seed: int, device):
             torch.as_tensor(alive, device=device))
 
 
-def run_cli(rtc: Path, out: Path, cfg: dict, backend=None) -> np.ndarray:
+def run_cli(rtc: Path, out: Path, cfg: dict, backend=None, extra=(),
+            report: bool = False):
+    """Render through cli.main; the image, or (image, the --stats report)
+    with report=True."""
     from orion_tpu_torch import cli
     from orion_tpu_torch.io.image import load_hdr
 
     argv = [str(rtc), "-o", str(out), "-p", str(cfg["samples"]),
             "-l", str(cfg["light_samples"]), "--depth", str(cfg["depth"]),
             "--xres", str(cfg["xres"]), "--yres", str(cfg["yres"]),
-            "--stats"]
+            "--stats", *extra]
     if backend:
         argv += ["--backend", backend]
-    rc = cli.main(argv)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    sys.stderr.write(err.getvalue())
     check(rc == 0, f"cli exit code {rc}")
-    return load_hdr(out)
+    if not report:
+        return load_hdr(out)
+    stats = [ln for ln in err.getvalue().splitlines() if ln.startswith("{")]
+    return load_hdr(out), json.loads(stats[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +459,6 @@ def main() -> int:
     from orion_tpu_torch.ops import fused_path as fp
     from orion_tpu_torch.ops import prb
     from orion_tpu_torch.ops import whitted as wh
-    from orion_tpu_torch.render import render
     from orion_tpu_torch.scene import load_scene, subdivide_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,7 +477,7 @@ def main() -> int:
           f"{kind}")
     t0 = time.perf_counter()
     built = cuda_build.build(["fused_path", "brute_intersect", "prb",
-                              "whitted"])
+                              "whitted", "bvh_intersect", "bvh_path"])
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -388,6 +496,14 @@ def main() -> int:
         wrtc64 = write_cornell_whitted(tmp / "whitted64", xres=64, yres=64,
                                        depth=4)
         wsc64, wr64 = load_scene(wrtc64, device=dev)
+        big_rtc = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                                levels=BIG_LEVELS)
+        t0 = time.perf_counter()
+        lv5, _ = load_scene(big_rtc, device=dev)
+        print(f"[2] levels-{BIG_LEVELS} file: {lv5.num_triangles} tris, "
+              f"loaded in {time.perf_counter() - t0:.3f} s")
+        check(lv5.num_triangles == 34 * 4 ** BIG_LEVELS + 2,
+              f"levels-{BIG_LEVELS} triangle count {lv5.num_triangles}")
         print(f"[2] cornell {cornell.num_triangles} tris, levels-2 "
               f"{lv2.num_triangles} (T_pad {fp._fused_t_pad(lv2.num_triangles)}"
               f"), levels-4 {lv4.num_triangles}, two-emitter "
@@ -440,6 +556,9 @@ def main() -> int:
         torch.cuda.synchronize()
         whitted_err = fused_agree("whitted 64x64", k,
                                   wh.fused_whitted_plain(*wargs, 1234, *cfg))
+
+        walk_err, path_err, walk_sweeps = _phase_bvh_checks(
+            dev, rtc_path, lv2, lv4, lv5, cam64)
 
         # 4. main path ------------------------------------------------------
         fp.KERNEL.launches = 0
@@ -497,21 +616,10 @@ def main() -> int:
 
         # the brute sweep on the wavefront's own rays: every sweep of one
         # 256x256 sample at depth 4 (primary/bounce and NEE shadow rays)
-        calls = []
-
-        def recorder(scene, orig, dirs, *, alive=None):
-            a = alive if alive is not None else torch.ones(
-                orig.shape[0], dtype=torch.bool, device=orig.device)
-            calls.append(tuple(x.detach().contiguous().clone()
-                               for x in (orig.float(), dirs.float(), a)))
-            return bi.intersect_brute_kernel(scene, orig, dirs, alive=alive)
-
         cam_w = camera_from_rtc(_resized(parse_rtc(rtc_path), SECOND),
                                 device=dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        render(cornell, cam_w, gen, samples=1, max_depth=SECOND["depth"],
-               light_samples=SECOND["light_samples"], intersect=recorder)
+        calls = record_sweeps(cornell, cam_w, bi.intersect_brute_kernel,
+                              SECOND)
         tab = bi.pack_tri_rows16(cornell)
         for i, (o, d, alive) in enumerate(calls):
             k = bi.brute_sweep(tab, o, d, alive)
@@ -551,6 +659,9 @@ def main() -> int:
 
         train = _phase_train(tmp, dev, card, fwd_err, replay_err)
         whit = _phase_whitted(tmp, dev, whitted_err)
+        big = _phase_big_path(tmp, dev, card, lv5, float(img.mean()),
+                              path_err)
+        walk = _phase_bvh_wavefront(tmp, dev, walk_sweeps, walk_err)
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -574,6 +685,12 @@ def main() -> int:
         {"name": "whitted", "route": "cuda",
          "source": "orion_tpu_torch/csrc/whitted.cu",
          "replaces": "orion_tpu/ops/pallas_whitted.py:101", **whit},
+        {"name": "bvh_intersect", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bvh_intersect.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh.py:62", **walk},
+        {"name": "bvh_path", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bvh_path.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_path.py:569", **big},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -812,6 +929,315 @@ def _phase_whitted(tmp: Path, dev, whitted_err: float) -> dict:
     return {"launches": launches, "max_abs_err": whitted_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def _phase_bvh_checks(dev, rtc_path: Path, lv2, lv4, lv5, cam64):
+    """Phase 3, the two BVH kernels against their plain versions. Returns
+    (walk max |t| error, path max abs error, the recorded sweeps)."""
+    import torch
+
+    from orion_tpu_torch.accel.bvh import build_scene_bvh
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import GPU_LEAF_SIZE
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import fused_path as fp
+
+    # one wavefront sample's sweeps on the big scene (primary, bounce and
+    # stacked NEE shadow rays); levels-4 is the same box, so its trees are
+    # held on the same rays
+    cam_w = camera_from_rtc(_resized(parse_rtc(rtc_path), SECOND), device=dev)
+    bvh5, _ = build_scene_bvh(lv5, leaf_size=GPU_LEAF_SIZE)
+    sweeps = record_sweeps(lv5, cam_w, bx.make_bvh_intersect_kernel(bvh5, lv5),
+                           SECOND)
+    rays = [("random", *random_rays(1 << 18, 1, dev))]
+    rays += [(f"wavefront sweep {i}", *c) for i, c in enumerate(sweeps)]
+    walk_err = 0.0
+    for sname, sc in (("levels-4", lv4), (f"levels-{BIG_LEVELS}", lv5)):
+        for leaf in (128, GPU_LEAF_SIZE):
+            bvh, st = build_scene_bvh(sc, leaf_size=leaf)
+            nodes, tri = bx._bvh_device_layout(bvh, dev)
+            print(f"[3] {sname} leaf {leaf}: {st.nodes} nodes, "
+                  f"{st.padded_tris} bundled rows")
+            for rname, o, d, alive in rays:
+                for any_hit in (False, True):
+                    k = bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=leaf,
+                                    any_hit=any_hit)
+                    torch.cuda.synchronize()
+                    p = bx.bvh_walk_plain(nodes, tri, o, d, alive,
+                                          leaf_width=leaf, any_hit=any_hit)
+                    name = f"{sname} leaf {leaf} {rname}"
+                    if any_hit:
+                        mask_agree(name, k, p)
+                    else:
+                        walk_err = max(walk_err,
+                                       brute_agree(f"walk {name}", k, p))
+
+    # two independent answers: the walk kernel (float64 host Woop rows,
+    # bundled order) against the brute kernel (float32 device rows, scene
+    # order). Where two coplanar faces tie (box bottoms on the floor,
+    # shared edges) either id is the nearest hit, so the rays are held by
+    # t (>= 99.9% within rel 1e-5) and the ids to >= 99%.
+    bvh4, _ = build_scene_bvh(lv4, leaf_size=GPU_LEAF_SIZE)
+    walk4 = bx.make_bvh_intersect_kernel(bvh4, lv4)
+    for rname, o, d, alive in rays[:3]:
+        h_w = walk4(lv4, o, d, alive=alive)
+        h_b = bi.intersect_brute_kernel(lv4, o, d, alive=alive)
+        same = float((h_w.tri_id == h_b.tri_id).float().mean())
+        both = h_w.mask & h_b.mask
+        dt = (h_w.t - h_b.t).abs()
+        # the same nearest hit: both miss, or both hit at the same t (the
+        # two tables round differently: rel 1e-5 + 1e-6)
+        agree = (~h_w.mask & ~h_b.mask) | (
+            both & (dt <= 1e-5 * h_b.t.abs() + 1e-6))
+        frac = float(agree.float().mean())
+        print(f"[walk vs brute levels-4 {rname}] ids equal {same:.6f}, "
+              f"same t (rel 1e-5) {frac:.6f}, largest rel t difference "
+              f"{float((dt / h_b.t.abs())[both].max()):.3g}")
+        check(frac >= 0.999, f"walk vs brute {rname}: same t on {frac}")
+        check(same >= 0.99, f"walk vs brute {rname}: ids equal on {same}")
+
+    path_err = 0.0
+    cfg = (64, 64, 4, 4, 2)
+    for sname, sc in (("levels-2", lv2), (f"levels-{BIG_LEVELS}", lv5)):
+        fn = bp.make_bvh_path_renderer(sc, cam64, samples=4, max_depth=4,
+                                       light_samples=2)
+        k = fn(1234).reshape(-1, 3)
+        torch.cuda.synchronize()
+        dd = fn.data
+        p = bp.bvh_path_plain(dd["nodes"], dd["tab"], dd["em"], dd["cam"],
+                              1234, *cfg, leaf_width=dd["leaf_width"])
+        path_err = max(path_err, fused_agree(f"bvh path {sname} 64x64", k, p))
+        if sc is lv2:
+            # the same estimator over the brute sweep
+            ref, _ = fp.fused_fwd_ls_plain(*fp.fused_args(sc, cam64), 1234,
+                                           *cfg)
+            fused_agree("bvh path vs brute forward levels-2 64x64", k, ref)
+    return walk_err, path_err, sweeps
+
+
+def _phase_big_path(tmp: Path, dev, card: str, lv5, cornell_mean: float,
+                    path_err: float) -> dict:
+    """Phase 9: the big path scene at full width through the CLI. Returns
+    the BVH path kernel's record."""
+    import torch
+
+    from orion_tpu_torch import native
+    from orion_tpu_torch.accel.bvh import build_scene_bvh
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bvh_path as bp
+
+    W, H, S, D, LS = (MAIN["xres"], MAIN["yres"], MAIN["samples"],
+                      MAIN["depth"], MAIN["light_samples"])
+    rtc = write_cornell(tmp / "big_main", xres=W, yres=H, depth=D,
+                        levels=BIG_LEVELS)
+    bp.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    img, report = run_cli(rtc, tmp / "big.hdr", MAIN, report=True)
+    secs = time.perf_counter() - t0
+    launches = bp.KERNEL.launches
+    rays = W * H * S
+    mrel = abs(float(img.mean()) - cornell_mean) / cornell_mean
+    print(f"[9] big path {MAIN} on {report['triangles']} triangles: "
+          f"{secs:.3f} s through the CLI ({rays / secs:.4g} primary rays/s "
+          f"incl. scene setup; scene {report['scene_build_seconds']} s, "
+          f"render {report['render_seconds']} s), backend "
+          f"{report['backend']}, BVH path launches {launches}, image mean "
+          f"{img.mean():.6g} vs the 36-triangle box's {cornell_mean:.6g} "
+          f"(rel {mrel:.3g})")
+    check(report["backend"] == "bvh-path-kernel",
+          f"big path backend {report['backend']}")
+    check(report["triangles"] == 34 * 4 ** BIG_LEVELS + 2, "big path size")
+    check(launches > 0, "big path never launched the BVH path kernel")
+    check(img.shape == (H, W, 3) and np.isfinite(img).all(), "big image")
+    check(mrel <= 0.02, f"big path mean rel {mrel}")
+
+    for builder in ("native", "numpy"):
+        if builder == "native" and not native.native_available():
+            print("[9] native builder unavailable (no g++?): NumPy builds")
+            continue
+        t0 = time.perf_counter()
+        _, st = build_scene_bvh(lv5, leaf_size=bp.GPU_LEAF_WIDTH,
+                                builder=builder)
+        print(f"[9] BVH build ({builder}, SAH, leaf {bp.GPU_LEAF_WIDTH}): "
+              f"{time.perf_counter() - t0:.3f} s, {st.nodes} nodes, depth "
+              f"{st.max_depth}, {st.padded_tris} bundled rows")
+
+    cam = camera_from_rtc(_resized(parse_rtc(rtc), MAIN), device=dev)
+    t0 = time.perf_counter()
+    fn = bp.make_bvh_path_renderer(lv5, cam, samples=S, max_depth=D,
+                                   light_samples=LS)
+    torch.cuda.synchronize()
+    print(f"[9] tree + table packing: {time.perf_counter() - t0:.3f} s")
+    ms, times, k_img = event_ms(lambda: fn(0), 3)
+    k_flat = k_img.reshape(-1, 3)
+
+    # the plain version over the whole image (its counters give the
+    # bound), and N_TILES tiles of TILE_LANES lanes spread evenly over the
+    # image, each rendered by the kernel through pix_base, against the
+    # whole image's and the plain version's pixels
+    n_pix = W * H
+    dd = fn.data
+    stats = {}
+    plain_ms, p = once_ms(lambda: bp.bvh_path_plain(
+        dd["nodes"], dd["tab"], dd["em"], dd["cam"], 0, W, H, S, D, LS,
+        leaf_width=dd["leaf_width"], stats=stats))
+    path_err = max(path_err, fused_agree("bvh path 1080p", k_flat, p))
+    bases = [int(i * (n_pix - TILE_LANES) / (N_TILES - 1))
+             for i in range(N_TILES)]
+    tile_ms, _, tiles = event_ms(lambda: torch.cat(
+        [fn(0, pix_base=b, n_lanes=TILE_LANES) for b in bases]), 3)
+    pix = torch.cat([torch.arange(b, b + TILE_LANES, device=dev)
+                     for b in bases])
+    check(torch.equal(tiles, k_flat[pix]),
+          "a tile does not render the whole image's pixels")
+    fused_agree(f"bvh path 1080p, {N_TILES} tiles x {TILE_LANES} lanes",
+                tiles, p[pix])
+    box, tri = stats["box_tests"], stats["tests"]
+    bound, by = bound_ms(
+        box * SLAB_TEST_FLOPS + tri * WOOP_TEST_FLOPS,
+        (dd["nodes"].numel() + dd["tab"].numel()) * 4 + n_pix * 12)
+    print(f"[9] bvh path: {ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in times)}) = "
+          f"{rays / (ms * 1e-3):.4g} primary rays/s of device time on "
+          f"{card}; {plain_ms:.1f} ms plain; {box:.6g} box tests and "
+          f"{tri:.6g} Woop tests, bound {bound:.4f} ms ({by}); the "
+          f"{N_TILES} tiles: {tile_ms:.3f} ms in {N_TILES} launches")
+    return {"launches": launches, "max_abs_err": path_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def _phase_bvh_wavefront(tmp: Path, dev, sweeps, walk_err: float) -> dict:
+    """Phase 10: the wavefront, the regenerative wavefront and the Whitted
+    wavefront over the walk kernel. Returns the walk kernel's record."""
+    import torch
+
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.render import render
+
+    def reset():
+        bx.KERNEL.launches = bx.ANY_HIT_KERNEL.launches = 0
+        bp.KERNEL.launches = bi.KERNEL.launches = 0
+
+    rtc = write_cornell(tmp / "big_wave", xres=256, yres=256, depth=4,
+                        levels=BIG_LEVELS)
+    reset()
+    t0 = time.perf_counter()
+    img_w, rep = run_cli(rtc, tmp / "bvh.hdr", SECOND, backend="bvh",
+                         report=True)
+    secs = time.perf_counter() - t0
+    n_wave = bx.KERNEL.launches
+    print(f"[10] --backend bvh {SECOND}: {secs:.3f} s, backend "
+          f"{rep['backend']}, {rep['bvh_nodes']} nodes, walk launches "
+          f"{n_wave} (any-hit {bx.ANY_HIT_KERNEL.launches}), path-kernel "
+          f"launches {bp.KERNEL.launches}")
+    check(rep["backend"] == "bvh-kernel", f"backend {rep['backend']}")
+    check(n_wave > 0 and bp.KERNEL.launches == 0 and bi.KERNEL.launches == 0,
+          "--backend bvh did not run on the walk kernel alone")
+    img_k = run_cli(rtc, tmp / "bvh_k.hdr", SECOND)
+    c = corr(img_k, img_w)
+    mrel = abs(img_k.mean() - img_w.mean()) / img_w.mean()
+    print(f"[10] path kernel vs BVH wavefront 256^2: corr {c:.4f}, mean "
+          f"{img_k.mean():.6g} vs {img_w.mean():.6g} (rel {mrel:.3g})")
+    check(np.isfinite(img_w).all(), "BVH wavefront image non-finite")
+    check(c > 0.93 and mrel < 0.15, f"BVH wavefront corr {c} rel {mrel}")
+
+    ps = prepare(rtc, device=dev, force_backend="bvh", xres=256, yres=256)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img_s = render(ps.scene, ps.camera, gen, samples=SECOND["samples"],
+                       max_depth=SECOND["depth"],
+                       light_samples=SECOND["light_samples"],
+                       intersect=ps.intersect,
+                       sort_bounces="morton").cpu().numpy()
+    torch.cuda.synchronize()
+    c = corr(img_k, img_s)
+    mrel = abs(img_k.mean() - img_s.mean()) / img_s.mean()
+    print(f"[10] sort_bounces=morton: {time.perf_counter() - t0:.3f} s, corr "
+          f"{c:.4f}, mean {img_s.mean():.6g} (rel {mrel:.3g})")
+    check(c > 0.93 and mrel < 0.15, f"sorted wavefront corr {c} rel {mrel}")
+
+    before = bx.KERNEL.launches
+    t0 = time.perf_counter()
+    img_r, rep = run_cli(rtc, tmp / "regen.hdr", REGEN, extra=["--regen"],
+                         report=True)
+    secs = time.perf_counter() - t0
+    n_regen = bx.KERNEL.launches - before
+    img_w8 = run_cli(rtc, tmp / "bvh8.hdr", REGEN, backend="bvh")
+    mrel = abs(img_r.mean() - img_w8.mean()) / img_w8.mean()
+    print(f"[10] --regen {REGEN}: {secs:.3f} s, backend {rep['backend']}, "
+          f"walk launches {n_regen}, mean {img_r.mean():.6g} vs the depth-8 "
+          f"wavefront's {img_w8.mean():.6g} (rel {mrel:.3g})")
+    check(n_regen > 0, "--regen never launched the walk kernel")
+    check(np.isfinite(img_r).all() and mrel <= 0.025, f"regen mean {mrel}")
+
+    wrtc = write_cornell_whitted(tmp / "big_whitted", xres=512, yres=512,
+                                 depth=4, levels=BIG_LEVELS)
+    reset()
+    t0 = time.perf_counter()
+    img_b, rep = run_cli(wrtc, tmp / "wb.hdr", BIG_WHITTED, backend="bvh",
+                         report=True)
+    secs = time.perf_counter() - t0
+    n_near, n_any = bx.KERNEL.launches, bx.ANY_HIT_KERNEL.launches
+    img_ref = run_cli(wrtc, tmp / "wr.hdr", BIG_WHITTED, backend="brute")
+    mrel = abs(img_b.mean() - img_ref.mean()) / img_ref.mean()
+    print(f"[10] Whitted --backend bvh {BIG_WHITTED} on "
+          f"{rep['triangles']} triangles: {secs:.3f} s, nearest launches "
+          f"{n_near}, any-hit launches {n_any}, mean {img_b.mean():.6g} vs "
+          f"--backend brute {img_ref.mean():.6g} (rel {mrel:.3g}), max abs "
+          f"diff {np.abs(img_b - img_ref).max():.4g}")
+    check(n_near > 0 and n_any > 0, "Whitted --backend bvh: no any-hit launch")
+    check(np.isfinite(img_b).all() and mrel <= 0.025, f"Whitted mean {mrel}")
+
+    # the walk kernel's own time: a CUDA graph of the recorded sweeps of
+    # one wavefront sample over the engine's tree (eager launches from
+    # Python measure the host)
+    nodes, tri = bx._bvh_device_layout(ps.bvh, dev)
+    leaf = ps.bvh.leaf_width
+
+    def run(fn):
+        return lambda: [fn(nodes, tri, o, d, a, leaf_width=leaf)
+                        for o, d, a in sweeps]
+
+    stats = {}
+    for o, d, a in sweeps:
+        bx.bvh_walk_plain(nodes, tri, o, d, a, leaf_width=leaf, stats=stats)
+    n_calls, passes = len(sweeps), 20
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(passes):
+            run(bx.bvh_walk)()
+    ms, times, _ = event_ms(graph.replay, 21)
+    ms /= passes * n_calls
+    spread = (max(times) - min(times)) / float(np.median(times))
+    plain_ms, _, _ = event_ms(run(bx.bvh_walk_plain), 3)
+    plain_ms /= n_calls
+    n_rays = sum(o.shape[0] for o, _, _ in sweeps)
+    n_alive = sum(int(a.sum()) for _, _, a in sweeps)
+    bound, by = bound_ms(
+        (stats["box_tests"] * SLAB_TEST_FLOPS
+         + stats["tests"] * WOOP_TEST_FLOPS) / n_calls,
+        (n_rays * 33 + n_calls * (nodes.numel() + tri.numel()) * 4) / n_calls)
+    print(f"[10] walk kernel, per launch over the {n_calls} sweeps of one "
+          f"wavefront sample ({n_rays} rays, {n_alive} alive; leaf {leaf}, "
+          f"{nodes.shape[0]} nodes): {ms:.5f} ms kernel (median of 21 "
+          f"replays of a CUDA graph of {passes} passes; spread "
+          f"(max-min)/median {spread:.4f}), {plain_ms:.3f} ms plain; "
+          f"{stats['box_tests'] / n_alive:.1f} box tests and "
+          f"{stats['tests'] / n_alive:.1f} Woop tests a live ray, bound "
+          f"{bound:.5f} ms ({by})")
+    return {"launches": n_wave + n_regen + n_near + n_any,
+            "max_abs_err": walk_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 if __name__ == "__main__":

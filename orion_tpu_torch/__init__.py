@@ -11,10 +11,26 @@ Woop intersection, shading, the wavefront renderer (path and Whitted
 modes), the path megakernel (ops/fused_path.py) and the brute-force sweep
 (ops/brute_intersect.py), the Whitted megakernel (ops/whitted.py), the
 engine and the CLI; training: the path-replay kernels (ops/prb.py), the
-closed-form Whitted trainer (ops/prb_whitted.py) and `fit` (optim.py).
+closed-form Whitted trainer (ops/prb_whitted.py) and `fit` (optim.py);
+big scenes: the BVH build (accel/bvh.py, native.py), the batched walk
+(ops/bvh_traverse.py), the BVH walk kernel (ops/bvh_intersect.py), the
+BVH path megakernel (ops/bvh_path.py), wavefront sorting (ops/reorder.py)
+and the regenerative wavefront (regen.py).
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 
 __version__ = "0.1.0"
 
-from orion_tpu_torch.optim import FitResult, fit  # noqa: E402,F401
+from orion_tpu_torch.io.rtc import RTCData, parse_rtc, write_rtc  # noqa: F401
+from orion_tpu_torch.scene import Scene, load_scene          # noqa: F401
+from orion_tpu_torch.camera import Camera, camera_from_rtc   # noqa: F401
+from orion_tpu_torch.engine import (                         # noqa: F401
+    PreparedScene,
+    prepare,
+    render_prepared,
+    render_report,
+)
+from orion_tpu_torch.render import render, trace_wavefront   # noqa: F401
+from orion_tpu_torch.regen import render_regen               # noqa: F401
+from orion_tpu_torch.validate import SceneValidationError    # noqa: F401
+from orion_tpu_torch.optim import FitResult, fit             # noqa: F401

@@ -7,14 +7,22 @@ shadow-ray (light) samples.
 Routing (as in the JAX package, cli.py:74-143):
   - path-mode scenes inside the fused gate -> the path megakernel
     (ops/fused_path.py);
+  - path-mode scenes past the fused gate -> the BVH path megakernel
+    (engine.make_big_path_renderer, ops/bvh_path.py); outside every gate
+    (too many or too large emitters) -> the wavefront over the engine's
+    intersect, as the JAX package falls through;
   - Whitted-mode scenes inside the fused-Whitted gate -> the Whitted
     megakernel (ops/whitted.py);
-  - --backend brute -> the wavefront renderer (render.py) over the brute
-    sweep kernel (ops/brute_intersect.py), path or Whitted mode;
-  - everything else (the BVH Whitted megakernels, path megakernels past
-    the fused gate, the BVH backend, --regen, --shard, --checkpoint,
-    --normal-maps) is not ported yet: the command exits non-zero and names
-    the missing piece. It never substitutes another route.
+  - --backend brute / --backend bvh -> the wavefront renderer (render.py)
+    over the brute sweep kernel (ops/brute_intersect.py) or the BVH walk
+    kernel (ops/bvh_intersect.py; any-hit for Whitted shadow rays), path
+    or Whitted mode;
+  - --regen -> the regenerative wavefront (regen.py) over the engine's
+    intersect, path mode only;
+  - everything else (the BVH Whitted megakernels, textured path scenes
+    past the fused gate, --shard, --checkpoint, --normal-maps) is not
+    ported yet: the command exits non-zero and names the missing piece.
+    It never substitutes another route.
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.
@@ -54,10 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Force render mode (default: auto from rtc lights)")
     p.add_argument("--backend", choices=["brute", "bvh", "fused"],
                    default=None,
-                   help="Force the backend: 'brute' = wavefront over the "
-                        "brute sweep kernel, 'fused' = path or Whitted "
-                        "megakernel (errors outside its gate); 'bvh' is "
-                        "not ported")
+                   help="Force the backend: 'brute' / 'bvh' = wavefront over "
+                        "the brute sweep or the BVH walk kernel, 'fused' = "
+                        "path or Whitted megakernel (errors outside its "
+                        "gate)")
+    p.add_argument("--strategy", choices=["median", "middle", "sah"],
+                   default="sah", help="BVH split strategy")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device (default %(default)s; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -66,7 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Override rtc x resolution")
     p.add_argument("--yres", type=int, default=None,
                    help="Override rtc y resolution")
-    for flag in ("--shard", "--regen", "--normal-maps"):
+    p.add_argument("--regen", action="store_true",
+                   help="Use the regenerative wavefront path tracer "
+                        "(orion_tpu_torch.regen): dead rays restart at once "
+                        "as the next sample; path mode only, forward-only")
+    for flag in ("--shard", "--normal-maps"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     p.add_argument("--checkpoint", default=None, help="not ported yet")
     p.add_argument("--stats", action="store_true",
@@ -83,11 +97,11 @@ def main(argv=None) -> int:
 
     import torch
 
-    from orion_tpu_torch.engine import BVH_NOT_PORTED, prepare, render_report
+    from orion_tpu_torch.engine import (NotPorted, make_big_path_renderer,
+                                        prepare, render_report)
     from orion_tpu_torch.io.image import save_image
 
     unported = [flag for flag, on in (("--shard", args.shard),
-                                      ("--regen", args.regen),
                                       ("--checkpoint", args.checkpoint),
                                       ("--normal-maps", args.normal_maps))
                 if on]
@@ -98,16 +112,20 @@ def main(argv=None) -> int:
               "(pass --device cpu for the plain PyTorch versions)")
 
     force = args.backend if args.backend in ("brute", "bvh") else None
-    ps = prepare(args.rtc_file, device=args.device, force_backend=force,
-                 xres=args.xres, yres=args.yres)
+    ps = prepare(args.rtc_file, device=args.device, strategy=args.strategy,
+                 force_backend=force, xres=args.xres, yres=args.yres)
     # the reference caps trace() at rtc.recursion_level exactly
     # (raytracer.cpp:29,203-206)
     max_depth = (args.depth if args.depth is not None
                  else int(ps.rtc.recursion_level))
     mode = args.mode or ("whitted" if ps.scene.num_lights > 0 else "path")
+    if args.regen and mode != "path":
+        _fail("--regen requires path mode (no rtc point lights / "
+              "--mode path)")
 
     fused_fn = None
-    if args.backend in (None, "fused") and mode == "whitted":
+    megakernel = args.backend in (None, "fused") and not args.regen
+    if megakernel and mode == "whitted":
         from orion_tpu_torch.ops.whitted import (fused_whitted_supported,
                                                  make_fused_whitted_renderer)
 
@@ -118,29 +136,36 @@ def main(argv=None) -> int:
                       "see ops/whitted.py")
             _fail("the Whitted megakernels past the fused-Whitted gate (BVH "
                   "Whitted, deferred-texturing BVH Whitted) are not ported "
-                  "yet (use --backend brute for the Whitted wavefront)")
+                  "yet (use --backend bvh or --backend brute for the "
+                  "Whitted wavefront)")
         fused_fn = make_fused_whitted_renderer(
             ps.scene, ps.camera, samples=args.samples, max_depth=max_depth)
         ps.backend = "fused-whitted-kernel"
-    elif args.backend in (None, "fused"):
+    elif megakernel:
         from orion_tpu_torch.ops.fused_path import (fused_path_supported,
                                                     make_fused_path_renderer)
 
-        if not fused_path_supported(ps.scene):
-            if args.backend == "fused":
-                _fail("--backend fused, but the scene is outside the "
-                      "megakernel gate (textures / emitters / triangle "
-                      "count); see ops/fused_path.py FUSED_* limits")
-            _fail("the path megakernels past the fused gate (bounce "
-                  "pipeline, BVH path) are not ported yet (use --backend "
-                  "brute for the path wavefront)")
-        fused_fn = make_fused_path_renderer(
-            ps.scene, ps.camera, samples=args.samples, max_depth=max_depth,
-            light_samples=args.light_samples)
-        ps.backend = "fused-kernel"
-    elif ps.backend == BVH_NOT_PORTED:
-        _fail("the BVH intersection backend is not ported yet "
-              "(use --backend brute)")
+        if fused_path_supported(ps.scene):
+            fused_fn = make_fused_path_renderer(
+                ps.scene, ps.camera, samples=args.samples,
+                max_depth=max_depth, light_samples=args.light_samples)
+            ps.backend = "fused-kernel"
+        else:
+            try:
+                # past the brute gate: the big-scene path megakernel
+                fused_fn, ps.backend = make_big_path_renderer(
+                    ps.scene, ps.camera, samples=args.samples,
+                    max_depth=max_depth, light_samples=args.light_samples,
+                    strategy=args.strategy, order_signs=ps.order_signs)
+            except NotPorted as e:
+                _fail(f"{e} (use --backend bvh or --backend brute for the "
+                      f"path wavefront)")
+            except ValueError:
+                # outside every gate: the wavefront it is, as in JAX
+                if args.backend == "fused":
+                    _fail("--backend fused, but the scene is outside the "
+                          "megakernel gate (textures / emitters / triangle "
+                          "count); see ops/fused_path.py FUSED_* limits")
 
     def sync():
         if ps.scene.device.type == "cuda":
@@ -151,15 +176,24 @@ def main(argv=None) -> int:
     if fused_fn is not None:
         img = fused_fn(args.seed)
     else:
-        from orion_tpu_torch.render import render
-
         gen = torch.Generator(device=ps.scene.device)
         gen.manual_seed(args.seed)
-        with torch.no_grad():
-            img = render(ps.scene, ps.camera, gen, samples=args.samples,
-                         light_samples=args.light_samples,
-                         max_depth=max_depth, mode=mode,
-                         intersect=ps.intersect)
+        if args.regen:
+            from orion_tpu_torch.regen import render_regen
+
+            img = render_regen(ps.scene, ps.camera, gen,
+                               samples=args.samples,
+                               light_samples=args.light_samples,
+                               max_depth=max_depth, intersect=ps.intersect)
+        else:
+            from orion_tpu_torch.render import render
+
+            with torch.no_grad():
+                img = render(ps.scene, ps.camera, gen, samples=args.samples,
+                             light_samples=args.light_samples,
+                             max_depth=max_depth, mode=mode,
+                             intersect=ps.intersect,
+                             shadow_intersect=ps.shadow_intersect)
     sync()
     dt = time.perf_counter() - t0
 

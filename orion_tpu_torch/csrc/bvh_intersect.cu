@@ -1,0 +1,149 @@
+// Skip-pointer BVH walk: nearest hit, or any hit, of rays against a
+// flattened tree.
+//
+// Replaces: orion_tpu/ops/pallas_bvh.py::_make_kernel(M, W, any_hit)
+// (launched by _traverse_pallas_impl), the wavefront renderer's intersect
+// for scenes past the brute sweep's gate, and its occlusion variant for
+// Whitted shadow rays.
+//
+// Contract. Nodes are [M, 8] rows (lo xyz, hi xyz, skip, start; the last
+// two are int32 bits), node i's subtree is [i + 1, skip[i]), a leaf has
+// start >= 0 and owns the `leaf_width` rows [start, start + leaf_width) of
+// the [B_pad, 16] Woop table (columns 0..12; padding rows always miss).
+// Per ray: ptr = 0; at each node the slab test (tmax >= tmin, so flat boxes
+// hit; tmax > 0; tmin < t_best); on a hit leaf the Woop test of its rows,
+// winner min t with ties to the smallest row, replacing the best only when
+// strictly smaller; ptr = hit && !leaf ? ptr + 1 : skip[ptr]. Nearest: (t,
+// row) of the winner, or (+inf, -1). Any hit (kAnyHit): the ray leaves the
+// loop at its first hit and reports (1.0, that row). Dead rays
+// (alive == 0) leave at once with (+inf, -1). The Python wrapper maps rows
+// to scene triangle ids.
+//
+// The TPU kernel walks one pointer per block of rays and enters a subtree
+// if any lane hits its box. A thread here walks alone, which gives the same
+// winners: a lane whose own slab test fails cannot improve inside that box.
+//
+// What bounds it on the H100: operations and latency, not bytes. A slab
+// test is 12 FP32 operations (6 subtracts, 6 multiplies; the 10 min/max and
+// the compares are not counted, as the Woop test's compares are not;
+// chip_smoke.py's SLAB_TEST_FLOPS) on one 32-byte node row, a Woop test 39
+// on a 64-byte row, and both tables stay in L2 (a 35k-triangle scene at
+// leaf width 2 is about 1.2 MB of nodes and 2.3 MB of rows). Each step
+// depends on the one before it (the pointer), so a warp's time is its
+// longest lane's chain of dependent loads; incoherent rays diverge.
+//
+// Design: one thread per ray, its state (origin, direction, inverse
+// direction, best t, best row, pointer) in registers. A node row is read
+// as two float4 through the read-only cache, a Woop row as four. The Woop
+// test is written with explicit round-to-nearest multiplies and adds (as
+// brute_intersect.cu) and the slab test has no multiply-add to contract, so
+// (t, row) equal the plain PyTorch walk's bit for bit.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr float kBig = 3.0e38f;
+constexpr float kMtEps = 1e-6f;
+
+__device__ __forceinline__ float dot3(float a, float b, float c, float x,
+                                      float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)),
+                   __fmul_rn(c, z));
+}
+
+__device__ __forceinline__ float woop_t(const float4* row, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz) {
+  const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
+               e = __ldg(row + 3);
+  // a = w0..3, b = w4..7, c = w8..11, e.x = w12
+  const float ou = __fadd_rn(dot3(a.x, a.y, a.z, ox, oy, oz), c.y);
+  const float ov = __fadd_rn(dot3(a.w, b.x, b.y, ox, oy, oz), c.z);
+  const float ow = __fadd_rn(dot3(b.z, b.w, c.x, ox, oy, oz), c.w);
+  const float du = dot3(a.x, a.y, a.z, dx, dy, dz);
+  const float dv = dot3(a.w, b.x, b.y, dx, dy, dz);
+  const float dw = dot3(b.z, b.w, c.x, dx, dy, dz);
+  const float t = __fdiv_rn(-ow, dw);
+  const float u = __fadd_rn(ou, __fmul_rn(t, du));
+  const float v = __fadd_rn(ov, __fmul_rn(t, dv));
+  const bool ok = (__fmul_rn(fabsf(dw), e.x) > kMtEps) && (u >= 0.0f) &&
+                  (u <= 1.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) &&
+                  (t >= 0.0f);
+  return ok ? t : kBig;
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads)
+bvh_intersect_kernel(const float* __restrict__ orig,
+                     const float* __restrict__ dirs,
+                     const uint8_t* __restrict__ alive,
+                     const float4* __restrict__ nodes,
+                     const float4* __restrict__ tri, int M, int W, int N,
+                     float* __restrict__ t_out, int* __restrict__ row_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  float t_best = kBig;
+  int row_best = -1;
+  if (alive[i] != 0) {
+    const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
+    const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
+    const float ix = __fdiv_rn(1.0f, dx), iy = __fdiv_rn(1.0f, dy),
+                iz = __fdiv_rn(1.0f, dz);
+    int ptr = 0;
+    while (ptr < M) {
+      const float4 n0 = __ldg(nodes + 2 * ptr);      // lo.xyz, hi.x
+      const float4 n1 = __ldg(nodes + 2 * ptr + 1);  // hi.yz, skip, start
+      const float tx0 = __fmul_rn(__fsub_rn(n0.x, ox), ix);
+      const float tx1 = __fmul_rn(__fsub_rn(n0.w, ox), ix);
+      const float ty0 = __fmul_rn(__fsub_rn(n0.y, oy), iy);
+      const float ty1 = __fmul_rn(__fsub_rn(n1.x, oy), iy);
+      const float tz0 = __fmul_rn(__fsub_rn(n0.z, oz), iz);
+      const float tz1 = __fmul_rn(__fsub_rn(n1.y, oz), iz);
+      const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                               fminf(tz0, tz1));
+      const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                               fmaxf(tz0, tz1));
+      const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
+      const int start = __float_as_int(n1.w);
+      if (hit && start >= 0) {
+        for (int k = start; k < start + W; ++k) {
+          const float t = woop_t(tri + 4 * k, ox, oy, oz, dx, dy, dz);
+          if (t < t_best) {  // strict: smallest row, earliest leaf win a tie
+            t_best = t;
+            row_best = k;
+          }
+        }
+        if (kAnyHit && row_best >= 0) break;
+      }
+      ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
+    }
+  }
+  row_out[i] = row_best;
+  t_out[i] = row_best < 0 ? __int_as_float(0x7f800000)  // +inf
+                          : (kAnyHit ? 1.0f : t_best);
+}
+
+}  // namespace
+
+extern "C" int bvh_intersect_launch(const float* orig, const float* dirs,
+                                    const uint8_t* alive, const float* nodes,
+                                    const float* tri, int M, int W, int N,
+                                    int any_hit, float* t_out, int* row_out,
+                                    void* stream) {
+  if (N > 0) {
+    const int blocks = (N + kThreads - 1) / kThreads;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float4* n4 = reinterpret_cast<const float4*>(nodes);
+    const float4* t4 = reinterpret_cast<const float4*>(tri);
+    if (any_hit)
+      bvh_intersect_kernel<true><<<blocks, kThreads, 0, s>>>(
+          orig, dirs, alive, n4, t4, M, W, N, t_out, row_out);
+    else
+      bvh_intersect_kernel<false><<<blocks, kThreads, 0, s>>>(
+          orig, dirs, alive, n4, t4, M, W, N, t_out, row_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,7 +1,10 @@
-// Shared device code of the path kernels (fused_path.cu, prb.cu) and the
-// Whitted kernel (whitted.cu): PCG4D, the Woop test, the nearest-hit and
-// any-hit sweeps over a triangle table, primary rays, and the regenerative
-// path lane loop, templated over its NEE form and what it records.
+// Shared device code of the path kernels (fused_path.cu, prb.cu,
+// bvh_path.cu) and the Whitted kernel (whitted.cu): PCG4D, the Woop test,
+// the nearest-hit and any-hit sweeps over a triangle table, the nearest-hit
+// walk over a flattened tree, primary rays, and the regenerative path lane
+// loop, templated over its geometry (`Geo`: a table swept chunk by chunk;
+// `Tree`: a skip-pointer BVH over a bundled table), its NEE form and what
+// it records.
 //
 // The lane loop (`path_lane`) is the estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body, one thread per pixel
@@ -186,6 +189,55 @@ __device__ __forceinline__ bool any_hit(const Geo& g, const float* sgeo,
   return false;
 }
 
+// a flattened skip-pointer BVH over a bundled table (bvh_path.cu): `copies`
+// concatenated flattenings of one tree, copy k ordered near-first for the
+// direction octant k; node rows are lo xyz, hi xyz, skip, start (the last
+// two int32 bits); a leaf owns rows [start & ~1, +leaf_width) of `tab`
+// (bit 0 of a leaf start is a flag that this walk does not use)
+struct Tree {
+  const float4* nodes;  // [copies * M, 2]
+  const float* tab;     // [B_pad, kCols]
+  int M, leaf_width, copies;
+};
+
+// nearest row with t < cap over the tree, or -1: per node the slab test
+// against the ray's live segment [0, t_best); in a leaf min t with ties to
+// the smallest row; across leaves only a strictly smaller t wins, in
+// flattened order. `sgeo` is unused (nothing is staged for a tree).
+template <int kStride>
+__device__ __forceinline__ int nearest(const Tree& g, const float* sgeo,
+                                       const Ray& r, float cap, float& t) {
+  (void)sgeo;
+  float t_best = cap;
+  int row = -1;
+  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+  int ptr = 0;
+  if (g.copies == 8)
+    ptr = g.M * ((r.dx >= 0.0f ? 1 : 0) + (r.dy >= 0.0f ? 2 : 0) +
+                 (r.dz >= 0.0f ? 4 : 0));
+  const int end = ptr + g.M;
+  while (ptr < end) {
+    const float4 n0 = __ldg(g.nodes + 2 * ptr);      // lo.xyz, hi.x
+    const float4 n1 = __ldg(g.nodes + 2 * ptr + 1);  // hi.yz, skip, start
+    const float tx0 = (n0.x - r.ox) * ix, tx1 = (n0.w - r.ox) * ix;
+    const float ty0 = (n0.y - r.oy) * iy, ty1 = (n1.x - r.oy) * iy;
+    const float tz0 = (n0.z - r.oz) * iz, tz1 = (n1.y - r.oz) * iz;
+    const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                             fminf(tz0, tz1));
+    const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                             fmaxf(tz0, tz1));
+    const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
+    const int start = __float_as_int(n1.w);
+    if (hit && start >= 0) {
+      const int lo = start & ~1;
+      sweep_rows<true>(g.tab, kStride, lo, lo + g.leaf_width, r, t_best, row);
+    }
+    ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
+  }
+  t = t_best;
+  return row;
+}
+
 // stage a resident table's 13 Woop floats per row into shared memory
 template <int kStride>
 __device__ __forceinline__ void stage_geo(const Geo& g, float* sgeo) {
@@ -221,9 +273,10 @@ __device__ __forceinline__ void primary(const float* cam, uint32_t seed,
 // the regenerative path lane
 // ---------------------------------------------------------------------------
 
-struct PathParams {
+template <class G>
+struct PathParamsT {
   const float* cam;   // [12] origin | front | right | up
-  Geo geo;            // [T_pad, 32] table
+  G geo;              // Geo: [T_pad, 32] table; Tree: nodes + bundled table
   const float* em;    // [n_em, 160]
   float* out;         // [n_pix, 3] radiance / spp (render, forward)
   float* ls;          // [3S, n_pix] per-sample radiance (forward out,
@@ -231,7 +284,9 @@ struct PathParams {
   const float* w;     // [n_pix, 3] per-lane adjoint (replay)
   int n_em, W, H, samples, max_depth, light_samples;
   uint32_t seed;
+  int pix_base = 0;   // global pixel of out's first row (a tile's offset)
 };
+using PathParams = PathParamsT<Geo>;
 
 // the bounce's contribution T * (ke * em_scale + kd * A), rounded
 // op by op (see the header note)
@@ -256,8 +311,8 @@ __device__ __forceinline__ void bounce_contrib(const float T[3],
 // for every sample, and the light normal (at the winner's u, v) and the
 // emitted color are the shadow winner's. Returns A (NEE radiance without
 // the surface kd) and sum(scale).
-template <bool kLegacy>
-__device__ __forceinline__ void nee(const PathParams& p, const float* sgeo,
+template <bool kLegacy, class P>
+__device__ __forceinline__ void nee(const P& p, const float* sgeo,
                                     uint32_t upix, uint32_t site_sd,
                                     float hx, float hy, float hz, float gnx,
                                     float gny, float gnz, float snx,
@@ -350,8 +405,8 @@ __device__ __forceinline__ void nee(const PathParams& p, const float* sgeo,
 // shared accumulator `sacc` [6, kMLanes] (double: a grey material's
 // gradient is a small difference of large per-lane terms) and its NEE
 // emitted-color adjoint to `ek`.
-template <bool kLegacy, int kMode>
-__device__ __forceinline__ void path_lane(const PathParams& p,
+template <bool kLegacy, int kMode, class P>
+__device__ __forceinline__ void path_lane(const P& p,
                                           const float* sgeo, int pix,
                                           double* sacc, float ek[3]) {
   float cam[12];
@@ -516,9 +571,10 @@ __device__ __forceinline__ void path_lane(const PathParams& p,
   }
   if (kMode != kReplay) {
     const float inv_s = static_cast<float>(1.0 / p.samples);
-    p.out[3 * pix + 0] = acc[0] * inv_s;
-    p.out[3 * pix + 1] = acc[1] * inv_s;
-    p.out[3 * pix + 2] = acc[2] * inv_s;
+    float* out = p.out + 3 * (pix - p.pix_base);
+    out[0] = acc[0] * inv_s;
+    out[1] = acc[1] * inv_s;
+    out[2] = acc[2] * inv_s;
   }
 }
 

@@ -2,14 +2,26 @@
 
 The PyTorch counterpart of `orion_tpu.engine` (RayTracer::traceRTC's
 setup, raytracer.cpp:19-103): parse the .rtc, load and flatten the scene
-onto the device, validate it and pick the wavefront's intersection
-backend.
+onto the device, validate it, build the acceleration structure and pick
+the wavefront's intersection backend.
 
-Backend selection: scenes up to BRUTE_MAX_TRIS triangles (or any size with
-force="brute") intersect with the brute sweep (its CUDA kernel on a CUDA
-device). Larger scenes would take the BVH backend, which is not ported
-yet: the selected intersect function raises if the wavefront reaches it.
-The fused megakernel route (cli.py) does not use this selection.
+Backend selection:
+  - small scenes (<= BRUTE_MAX_TRIS triangles): the brute sweep, its CUDA
+    kernel on a CUDA scene ("brute-kernel"). For a 36-triangle Cornell box
+    a BVH walk costs more than testing everything.
+  - large scenes: a flattened BVH. On a CUDA scene the walk kernel, one
+    thread per ray, over leaves of GPU_LEAF_SIZE triangles
+    ("bvh-kernel"); on a CPU scene the batched PyTorch walk
+    ("bvh-torch"). A CUDA scene never takes "bvh-torch" unless `force`
+    names it.
+
+There is no treelet branch: the JAX package splits scenes whose bundled
+rows exceed its kernel's on-chip residency cap (RESIDENT_MAX_BUNDLED) into
+spatial treelets; here device memory holds the whole tree, so neither the
+cap nor the treelets are carried over (treelets come with primitive
+sharding).
+
+The megakernel routes (cli.py) do not use this selection.
 """
 
 from __future__ import annotations
@@ -19,15 +31,21 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
+from orion_tpu_torch.accel.bvh import (DEFAULT_LEAF, SAH, BVH, BuildStats,
+                                       build_scene_bvh)
 from orion_tpu_torch.camera import Camera, camera_from_rtc
 from orion_tpu_torch.io.rtc import RTCData
 from orion_tpu_torch.render import IntersectFn
 from orion_tpu_torch.scene import Scene, load_scene
 
 BRUTE_MAX_TRIS = 1024
-BVH_NOT_PORTED = "bvh (not ported)"
+# leaf size of the trees built for the walk kernel: a thread tests a
+# leaf's rows one after another, so small leaves suit it (PERF.md has the
+# measurement; the JAX package builds 128-wide leaves for its lane width)
+GPU_LEAF_SIZE = 2
 
 
 @dataclasses.dataclass
@@ -38,39 +56,174 @@ class PreparedScene:
     rtc: RTCData
     camera: Camera
     intersect: IntersectFn
-    backend: str                       # "brute-kernel" | BVH_NOT_PORTED | ...
+    backend: str                       # "brute-kernel" | "bvh-kernel" | ...
+    bvh: Optional[BVH] = None
+    bvh_stats: Optional[BuildStats] = None
     build_seconds: float = 0.0
     # occlusion-only (any-hit) intersect for Whitted shadow rays, where
     # only hit.mask is read; None => reuse `intersect` (as on brute)
     shadow_intersect: Optional[IntersectFn] = None
+    # how the backend was chosen (for refresh_octant_order rebuilds)
+    strategy: str = SAH
+    force_backend: Optional[str] = None
+    order_signs: tuple = (1.0, 1.0, 1.0)
 
 
-def _bvh_not_ported(scene, orig, dirs, *, alive=None):
-    raise NotImplementedError(
-        f"the BVH intersection backend is not ported yet: a "
-        f"{scene.num_triangles}-triangle scene exceeds the brute sweep's "
-        f"{BRUTE_MAX_TRIS}-triangle gate (force it with --backend brute)")
+_FORCE = (None, "brute", "bvh", "bvh-kernel", "bvh-torch")
 
 
-def select_intersect(scene: Scene, *, force: Optional[str] = None):
-    """Choose (intersect_fn, backend_name) for a scene.
+def select_intersect(scene: Scene, *, strategy: str = SAH,
+                     force: Optional[str] = None,
+                     order_signs=(1.0, 1.0, 1.0)):
+    """Choose (intersect_fn, backend_name, bvh, stats) for a scene.
 
-    force: "brute" pins the brute sweep at any size; "bvh" (or a scene past
-    BRUTE_MAX_TRIS) selects the BVH backend, which is not ported and
-    raises when used.
+    force: "brute" | "bvh" overrides the size heuristic; "bvh-kernel" and
+    "bvh-torch" also pin the implementation (the walk kernel needs a CUDA
+    scene, except that on a CPU scene it runs as its plain version, like
+    every kernel wrapper).
     """
-    if force not in (None, "brute", "bvh"):
+    if force not in _FORCE:
         raise ValueError(f"unknown intersection backend {force!r}")
     want_bvh = (scene.num_triangles > BRUTE_MAX_TRIS
-                if force is None else force == "bvh")
-    if want_bvh:
-        return _bvh_not_ported, BVH_NOT_PORTED
-    from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
+                if force is None else force != "brute")
+    if not want_bvh:
+        from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
 
-    return intersect_brute_kernel, "brute-kernel"
+        return intersect_brute_kernel, "brute-kernel", None, None
+
+    on_card = scene.device.type == "cuda"
+    use_kernel = on_card if force in (None, "bvh") else force == "bvh-kernel"
+    if use_kernel:
+        from orion_tpu_torch.ops.bvh_intersect import make_bvh_intersect_kernel
+
+        bvh, stats = build_scene_bvh(scene, strategy=strategy,
+                                     leaf_size=GPU_LEAF_SIZE,
+                                     order_signs=order_signs)
+        return (make_bvh_intersect_kernel(bvh, scene), "bvh-kernel", bvh,
+                stats)
+    bvh, stats = build_scene_bvh(scene, strategy=strategy,
+                                 leaf_size=DEFAULT_LEAF,
+                                 order_signs=order_signs)
+    from orion_tpu_torch.ops.bvh_traverse import make_bvh_intersect
+
+    return make_bvh_intersect(bvh), "bvh-torch", bvh, stats
 
 
-def prepare(rtc_path: str | Path, *, device="cuda",
+# Megakernel candidates for path scenes past the fused brute gate. Only
+# the walk is ported; the JAX package also has "bounce" (the per-bounce
+# sorted-wavefront pipeline) and "binned".
+BIG_PATH_ORDER = ("walk",)
+
+
+class NotPorted(ValueError):
+    """The JAX package would run a kernel here that has no CUDA
+    counterpart yet. A ValueError, as a request for an unknown candidate
+    is, but callers must not answer it by taking another route."""
+
+
+def make_big_path_renderer(scene: Scene, camera, *, samples: int,
+                           max_depth: int, light_samples: int = 2,
+                           strategy: str = SAH,
+                           order_signs=(1.0, 1.0, 1.0),
+                           order: Optional[tuple] = None):
+    """Path megakernel for scenes past the fused brute gate: returns
+    (fn(seed: int) -> [H, W, 3], backend_name).
+
+    Candidates (BIG_PATH_ORDER) are tried in turn; one that raises
+    ValueError (outside its gate) falls through to the next, and
+    ValueError is raised when none fits, as in the JAX package, where the
+    caller then takes the wavefront. Asking for a candidate that is not
+    ported ("bounce", "binned"), or a textured scene that only the bounce
+    pipeline serves, raises NotPorted (a ValueError) naming it: callers do
+    not fall through to another route on that.
+    """
+    from orion_tpu_torch.ops.bvh_path import (bounce_textured_supported,
+                                              bvh_path_supported,
+                                              make_bvh_path_renderer)
+
+    order = tuple(order or BIG_PATH_ORDER)
+    for cand in order:
+        if cand in ("bounce", "binned"):
+            raise NotPorted(f"big-path candidate {cand!r} is not ported")
+        if cand != "walk":
+            raise ValueError(f"unknown big-path candidate {cand!r}")
+    textured = not bvh_path_supported(scene)
+    if textured and not bounce_textured_supported(scene):
+        raise ValueError("scene outside the bvh-path gate "
+                         "(textures / emitters)")
+    if textured:
+        # textured path scenes: only the bounce pipeline resolves texels
+        # per bounce, and it is not ported
+        raise NotPorted("textured path scenes past the fused gate need the "
+                        "'bounce' candidate (the bounce pipeline), which "
+                        "is not ported")
+    fn = make_bvh_path_renderer(scene, camera, samples=samples,
+                                max_depth=max_depth,
+                                light_samples=light_samples,
+                                strategy=strategy, order_signs=order_signs)
+    return fn, "bvh-path-kernel"
+
+
+def octant_signs(front) -> tuple:
+    """Per-axis direction signs of a dominant ray direction (zeros -> +)."""
+    if torch.is_tensor(front):
+        front = front.detach().cpu().numpy()
+    return tuple(float(s) if s != 0 else 1.0
+                 for s in np.sign(np.asarray(front)))
+
+
+def _select_with_shadow(scene: Scene, strategy: str,
+                        force_backend: Optional[str], signs: tuple):
+    """select_intersect + the Whitted any-hit shadow variant when useful."""
+    fn, backend, bvh, stats = select_intersect(scene, strategy=strategy,
+                                               force=force_backend,
+                                               order_signs=signs)
+    shadow_fn = None
+    if backend == "bvh-kernel" and scene.num_lights > 0:
+        # Whitted scenes get the any-hit walk for shadow rays; both
+        # closures share ONE device layout. Path scenes never read
+        # shadow_intersect (NEE needs the nearest hit's mesh).
+        from orion_tpu_torch.ops.bvh_intersect import (
+            _bvh_device_layout, make_bvh_intersect_kernel)
+
+        layout = _bvh_device_layout(bvh, scene.device)
+        fn = make_bvh_intersect_kernel(bvh, scene, layout=layout)
+        shadow_fn = make_bvh_intersect_kernel(bvh, scene, any_hit=True,
+                                              layout=layout)
+    return fn, backend, bvh, stats, shadow_fn
+
+
+def refresh_octant_order(ps: PreparedScene, front) -> PreparedScene:
+    """Re-bake the BVH child order when the camera has moved to a new
+    direction octant (a stale hint degrades to default-order traversal).
+    No-op for brute backends or when the octant is unchanged."""
+    signs = octant_signs(front)
+    if ps.bvh is None or signs == tuple(ps.order_signs):
+        return ps
+    fn, backend, bvh, stats, shadow_fn = _select_with_shadow(
+        ps.scene, ps.strategy, ps.force_backend, signs)
+    return dataclasses.replace(ps, intersect=fn, backend=backend, bvh=bvh,
+                               bvh_stats=stats, shadow_intersect=shadow_fn,
+                               order_signs=signs)
+
+
+def render_prepared(ps: PreparedScene, generator, *, samples: int = 1,
+                    light_samples: int = 1,
+                    max_depth: Optional[int] = None,
+                    mode: Optional[str] = None):
+    """Render a PreparedScene with the wavefront; max_depth defaults to
+    the rtc recursion level EXACTLY (raytracer.cpp:29,203-206)."""
+    from orion_tpu_torch.render import render
+
+    if max_depth is None:
+        max_depth = int(ps.rtc.recursion_level)
+    return render(ps.scene, ps.camera, generator, samples=samples,
+                  max_depth=max_depth, light_samples=light_samples,
+                  mode=mode, intersect=ps.intersect,
+                  shadow_intersect=ps.shadow_intersect)
+
+
+def prepare(rtc_path: str | Path, *, device="cuda", strategy: str = SAH,
             force_backend: Optional[str] = None,
             load_textures: bool = True,
             xres: Optional[int] = None,
@@ -88,10 +241,16 @@ def prepare(rtc_path: str | Path, *, device="cuda",
     validate_rtc(rtc)
     validate_scene(scene)
     camera = camera_from_rtc(rtc, device=device)
-    fn, backend = select_intersect(scene, force=force_backend)
+    # bake near-first child order for the camera's direction octant into
+    # the BVH flattening (fewer leaf tests on coherent batches)
+    signs = octant_signs(camera.front)
+    fn, backend, bvh, stats, shadow_fn = _select_with_shadow(
+        scene, strategy, force_backend, signs)
     return PreparedScene(scene=scene, rtc=rtc, camera=camera, intersect=fn,
-                         backend=backend,
-                         build_seconds=time.perf_counter() - t0)
+                         backend=backend, bvh=bvh, bvh_stats=stats,
+                         build_seconds=time.perf_counter() - t0,
+                         shadow_intersect=shadow_fn, strategy=strategy,
+                         force_backend=force_backend, order_signs=signs)
 
 
 def render_report(ps: PreparedScene, *, samples: int, light_samples: int,
@@ -113,6 +272,7 @@ def render_report(ps: PreparedScene, *, samples: int, light_samples: int,
         "backend": ps.backend,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
+        "bvh_nodes": ps.bvh_stats.nodes if ps.bvh_stats else 0,
         "scene_build_seconds": round(ps.build_seconds, 3),
         "render_seconds": round(seconds, 3),
         "primary_rays": primary,

@@ -135,17 +135,44 @@ def _parse_corner(token: str) -> tuple:
     return vi, ti, ni
 
 
-def load_obj(path: str | Path, parser: str = "python") -> ObjScene:
+def load_obj(path: str | Path, parser: str = "auto") -> ObjScene:
     """Load an OBJ file (and its MTL libraries) into per-material meshes.
 
-    Only the Python tokenizer exists here (parser="python"); the native
-    ctypes tokenizer of the JAX package is not ported yet.
+    parser: "auto" (the native C++ tokenizer when it builds, else Python),
+    "native", "python". Both produce identical ObjScene structures.
     """
-    if parser != "python":
-        raise NotImplementedError(
-            f"OBJ parser {parser!r} is not ported; use parser='python'")
+    if parser not in ("auto", "native", "python"):
+        raise ValueError(f"unknown OBJ parser {parser!r}")
     path = Path(path)
     directory = path.parent
+
+    if parser in ("auto", "native"):
+        from orion_tpu_torch.native import obj_load_native
+
+        out = obj_load_native(path)
+        if out is not None:
+            native_meshes, mtllibs = out
+            materials: Dict[str, MTLMaterial] = {}
+            for mtl_name in mtllibs:
+                mtl_path = directory / mtl_name
+                if mtl_path.exists():
+                    materials.update(parse_mtl(mtl_path))
+            meshes = []
+            for name, mat_name, pos, nrm, uv in native_meshes:
+                if mat_name and mat_name in materials:
+                    mat = materials[mat_name]
+                elif mat_name:
+                    mat = materials.setdefault(mat_name,
+                                               MTLMaterial(name=mat_name))
+                else:
+                    mat = MTLMaterial(name="<default>")
+                meshes.append(ObjMesh(name=name or "default", material=mat,
+                                      positions=pos, normals=nrm, uvs=uv))
+            return ObjScene(meshes=meshes, materials=materials,
+                            directory=directory)
+        if parser == "native":
+            raise RuntimeError("native OBJ parser requested but the library "
+                               "is unavailable (needs g++ and native/)")
 
     positions: List[List[float]] = []
     texcoords: List[List[float]] = []

@@ -164,26 +164,10 @@ def pack_emitters(scene: Scene) -> np.ndarray:
 def fused_path_supported(scene: Scene) -> bool:
     """Gate: untextured, 1..8 emissive meshes of <= 8 triangles, padded
     table within FUSED_MAX_TRIS."""
+    from orion_tpu_torch.ops.bvh_path import bvh_path_supported
+
     return (_fused_t_pad(int(scene.num_triangles)) <= FUSED_MAX_TRIS
             and bvh_path_supported(scene))
-
-
-def bvh_path_supported(scene: Scene) -> bool:
-    """The fused gate without its triangle cap (the JAX package's gate of
-    its BVH path kernels): untextured, 1..8 emissive meshes of <= 8
-    triangles."""
-    if not (1 <= scene.num_emissive <= FUSED_MAX_EMITTERS):
-        return False
-    if int(scene.numpy("tex_hw").max()) > 1:
-        return False
-    counts = scene.numpy("mesh_tri_count")
-    for em in scene.numpy("emissive_mesh_ids")[:scene.num_emissive]:
-        if int(counts[int(em)]) > FUSED_MAX_EMITTER_TRIS:
-            return False
-    maps = np.concatenate([scene.numpy("mat_map_diffuse"),
-                           scene.numpy("mat_map_specular"),
-                           scene.numpy("mat_map_bump")])
-    return bool((maps < 0).all())
 
 
 def camera_vec(camera) -> torch.Tensor:
@@ -269,14 +253,17 @@ def _f32(x: float, dev) -> torch.Tensor:
     return torch.tensor(np.float32(x), dtype=torch.float32, device=dev)
 
 
-def _make_primary(cam, seed: int, W: int, H: int, dev):
-    """`primary(samp) -> (o, d)`: the kernels' camera rays of all W*H lanes
-    ((x, y, z) tuples of [W*H] tensors) for per-lane sample indices
-    `samp`, one PCG4D jitter per sample shared by every pixel."""
-    n = W * H
+def _make_primary(cam, seed: int, W: int, H: int, dev, pix=None):
+    """`primary(samp) -> (o, d)`: the kernels' camera rays of the lanes
+    `pix` (default: all W*H pixels), (x, y, z) tuples of [n] tensors, for
+    per-lane sample indices `samp`, one PCG4D jitter per sample shared by
+    every pixel."""
+    if pix is None:
+        pix = torch.arange(W * H, dtype=torch.int64, device=dev)
+    n = pix.shape[0]
     cam = [cam[k] for k in range(12)]
     seed_t = torch.full((n,), int(seed) & _M32, dtype=torch.int64, device=dev)
-    pix_f = torch.arange(n, dtype=torch.float32, device=dev)
+    pix_f = pix.to(torch.float32)
     inv_w, inv_h = _f32(1.0 / W, dev), _f32(1.0 / H, dev)
     px_sz, py_sz = _f32(2.0 / W, dev), _f32(2.0 / H, dev)
 
@@ -299,7 +286,8 @@ def _make_primary(cam, seed: int, W: int, H: int, dev):
 
 def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
                  max_depth: int, light_samples: int, *, legacy: bool,
-                 stats: dict | None = None):
+                 stats: dict | None = None, tree=None, pix_base: int = 0,
+                 n_lanes: int | None = None):
     """The estimator of the path kernels, batched over all W*H lanes and
     run as a fixed samples * (max_depth + 1) steps (a lane past its last
     sample idles with zero throughput).
@@ -325,18 +313,26 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
     Woop columns are read detached). stats["tests"] counts the Woop tests
     of the sweeps the kernels run without chunk culling, over lanes still
     inside their samples and real rows only.
+
+    tree: None sweeps every row of `tab`; a `bvh_path.TreeData` replaces
+    each sweep by the skip-pointer walk of the BVH path kernel over the
+    bundled `tab` (ops/bvh_traverse.walk_plain), and stats then counts the
+    walks' own work: "tests" (Woop tests of real rows in visited leaves)
+    and "box_tests" (nodes visited). pix_base / n_lanes restrict the run
+    to the lanes [pix_base, pix_base + n_lanes): a tile computes the same
+    pixels as the whole image.
     """
     dev = tab.device
-    n = W * H
+    n = W * H - pix_base if n_lanes is None else n_lanes
     S = samples
     woop = tab[:, :13].detach()
     em_np = em.detach().cpu().numpy()
     seed_t = torch.full((n,), int(seed) & _M32, dtype=torch.int64, device=dev)
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = torch.arange(n, dtype=torch.int64, device=dev) + pix_base
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     two_pi = _f32(2.0 * np.pi, dev)
     inv_ls = _f32(1.0 / light_samples, dev)
-    primary = _make_primary(cam, seed, W, H, dev)
+    primary = _make_primary(cam, seed, W, H, dev, pix)
 
     def nearest(o, d, cap, lanes=None):
         """(t, row) with row -1 where nothing is hit below cap."""
@@ -344,7 +340,9 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
         dd = torch.stack(d, dim=1)
         if lanes is not None:
             oo, dd = oo[lanes], dd[lanes]
-        return nearest_rows(woop, oo, dd, cap=cap)
+        if tree is None:
+            return nearest_rows(woop, oo, dd, cap=cap)
+        return tree.nearest(woop, oo, dd, cap, stats)
 
     def winner_tuv(o, d, row):
         """(t, u, v) of each lane's ray against its winner row."""
@@ -363,9 +361,16 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
     tests = 0
     for _ in range(samples * (max_depth + 1)):
         active = samp < S
-        if stats is not None:
-            tests += int(active.sum()) * n_real
-        t, row = nearest(o, d, BIG)
+        if tree is None:
+            if stats is not None:
+                tests += int(active.sum()) * n_real
+            t, row = nearest(o, d, BIG)
+        else:
+            # the walk's work depends on the ray: walk the active lanes only
+            lanes = torch.nonzero(active).flatten()
+            t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+            row = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            t[lanes], row[lanes] = nearest(o, d, BIG, lanes)
         hit = row >= 0
         g = tab[torch.clamp(row, min=0)]                    # winner rows
         _, u, v = winner_tuv(o, d, row)
@@ -419,7 +424,8 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
                     # the shadow sweep carries the winner's attributes
                     need = hit & active
                     lanes = torch.nonzero(need).flatten()
-                    tests += lanes.numel() * n_real
+                    if tree is None:
+                        tests += lanes.numel() * n_real
                     _, srow_l = nearest(so, sd, NEE_T_CAP, lanes)
                     srow = torch.full((n,), -1, dtype=torch.int64,
                                       device=dev)
@@ -446,7 +452,8 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
                     geom = cos_s * cos_l
                     need = hit & active & (geom > 0.0)
                     lanes = torch.nonzero(need).flatten()
-                    tests += lanes.numel() * n_real
+                    if tree is None:
+                        tests += lanes.numel() * n_real
                     _, srow = nearest(so, sd, NEE_T_CAP, lanes)
                     vis_l = (srow >= 0) & (
                         tab[torch.clamp(srow, min=0), _C_MESH]

@@ -131,7 +131,7 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
         return None
     if not set(params) <= {"mat_diffuse", "mat_emissive"}:
         return None
-    from orion_tpu_torch.ops.fused_path import bvh_path_supported
+    from orion_tpu_torch.ops.bvh_path import bvh_path_supported
     from orion_tpu_torch.ops.prb import (M_LANES, MAX_SAMPLES,
                                          fused_train_supported,
                                          make_fused_train_step)

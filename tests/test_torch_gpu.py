@@ -13,7 +13,9 @@ and the image means agree to rel 1e-3. The PRB training forward (image
 and per-sample radiance) and the Whitted kernel are held to the same; the
 replay's gradients (float32 terms summed in double by atomics in an order
 that varies from run to run) to 1e-3 x the largest entry, chip_smoke.py's
-GRAD_TOL.
+GRAD_TOL. The BVH walk kernel, like the brute sweep, has no multiply-add
+to contract and must equal its plain version bit for bit; the BVH path
+kernel is held to the fused kernel's pixel tolerance.
 """
 
 import numpy as np
@@ -22,8 +24,11 @@ import torch
 
 from chip_smoke import (random_rays, two_emitter, write_cornell,
                         write_cornell_whitted)
+from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import brute_intersect as bi
+from orion_tpu_torch.ops import bvh_intersect as bx
+from orion_tpu_torch.ops import bvh_path as bp
 from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops import whitted as wh
@@ -159,3 +164,98 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     ls = torch.zeros((16, 3), device=cuda_device)
     with pytest.raises(ValueError, match="accumulator columns"):
         prb.prb_replay(tab32, box, box, em[:1], cam, 0, w, ls, 4, 4, 1, 1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("leaf", [16, 128])
+def test_bvh_walk_kernel_equals_plain(tmp_path, cuda_device, leaf, any_hit):
+    sc, _ = _scene(tmp_path, cuda_device, "levels-3")
+    bvh, _ = build_scene_bvh(sc, leaf_size=leaf)
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    o, d, alive = random_rays(1 << 16, 9, cuda_device)   # ~10% dead lanes
+    kernel = bx.ANY_HIT_KERNEL if any_hit else bx.KERNEL
+    before = kernel.launches
+    t_k, r_k = bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=leaf,
+                           any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    t_p, r_p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=leaf,
+                                 any_hit=any_hit)
+    assert torch.equal(r_k, r_p) and torch.equal(t_k, t_p)
+    assert (r_k[~alive] == -1).all() and torch.isinf(t_k[~alive]).all()
+    assert (r_k >= 0).any()
+    if any_hit:
+        assert (t_k[r_k >= 0] == 1.0).all()
+
+
+@pytest.mark.gpu
+def test_bvh_walk_kernel_one_leaf_and_flat_box(cuda_device):
+    """A one-leaf tree over one axis-aligned quad (a flat AABB): a ray
+    through it hits, a ray lying in its plane (0 * inf in the slab test)
+    walks on and misses the triangles, as in the plain version."""
+    v0 = np.array([[0, 0, 0], [0, 0, 0]], np.float32)
+    e1 = np.array([[1, 0, 0], [1, 0, 1]], np.float32)
+    e2 = np.array([[1, 0, 1], [0, 0, 1]], np.float32)
+    bvh, st = build_bvh(v0, e1, e2, builder="numpy", leaf_size=4)
+    assert st.nodes == 1
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    o = torch.tensor([[0.5, 1.0, 0.25], [-1.0, 0.0, 0.5], [0.5, 1.0, 0.25]],
+                     device=cuda_device)
+    d = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, -1.0, 0.0]],
+                     device=cuda_device)
+    alive = torch.tensor([True, True, False], device=cuda_device)
+    for any_hit in (False, True):
+        t_k, r_k = bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=4,
+                               any_hit=any_hit)
+        t_p, r_p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=4,
+                                     any_hit=any_hit)
+        assert r_k.tolist() == [0, -1, -1] == r_p.tolist()
+        assert torch.equal(t_k, t_p) and float(t_k[0]) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf,octants", [(2, 1), (8, 8)])
+def test_bvh_path_kernel_matches_plain(tmp_path, cuda_device, leaf, octants):
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    cam = camera_from_rtc(
+        load_scene(write_cornell(tmp_path / "c64", xres=64, yres=64),
+                   device=cuda_device)[1], device=cuda_device)
+    fn = bp.make_bvh_path_renderer(sc, cam, samples=4, max_depth=4,
+                                   light_samples=2, leaf_width=leaf,
+                                   octants=octants)
+    before = bp.KERNEL.launches
+    k = fn(99)
+    torch.cuda.synchronize()
+    assert bp.KERNEL.launches == before + 1
+    dd = fn.data
+    p = bp.bvh_path_plain(dd["nodes"], dd["tab"], dd["em"], dd["cam"], 99,
+                          64, 64, 4, 4, 2, leaf_width=leaf, copies=octants)
+    _images_agree(k.reshape(-1, 3), p)
+    tile = fn(99, pix_base=1000, n_lanes=300)
+    torch.cuda.synchronize()
+    assert torch.equal(tile, k.reshape(-1, 3)[1000:1300])
+
+
+@pytest.mark.gpu
+def test_bvh_wrappers_reject_bad_inputs(tmp_path, cuda_device):
+    sc, cam = _scene(tmp_path, cuda_device, "levels-2")
+    bvh, _ = build_scene_bvh(sc, leaf_size=4)
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    o, d, alive = random_rays(64, 1, cuda_device)
+    with pytest.raises(ValueError):          # a table on the wrong device
+        bx.bvh_walk(nodes, tri.cpu(), o, d, alive, leaf_width=4)
+    with pytest.raises(ValueError):          # a tree of the wrong dtype
+        bx.bvh_walk(nodes.double(), tri, o, d, alive, leaf_width=4)
+    with pytest.raises(ValueError):
+        bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=0)
+    fn = bp.make_bvh_path_renderer(sc, cam, samples=1, max_depth=1)
+    dd = fn.data
+    args = (dd["em"], dd["cam"], 0, 32, 24, 1, 1, 1)
+    with pytest.raises(ValueError):
+        bp.bvh_path(dd["nodes"].cpu(), dd["tab"], *args, leaf_width=2)
+    with pytest.raises(ValueError):
+        bp.bvh_path(dd["nodes"], dd["tab"].double(), *args, leaf_width=2)
+    with pytest.raises(ValueError):
+        bp.bvh_path(dd["nodes"], dd["tab"], *args, leaf_width=2,
+                    pix_base=32 * 24 - 2, n_lanes=5)

@@ -72,9 +72,26 @@ def test_obj_arrays_equal(tmp_path, variant):
 
 
 def test_obj_native_parser_not_ported(tmp_path):
-    rtc = write_cornell(tmp_path)
-    with pytest.raises(NotImplementedError):
-        load_obj(tmp_path / parse_rtc(rtc).obj_file, parser="native")
+    """The native tokenizer is ported now: where it builds it gives the
+    Python parser's arrays exactly; where it does not, asking for it by
+    name raises. An unknown parser name raises either way."""
+    from orion_tpu_torch import native
+
+    rtc = write_cornell(tmp_path, levels=1)
+    obj_path = tmp_path / parse_rtc(rtc).obj_file
+    with pytest.raises(ValueError):
+        load_obj(obj_path, parser="assimp")
+    if not native.native_available():
+        with pytest.raises(RuntimeError, match="native OBJ parser"):
+            load_obj(obj_path, parser="native")
+        return
+    ours, ref = load_obj(obj_path, parser="native"), load_obj(
+        obj_path, parser="python")
+    assert [m.name for m in ours.meshes] == [m.name for m in ref.meshes]
+    for a, b in zip(ours.meshes, ref.meshes):
+        for field in ("positions", "normals", "uvs"):
+            assert np.array_equal(getattr(a, field), getattr(b, field))
+        assert a.material.name == b.material.name
 
 
 @pytest.mark.parametrize("ext", ["ppm", "hdr"])

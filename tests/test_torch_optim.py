@@ -26,7 +26,7 @@ from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu.scene import subdivide_scene as jsubdivide
 from orion_tpu_torch import optim
 from orion_tpu_torch.camera import camera_from_rtc
-from orion_tpu_torch.engine import BVH_NOT_PORTED, prepare
+from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops import prb_whitted as pw
 from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
@@ -141,7 +141,7 @@ def test_unported_routes_raise(cornell):
     assert jpw.wavefront_train_supported(big_j)
     big = subdivide_scene(to_torch(js), levels=5)
     assert not prb.fused_train_supported(big, S)
-    ps = _port_ps(big, jrtc, backend=BVH_NOT_PORTED)
+    ps = _port_ps(big, jrtc, backend="bvh-kernel")
     cfg = dict(steps=1, samples=S, max_depth=D, light_samples=LS)
     with pytest.raises(NotImplementedError, match="bounce-pipeline PRB"):
         optim.fit(ps, target, params=("mat_diffuse",), **cfg)

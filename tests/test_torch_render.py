@@ -26,13 +26,15 @@ from orion_tpu.render import trace_wavefront as jtrace
 from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch import cli
 from orion_tpu_torch.camera import camera_from_rtc, primary_rays
-from orion_tpu_torch.engine import BVH_NOT_PORTED, prepare, select_intersect
+from orion_tpu_torch.engine import (GPU_LEAF_SIZE, prepare,
+                                    select_intersect)
+from orion_tpu_torch.ops.intersect import intersect_brute
 from orion_tpu_torch.io.image import load_hdr
 from orion_tpu_torch.render import render, trace_wavefront
 from orion_tpu_torch.scene import subdivide_scene
 
 from chip_smoke import write_cornell
-from torch_port_util import to_torch, write_whitted
+from torch_port_util import to_torch, write_textured, write_whitted
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -93,7 +95,7 @@ def test_wavefront_gradients_finite(tmp_path):
 def test_unported_render_options_raise(tmp_path):
     rtc = write_cornell(tmp_path, xres=4, yres=4)
     js, jrtc = jload_scene(rtc)
-    for flag in ("sort_bounces", "remat", "fold_samples", "normal_maps"):
+    for flag in ("remat", "fold_samples", "normal_maps"):
         with pytest.raises(NotImplementedError, match=flag):
             render(to_torch(js), camera_from_rtc(jrtc, device="cpu"), _gen(0),
                    **{flag: True})
@@ -104,11 +106,28 @@ def test_select_intersect(tmp_path):
     assert select_intersect(ts)[1] == "brute-kernel"
     big = subdivide_scene(ts, levels=3)
     assert big.num_triangles > 1024
-    fn, name = select_intersect(big)
-    assert name == BVH_NOT_PORTED
-    with pytest.raises(NotImplementedError, match="BVH"):
-        fn(big, torch.zeros((1, 3)), torch.ones((1, 3)))
+    # a CPU scene past the brute gate walks the tree in plain PyTorch
+    fn, name, bvh, stats = select_intersect(big)
+    assert name == "bvh-torch"
+    assert stats.nodes == bvh.num_nodes and bvh.leaf_width == 16
+    o, d = primary_rays(camera_from_rtc(
+        jload_scene(write_cornell(tmp_path))[1], device="cpu"), 0.0131, 0.0217)
+    ours, ref = fn(big, o, d), intersect_brute(big, o, d)
+    # same nearest hit as the brute oracle (rays jittered off the mesh's
+    # shared edges): ids >= 99.9%, t to rtol 1e-5
+    assert (ours.tri_id == ref.tri_id).float().mean() >= 0.999
+    both = (ours.tri_id >= 0) & (ref.tri_id >= 0)
+    assert torch.equal(ours.mask, ref.mask)
+    np.testing.assert_allclose(ours.t[both].numpy(), ref.t[both].numpy(),
+                               rtol=1e-5)
     assert select_intersect(big, force="brute")[1] == "brute-kernel"
+    # the kernel's name pins the kernel's tree (on a CPU scene its wrapper
+    # runs the plain walk, as every kernel wrapper does)
+    fn, name, bvh, _ = select_intersect(ts, force="bvh-kernel")
+    assert name == "bvh-kernel" and bvh.leaf_width == GPU_LEAF_SIZE
+    assert select_intersect(ts, force="bvh")[1] == "bvh-torch"
+    with pytest.raises(ValueError, match="unknown"):
+        select_intersect(ts, force="bvh-pallas")
 
 
 @pytest.mark.parametrize("backend", [None, "brute"])
@@ -131,17 +150,21 @@ def test_cli_routes(tmp_path, capsys, backend):
     assert ps.scene.device.type == "cpu"
 
 
-@pytest.mark.parametrize("case", ["whitted", "bvh", "regen", "shard",
-                                  "normal-maps", "fused-gate"])
+@pytest.mark.parametrize("case", ["whitted", "checkpoint", "textured",
+                                  "shard", "normal-maps", "fused-gate"])
 def test_cli_unported_routes_fail(tmp_path, case):
     rtc = (write_whitted(tmp_path) if case == "whitted"
+           else write_textured(tmp_path) if case == "textured"
            else write_cornell(tmp_path, xres=8, yres=8))
     if case == "whitted":
         # nine point lights leave the fused-Whitted gate (<= 8): the JAX
         # package would take a BVH Whitted megakernel, which is not ported
         rtc.write_text(rtc.read_text() + "L 0 1.5 0 255 255 255 1.0\n" * 8)
     argv = [str(rtc), "-o", str(tmp_path / "o.ppm"), "--device", "cpu"]
-    extra = {"bvh": ["--backend", "bvh"], "regen": ["--regen"],
+    # a textured path scene leaves the fused gate: the JAX package would
+    # run its bounce pipeline, which is not ported
+    extra = {"checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt")],
+             "textured": [],
              "shard": ["--shard"], "normal-maps": ["--normal-maps"],
              "whitted": [], "fused-gate": ["--backend", "fused"]}[case]
     if case == "fused-gate":
@@ -188,6 +211,12 @@ def test_port_never_imports_jax():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"orion_tpu_torch/accel/bvh.py", "orion_tpu_torch/native.py",
+            "orion_tpu_torch/regen.py", "orion_tpu_torch/ops/reorder.py",
+            "orion_tpu_torch/ops/bvh_traverse.py",
+            "orion_tpu_torch/ops/bvh_intersect.py",
+            "orion_tpu_torch/ops/bvh_path.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -195,7 +224,11 @@ def test_port_never_imports_jax():
     code = ("import sys, orion_tpu_torch.cli, orion_tpu_torch.engine, "
             "orion_tpu_torch.ops.fused_path, orion_tpu_torch.ops.prb, "
             "orion_tpu_torch.ops.whitted, orion_tpu_torch.ops.prb_whitted, "
-            "orion_tpu_torch.optim, chip_smoke; "
+            "orion_tpu_torch.optim, orion_tpu_torch.accel.bvh, "
+            "orion_tpu_torch.native, orion_tpu_torch.regen, "
+            "orion_tpu_torch.ops.bvh_traverse, "
+            "orion_tpu_torch.ops.bvh_intersect, orion_tpu_torch.ops.bvh_path, "
+            "orion_tpu_torch.ops.reorder, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -13,6 +13,12 @@ from orion_tpu_torch.scene import (STATIC_FIELDS, TENSOR_FIELDS,
                                    scene_from_numpy)
 
 
+# The test workers run side by side (pytest-xdist), each with JAX's and
+# PyTorch's thread pools; one intra-op thread per worker keeps the many
+# small tensor operations of the batched walks from fighting over cores.
+torch.set_num_threads(1)
+
+
 def jax_fields(js) -> dict:
     """{field: host array} + static ints of a JAX Scene."""
     out = {n: np.asarray(getattr(js, n)) for n in TENSOR_FIELDS}
@@ -23,6 +29,17 @@ def jax_fields(js) -> dict:
 def to_torch(js, device="cpu"):
     """The identical scene as the port's Scene."""
     return scene_from_numpy(jax_fields(js), device)
+
+
+def jax_bvh_fields(jb) -> dict:
+    """{field: host array} + num_nodes and leaf_width of a JAX BVH: what
+    `orion_tpu_torch.accel.bvh.bvh_from_numpy` takes, so that both
+    packages walk the identical tree."""
+    from orion_tpu_torch.accel.bvh import ARRAY_FIELDS
+
+    out = {n: np.asarray(getattr(jb, n)) for n in ARRAY_FIELDS}
+    out.update(num_nodes=jb.num_nodes, leaf_width=jb.leaf_width)
+    return out
 
 
 def write_textured(directory):
