@@ -43,27 +43,50 @@ Phases (any failure raises and the script exits non-zero):
      kernel whose loss falls.
 
   9. big path at full width: the levels-5 subdivided Cornell box (34,818
-     triangles, written as OBJ text) through the CLI with no backend
-     forced at 1920x1080, 16 spp, depth 8, 2 light samples: the report's
-     backend is bvh-path-kernel, the image mean within 2% of phase 4's
+     triangles, written as OBJ text) through engine.prepare and
+     make_big_path_renderer(order=("walk",)) at 1920x1080, 16 spp, depth
+     8, 2 light samples (by name: the CLI's default route takes the
+     first candidate of engine.BIG_PATH_ORDER, which phase 11 drives
+     through the CLI): the backend is
+     bvh-path-kernel, the image mean within 2% of phase 4's
      (the same box, a finer mesh); the BVH path kernel's time by CUDA
      events; the kernel against its plain version over the whole image
      (whose box and triangle test counts give the bound) and on 48 tiles
      of 1,024 lanes spread evenly over the image, rendered through
      pix_base; BVH build seconds of the native and the NumPy builder.
  10. BVH wavefront: the same scene through `--backend bvh` at 256x256,
-     16 spp, depth 4, against a 256x256 BVH-path-kernel render (corr >
-     0.93, mean rel 0.15); the same wavefront with sort_bounces="morton";
+     16 spp, depth 4, against a 256x256 render of the CLI's default route
+     (the first candidate's backend; corr > 0.93, mean rel 0.15); the same wavefront with sort_bounces="morton";
      `--regen` at 256x256, 16 spp, depth 8 (mean within 2.5% of the
      depth-8 wavefront); the levels-5 Whitted box through `--backend bvh`
      at 512x512, 4 spp, depth 4 (any-hit launches > 0, mean within 2.5%
      of `--backend brute`); the walk kernel timed by CUDA-graph replay on
      one wavefront sample's recorded sweeps.
+ 11. the bounce pipeline at full width, on the levels-5 box: (a) a
+     1920x1080, 16 spp, depth 8 render through
+     make_big_path_renderer(order=("bounce",)): launches
+     and CUDA-event times per bounce of the walk and shade kernels and of
+     the sort, lanes per bounce; the same render with split_vis=True (the
+     vis kernel); the image against the BVH path kernel's of the same seed;
+     both candidates timed in turns; the same render through the CLI's
+     default route (the first candidate of engine.BIG_PATH_ORDER: its
+     backend, its launches, the renderer's image bit for bit once both are
+     .hdr files); each of the three kernels against its
+     plain version on the recorded state of depth 0 and two later bounces;
+     (b) the same box with an 8x8 checker on every material but the
+     emitter's through the CLI (backend bounce-kernel), and at 256x256
+     against the plain textured pipeline; (c) one make_bounce_train_step
+     at 1920x1080, 4 spp, depth 8 with its times, its gradients against
+     the plain pipeline's at 256x256, and a 5-step optim.fit of
+     mat_diffuse whose loss and red wall's albedo error fall.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
-levels-4, and the BVH path kernel against its plain version at 64x64 on
-levels-2 and levels-5 and against the brute training forward on levels-2.
+levels-4, the BVH path kernel against its plain version at 64x64 on
+levels-2 and levels-5 and against the brute training forward on levels-2,
+and the three bounce kernels against their plain versions on every bounce
+of a 64x64 render of Cornell, levels-2 and levels-5 at leaf widths 2 and
+128, with and without the replay dump.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -106,6 +129,8 @@ BIG_WHITTED = dict(xres=512, yres=512, samples=4, light_samples=1, depth=4)
 TILE_LANES, N_TILES = 1024, 48     # phase 9's tiles through pix_base
 # kernel vs plain gradients: max |difference| <= this x the largest entry
 GRAD_TOL = 1e-3
+# backend name of each big-path candidate on a CUDA scene
+BIG_BACKENDS = {"bounce": "bounce-kernel", "walk": "bvh-path-kernel"}
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +201,8 @@ def _midpoint_subdivide(tris: np.ndarray, levels: int) -> np.ndarray:
 
 
 def write_cornell(directory, *, xres: int = 64, yres: int = 64,
-                  depth: int = 4, levels: int = 0) -> Path:
+                  depth: int = 4, levels: int = 0,
+                  checker: bool = False) -> Path:
     """Write cornell.obj/.mtl/.rtc into `directory`; returns the .rtc path.
 
     Every triangle is wound so that cross(e1, e2) points along its listed
@@ -187,16 +213,45 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
     edge midpoints `levels` times in the OBJ text: the same box with
     34 * 4**levels + 2 triangles (levels=5: 34,818), the count
     scene.subdivide_scene gives.
+
+    checker=True maps an 8x8 two-colour checker (checker.png, written
+    beside the OBJ) as map_Kd onto every material but the emitter's, with
+    texture coordinates 0.8 * (x, y) + (0.07, 0.03) at every vertex: a
+    textured path scene, which only the bounce pipeline renders. The
+    offsets keep the axis-aligned walls, whose u or v is constant, off the
+    texel boundaries, where one ulp in a hit's barycentrics would pick the
+    other texel.
     """
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
+    tex_line = ""
+    if checker:
+        from orion_tpu_torch.io.image import save_image
+
+        tex = np.full((8, 8, 3), 0.25, np.float32)
+        tex[::2, ::2] = (0.9, 0.75, 0.5)
+        tex[1::2, 1::2] = (0.5, 0.75, 0.9)
+        save_image(str(d / "checker.png"), tex)
+        tex_line = "map_Kd checker.png\n"
     (d / "cornell.mtl").write_text(
-        "newmtl white\nKd 0.73 0.73 0.73\n\n"
-        "newmtl red\nKd 0.65 0.05 0.05\n\n"
-        "newmtl green\nKd 0.12 0.45 0.15\n\n"
+        f"newmtl white\nKd 0.73 0.73 0.73\n{tex_line}\n"
+        f"newmtl red\nKd 0.65 0.05 0.05\n{tex_line}\n"
+        f"newmtl green\nKd 0.12 0.45 0.15\n{tex_line}\n"
         "newmtl light\nKd 0.78 0.78 0.78\nKe 17.0 12.0 4.0\n")
     lines = ["mtllib cornell.mtl"]
     nv = nn = 0
+
+    def verts(pts):
+        out = ["v %.9g %.9g %.9g" % tuple(v) for v in pts]
+        if checker:
+            out += ["vt %.9g %.9g" % (0.8 * v[0] + 0.07, 0.8 * v[1] + 0.03)
+                    for v in pts]
+        return out
+
+    def face(*idx):
+        return "f " + " ".join(f"{k}/{k if checker else ''}/{nn}"
+                               for k in idx)
+
     for name, mat, quads in cornell_objects():
         lines += [f"o {name}", f"usemtl {mat}"]
         for quad, nrm in quads:
@@ -208,23 +263,22 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
             if levels > 0 and mat != "light":
                 tris = _midpoint_subdivide(
                     np.stack([q[[0, 1, 2]], q[[0, 2, 3]]]), levels)
-                lines += ["v %.9g %.9g %.9g" % tuple(v)
-                          for v in tris.reshape(-1, 3)]
+                lines += verts(tris.reshape(-1, 3))
                 lines.append(vn)
-                lines += [f"f {k}//{nn} {k + 1}//{nn} {k + 2}//{nn}"
+                lines += [face(k, k + 1, k + 2)
                           for k in range(nv + 1, nv + 1 + 3 * len(tris), 3)]
                 nv += 3 * len(tris)
                 continue
-            lines += ["v %.9g %.9g %.9g" % tuple(v) for v in q]
+            lines += verts(q)
             lines.append(vn)
             a, b, c, e = nv + 1, nv + 2, nv + 3, nv + 4
-            lines.append(f"f {a}//{nn} {b}//{nn} {c}//{nn}")
-            lines.append(f"f {a}//{nn} {c}//{nn} {e}//{nn}")
+            lines += [face(a, b, c), face(a, c, e)]
             nv += 4
     (d / "cornell.obj").write_text("\n".join(lines) + "\n")
     rtc = d / "cornell.rtc"
     rtc.write_text("# Cornell box, path traced (no point lights)\n"
-                   f"cornell.obj\nnone\n{depth}\n{xres} {yres}\n"
+                   f"cornell.obj\n{'checker.png' if checker else 'none'}\n"
+                   f"{depth}\n{xres} {yres}\n"
                    "0 1 3.4\n0 1 0\n0 1 0\n0.8\n")
     return rtc
 
@@ -373,6 +427,154 @@ def mask_agree(name: str, kernel, plain) -> None:
           and bool(torch.isinf(t_k[r_k < 0]).all()), f"any-hit {name}: t")
 
 
+def walk_agree(name: str, k, p) -> float:
+    """Hold hitdata [8, n] of the bounce walk kernel against the plain
+    version's: hit flag and winner row equal on >= 99.9% of lanes (a tie
+    may break the other way); of those that hit, t within rel 1e-5 + 1e-6
+    and (u, v) within 1e-4 on >= 99.9%, and within rel 1e-2 / 1e-2 on all
+    (the kernel contracts the Woop test's multiply-adds, which moves a
+    grazing ray's t = -o_w / d_w most: rel 1.6e-3 on one lane of 6
+    million). Returns the largest absolute t difference there."""
+    same = (k[4] == p[4]) & (k[3] == p[3])
+    frac = float(same.float().mean())
+    both = same & (p[4] > 0)
+    dt = (k[0] - p[0]).abs()[both]
+    t_ref = p[0][both].abs()
+    duv = (k[1:3] - p[1:3]).abs()[:, both].amax(dim=0)
+    none = dt.numel() == 0
+    rel = 0.0 if none else float((dt / t_ref).max())
+    uv = 0.0 if none else float(duv.max())
+    close = 1.0 if none else float(((dt <= 1e-5 * t_ref + 1e-6)
+                                    & (duv <= 1e-4)).float().mean())
+    print(f"[walk {name}] {p.shape[1]} lanes, winners equal {frac:.6f}, t "
+          f"within rel 1e-5 and uv within 1e-4 on {close:.6f} (max rel "
+          f"{rel:.3g}, max |uv| diff {uv:.3g}), hits {int((p[4] > 0).sum())}")
+    check(frac >= 0.999, f"walk {name}: winners equal on {frac}")
+    check(close >= 0.999 and rel <= 1e-2 and uv <= 1e-2,
+          f"walk {name}: close on {close}, max rel t {rel}, max uv {uv}")
+    check(not bool(k[5:].any()), f"walk {name}: rows 5-7 not zero")
+    return 0.0 if none else float(dt.max())
+
+
+def vis_agree(name: str, k, p) -> float:
+    """Visibility planes [8, n] of the bounce vis kernel against the plain
+    version's: both samples' 0/1 flags equal on >= 99.9% of lanes. Returns
+    the share of lanes that differ."""
+    same = (k[0] == p[0]) & (k[1] == p[1])
+    frac = float(same.float().mean())
+    print(f"[vis {name}] {p.shape[1]} lanes, planes equal {frac:.6f}, "
+          f"visible samples {int(p[:2].sum())}")
+    check(frac >= 0.999, f"vis {name}: planes equal on {frac}")
+    check(not bool(k[2:].any()) and bool(((k[:2] == 0) | (k[:2] == 1)).all()),
+          f"vis {name}: planes not 0/1 or rows 2-7 not zero")
+    return 1.0 - frac
+
+
+def shade_agree(name: str, k, p, rows: int = 13) -> float:
+    """Hold a shaded state prefix [16, n] (or an aux dump, rows=15) of the
+    bounce shade kernel against the plain version's: a lane is off when
+    one of its first `rows` rows differs by more than 1e-4 + 1e-3*|ref|;
+    <= 1% of lanes may be (a shadow tie that breaks the other way, a
+    cosine an ulp apart). For a state the sort key is equal on >= 99% of
+    lanes (an origin on a cell face may land next door) and the riders
+    (pixel, sample) everywhere. Returns the largest absolute difference."""
+    check(bool(torch_isfinite(k)), f"shade {name}: non-finite")
+    bad = (k[:rows] - p[:rows]).abs() > 1e-4 + 1e-3 * p[:rows].abs()
+    frac_bad = float(bad.any(dim=0).float().mean())
+    err = float((k[:rows] - p[:rows]).abs().max())
+    msg = (f"[shade {name}] {p.shape[1]} lanes, lanes off {frac_bad:.5f}, "
+           f"max abs {err:.3g}")
+    if rows == 13:
+        keys = float((k[13] == p[13]).float().mean())
+        msg += (f", keys equal {keys:.5f}, continuing "
+                f"{int((p[9] > 0).sum())}")
+        check(keys >= 0.99, f"shade {name}: keys equal on {keys}")
+        check(bool((k[14:] == p[14:]).all()), f"shade {name}: riders moved")
+    print(msg)
+    check(frac_bad <= 0.01, f"shade {name}: {frac_bad} lanes off")
+    return err
+
+
+def torch_isfinite(x) -> bool:
+    import torch
+
+    return bool(torch.isfinite(x).all())
+
+
+def bounce_kernels_agree(name: str, fn, seed: int, *, depths=None,
+                         with_aux: bool = False, chunk: int = 1 << 22):
+    """Render once through `fn` (a make_bounce_path_renderer on the card),
+    keep the state and the kernels' outputs of every bounce in `depths`
+    (default: all), and hold each of the three kernels against its plain
+    version on those inputs, `chunk` lanes at a time. The vis kernel and
+    the shade kernel fed its planes are held too where the scene has one
+    emitter and the render two light samples.
+
+    Returns {depth: dict(n=lanes, hits=lanes that hit, errs=(walk, vis,
+    shade), plain_ms=(walk, vis, shade), stats=(walk, vis, shade))}: the
+    plain versions' CUDA-event times and work counters (box_tests, tests).
+    """
+    import torch
+
+    from orion_tpu_torch.ops import bounce as bo
+
+    ctx = fn.ctx
+    data, D, LS = ctx["data"], ctx["max_depth"], ctx["light_samples"]
+    pair = LS == 2 and data.em.shape[0] == 1
+    rec = []
+
+    def record(depth, n, st, hd, kd, vis):
+        if depths is None or depth in depths:
+            rec.append((depth, n, st[:, :n].clone(), hd, kd))
+
+    fn(seed, record=record)
+    torch.cuda.synchronize()
+    out = {}
+    for depth, n, st, hd, kd in rec:
+        errs, ms = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+        stats = [{}, {}, {}]
+        for a in range(0, n, chunk):
+            b = min(n, a + chunk)
+            tag = f"{name} depth {depth} lanes {a}:{b}"
+            st_c = st[:, a:b].contiguous()
+            hd_c = hd[:, a:b].contiguous()
+            kd_c = None if kd is None else kd[:, a:b].contiguous()
+            t, p = once_ms(lambda: bo.bounce_walk_plain(data, st_c, b - a,
+                                                       stats[0]))
+            ms[0] += t
+            errs[0] = max(errs[0], walk_agree(tag, hd_c, p))
+            vis_k = None
+            if pair:
+                vis_k = bo.bounce_vis(data, st_c, hd_c, seed, depth)
+                t, p = once_ms(lambda: bo.bounce_vis_plain(
+                    data, st_c, hd_c, seed, depth, stats[1]))
+                ms[1] += t
+                errs[1] = max(errs[1], vis_agree(tag, vis_k, p))
+            st_k = st_c.clone()
+            aux_k = bo.bounce_shade(data, st_k, hd_c, seed, depth, D, LS,
+                                    kd=kd_c, with_aux=with_aux)
+            t, (st_p, aux_p) = once_ms(lambda: bo.bounce_shade_plain(
+                data, st_c, hd_c, seed, depth, D, LS, kd=kd_c,
+                with_aux=with_aux, stats=stats[2]))
+            ms[2] += t
+            errs[2] = max(errs[2], shade_agree(tag, st_k, st_p))
+            if with_aux:
+                shade_agree(f"{tag} aux", aux_k, aux_p, rows=15)
+            if pair:
+                # the shade kernel fed the vis kernel's planes: the same
+                # bounce as with its own shadow walks
+                st_v = st_c.clone()
+                aux_v = bo.bounce_shade(data, st_v, hd_c, seed, depth, D, LS,
+                                        kd=kd_c, vis=vis_k,
+                                        with_aux=with_aux)
+                shade_agree(f"{tag} given vis", st_v, st_k)
+                if with_aux:
+                    shade_agree(f"{tag} aux given vis", aux_v, aux_k, rows=15)
+        out[depth] = dict(n=n, hits=int((hd[4] > 0).sum()), errs=errs,
+                          plain_ms=ms, stats=stats)
+    return out
+
+
 def record_sweeps(scene, cam, intersect, cfg: dict, seed: int = 0):
     """Every sweep (orig, dirs, alive) that one wavefront sample of
     `render` hands to its intersect function."""
@@ -477,7 +679,8 @@ def main() -> int:
           f"{kind}")
     t0 = time.perf_counter()
     built = cuda_build.build(["fused_path", "brute_intersect", "prb",
-                              "whitted", "bvh_intersect", "bvh_path"])
+                              "whitted", "bvh_intersect", "bvh_path",
+                              "bounce"])
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -559,6 +762,9 @@ def main() -> int:
 
         walk_err, path_err, walk_sweeps = _phase_bvh_checks(
             dev, rtc_path, lv2, lv4, lv5, cam64)
+        bounce_errs = _phase_bounce_checks(
+            (("cornell", cornell), ("levels-2", lv2),
+             (f"levels-{BIG_LEVELS}", lv5)), cam64)
 
         # 4. main path ------------------------------------------------------
         fp.KERNEL.launches = 0
@@ -662,6 +868,7 @@ def main() -> int:
         big = _phase_big_path(tmp, dev, card, lv5, float(img.mean()),
                               path_err)
         walk = _phase_bvh_wavefront(tmp, dev, walk_sweeps, walk_err)
+        bounce = _phase_bounce(tmp, dev, card, lv5, bounce_errs)
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -691,6 +898,15 @@ def main() -> int:
         {"name": "bvh_path", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bvh_path.cu",
          "replaces": "orion_tpu/ops/pallas_bvh_path.py:569", **big},
+        {"name": "bounce_walk", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bounce.cu",
+         "replaces": "orion_tpu/ops/pallas_bounce.py:223", **bounce["walk"]},
+        {"name": "bounce_vis", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bounce.cu",
+         "replaces": "orion_tpu/ops/pallas_bounce.py:285", **bounce["vis"]},
+        {"name": "bounce_shade", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bounce.cu",
+         "replaces": "orion_tpu/ops/pallas_bounce.py:359", **bounce["shade"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -1018,15 +1234,371 @@ def _phase_bvh_checks(dev, rtc_path: Path, lv2, lv4, lv5, cam64):
     return walk_err, path_err, sweeps
 
 
-def _phase_big_path(tmp: Path, dev, card: str, lv5, cornell_mean: float,
-                    path_err: float) -> dict:
-    """Phase 9: the big path scene at full width through the CLI. Returns
-    the BVH path kernel's record."""
+def _phase_bounce_checks(scenes, cam64) -> list:
+    """Phase 3, the three bounce kernels against their plain versions on
+    the recorded state of every bounce of one 64x64, 4 spp, depth 4 render,
+    at leaf width 2 (one tree copy) and 128 (eight octant copies), with
+    and without the replay dump; the kernels' pipeline against the plain
+    pipeline; a split_vis render against the fused one. Returns the
+    largest errors (walk, vis, shade)."""
     import torch
 
-    from orion_tpu_torch import native
+    from orion_tpu_torch.ops import bounce as bo
+
+    errs = [0.0, 0.0, 0.0]
+    cfg = dict(samples=4, max_depth=4, light_samples=2)
+    for sname, sc in scenes:
+        for leaf in (2, 128):
+            tree = dict(leaf_width=leaf, octant_trees=leaf == 128)
+            fn = bo.make_bounce_path_renderer(sc, cam64, **cfg, **tree)
+            for with_aux in (False, True):
+                res = bounce_kernels_agree(
+                    f"{sname} leaf {leaf}{' aux' if with_aux else ''}", fn,
+                    1234, with_aux=with_aux)
+                check(sorted(res) == list(range(5)) or len(res) >= 3,
+                      f"bounce {sname}: bounces recorded {sorted(res)}")
+                for r in res.values():
+                    errs = [max(e, x) for e, x in zip(errs, r["errs"])]
+            img = fn(1234)
+            plain = bo.make_bounce_path_renderer(
+                sc, cam64, steps=bo.PLAIN_STEPS, **cfg, **tree)(1234)
+            fused_agree(f"bounce pipeline {sname} leaf {leaf} 64x64",
+                        img.reshape(-1, 3), plain.reshape(-1, 3))
+            split = bo.make_bounce_path_renderer(sc, cam64, split_vis=True,
+                                                 **cfg, **tree)(1234)
+            torch.cuda.synchronize()
+            d = float((split - img).abs().max())
+            print(f"[bounce split_vis {sname} leaf {leaf}] max abs "
+                  f"difference from the fused render {d:.3g}")
+            check(bool(torch.allclose(split, img, rtol=1e-6, atol=1e-7)),
+                  f"split_vis render differs by {d}")
+    return errs
+
+
+def _stage_ms(timings) -> dict:
+    """{(stage, depth): (lanes, ms)} of a pipeline's timing records."""
+    return {(name, depth): (n, a.elapsed_time(b))
+            for name, depth, n, a, b in timings}
+
+
+def _phase_bounce(tmp: Path, dev, card: str, lv5, errs3: list) -> dict:
+    """Phase 11: the bounce pipeline at full width: render, textured
+    render, train step and fit. Returns the three kernels' records."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import bounce_prb as bpr
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.optim import fit
+
+    W, H, S, D, LS = (MAIN["xres"], MAIN["yres"], MAIN["samples"],
+                      MAIN["depth"], MAIN["light_samples"])
+    kernels = (bo.WALK_KERNEL, bo.VIS_KERNEL, bo.SHADE_KERNEL)
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return tuple(k.launches for k in kernels)
+
+    # (a) the render ---------------------------------------------------------
+    rtc = write_cornell(tmp / "bounce_main", xres=W, yres=H, depth=D,
+                        levels=BIG_LEVELS)
+    cam = camera_from_rtc(_resized(parse_rtc(rtc), MAIN), device=dev)
+    cfg = dict(samples=S, max_depth=D, light_samples=LS)
+    t0 = time.perf_counter()
+    fn_b, name = engine.make_big_path_renderer(lv5, cam, order=("bounce",),
+                                               **cfg)
+    torch.cuda.synchronize()
+    print(f"[11] bounce pipeline set-up (tree, table): "
+          f"{time.perf_counter() - t0:.3f} s, backend {name}")
+    check(name == "bounce-kernel", f"bounce backend {name}")
+    fn_b(1)          # warm-up: the first sort allocates its scratch
+    reset()
+    timings = []
+    img_b = fn_b(0, timings=timings)
+    torch.cuda.synchronize()
+    main_counts = counts()
+    stage = _stage_ms(timings)
+    lanes = [stage[("walk", d)][0] for d in range(D + 1)
+             if ("walk", d) in stage]
+    per = {k: sum(ms for (nm, _), (_, ms) in stage.items() if nm == k)
+           for k in ("walk", "shade", "sort")}
+    print(f"[11] bounce render {MAIN} on {lv5.num_triangles} triangles: "
+          f"launches (walk, vis, shade) {main_counts}; lanes per bounce "
+          f"{lanes}")
+    for d in range(len(lanes)):
+        print(f"[11]   depth {d}: {lanes[d]} lanes, walk "
+              f"{stage[('walk', d)][1]:.3f} ms, shade "
+              f"{stage[('shade', d)][1]:.3f} ms"
+              + (f", sort + permute + count {stage[('sort', d)][1]:.3f} ms "
+                 f"over {stage[('sort', d)][0]} lanes" if d else ""))
+    print(f"[11]   sums: walk {per['walk']:.3f}, shade {per['shade']:.3f}, "
+          f"sort {per['sort']:.3f} ms; primary wavefront "
+          f"{stage[('primaries', 0)][1]:.3f} ms, image from the state "
+          f"{stage[('image', 0)][1]:.3f} ms")
+    check(main_counts[0] == len(lanes) and main_counts[2] == len(lanes)
+          and main_counts[1] == 0 and len(lanes) >= 2,
+          f"bounce render launches {main_counts}")
+    check(img_b.shape == (H, W, 3) and torch_isfinite(img_b), "bounce image")
+
+    # the same render with the standalone visibility kernel
+    fn_s = bo.make_bounce_path_renderer(lv5, cam, split_vis=True, **cfg)
+    reset()
+    t_split = []
+    img_s = fn_s(0, timings=t_split)
+    torch.cuda.synchronize()
+    split_counts = counts()
+    st_split = _stage_ms(t_split)
+    d_split = float((img_s - img_b).abs().max())
+    print(f"[11] split_vis render: launches (walk, vis, shade) "
+          f"{split_counts}; depth 0 vis {st_split[('vis', 0)][1]:.3f} ms, "
+          f"shade given vis {st_split[('shade', 0)][1]:.3f} ms; sums vis "
+          f"{sum(ms for (nm, _), (_, ms) in st_split.items() if nm == 'vis'):.3f}"
+          f", shade "
+          f"{sum(ms for (nm, _), (_, ms) in st_split.items() if nm == 'shade'):.3f}"
+          f" ms; max abs difference from the fused render {d_split:.3g}")
+    check(split_counts[1] == split_counts[0] > 0, "split_vis never launched "
+          "the vis kernel")
+    check(bool(torch.allclose(img_s, img_b, rtol=1e-6, atol=1e-7)),
+          f"split_vis render differs by {d_split}")
+    del img_s, fn_s
+
+    # against kernel 8 on the same seed, and both candidates' times in
+    # turns (bounce, walk, walk, bounce)
+    fn_w, name_w = engine.make_big_path_renderer(lv5, cam, order=("walk",),
+                                                 **cfg)
+    check(name_w == "bvh-path-kernel", f"walk backend {name_w}")
+    b1, b1_times, _ = event_ms(lambda: fn_b(0), 2)
+    w_ms, w_times, img_w = event_ms(lambda: fn_w(0), 4)
+    b2, b2_times, _ = event_ms(lambda: fn_b(0), 2)
+    b_times = b1_times + b2_times
+    b_ms = float(np.median(b_times))
+    rays = W * H * S
+    print(f"[11] candidates on {card}, {rays} primary rays: bounce pipeline "
+          f"{b_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in b_times)}) = "
+          f"{rays / (b_ms * 1e-3):.4g} primary rays/s; BVH path kernel "
+          f"{w_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in w_times)}) = "
+          f"{rays / (w_ms * 1e-3):.4g} primary rays/s; BIG_PATH_ORDER "
+          f"{engine.BIG_PATH_ORDER}")
+    fused_agree("bounce vs bvh path 1080p", img_b.reshape(-1, 3),
+                img_w.reshape(-1, 3))
+    # and at a small image, where the pipeline's launches and host syncs
+    # weigh more: the BVH wavefront's 256x256, 16 spp, depth 4
+    cam_q = camera_from_rtc(_resized(parse_rtc(rtc), SECOND), device=dev)
+    cfg_q = dict(samples=SECOND["samples"], max_depth=SECOND["depth"],
+                 light_samples=SECOND["light_samples"])
+    q_ms = {}
+    for cand in ("bounce", "walk"):
+        fn_q, _ = engine.make_big_path_renderer(lv5, cam_q, order=(cand,),
+                                                **cfg_q)
+        q_ms[cand], _, _ = event_ms(lambda: fn_q(0), 5)
+    print(f"[11] candidates at {SECOND}: bounce pipeline "
+          f"{q_ms['bounce']:.3f} ms, BVH path kernel {q_ms['walk']:.3f} ms")
+    # the CLI's default route past the fused gate takes the first candidate
+    # of engine.BIG_PATH_ORDER: the same seed gives the renderer's image,
+    # once that has been through an .hdr file too
+    first = engine.BIG_PATH_ORDER[0]
+    bp.KERNEL.launches = 0
+    reset()
+    img_c, report = run_cli(rtc, tmp / "big_cli.hdr", MAIN, report=True)
+    cli_counts = {"bounce": counts(), "walk": (bp.KERNEL.launches,)}[first]
+    print(f"[11] the default route through the CLI: backend "
+          f"{report['backend']}, {report['triangles']} triangles, render "
+          f"{report['render_seconds']} s, launches {cli_counts}")
+    check(report["backend"] == BIG_BACKENDS[first],
+          f"CLI backend {report['backend']}, first candidate {first!r}")
+    check(report["triangles"] == 34 * 4 ** BIG_LEVELS + 2, "CLI scene size")
+    check(cli_counts[0] > 0 and cli_counts[-1] > 0,
+          f"the CLI's default route never launched its kernels {cli_counts}")
+    from orion_tpu_torch.io.image import load_hdr, save_image
+
+    save_image(str(tmp / "big_direct.hdr"),
+               (img_b if first == "bounce" else img_w).cpu().numpy())
+    check(np.array_equal(img_c, load_hdr(tmp / "big_direct.hdr")),
+          "the CLI's image differs from the renderer's")
+    del img_w, fn_w
+
+    # each kernel against its plain version on the recorded state of
+    # depth 0 and two later bounces
+    later = sorted({min(2, len(lanes) - 1), min(5, len(lanes) - 1)})
+    res = bounce_kernels_agree("1080p", fn_b, 0, depths=[0] + later,
+                               chunk=1 << 23)
+    errs = [max([e] + [r["errs"][i] for r in res.values()])
+            for i, e in enumerate(errs3)]
+    r0 = res[0]
+    N = r0["n"]
+    data = fn_b.ctx["data"]
+    tree_bytes = (data.nodes.numel() + data.tab.numel()) * 4
+    flops = [st.get("box_tests", 0) * SLAB_TEST_FLOPS
+             + st.get("tests", 0) * WOOP_TEST_FLOPS for st in r0["stats"]]
+    # bytes a launch must move: state rows read (walk 7; vis 9; shade 16)
+    # and written (shade 14), hitdata (8 rows written, 5 read), the vis
+    # planes (8 rows), and the tree and the table once (the winners' table
+    # rows are part of that table)
+    nbytes = [N * (7 + 8) * 4 + tree_bytes,
+              N * (9 + 5 + 8) * 4 + tree_bytes,
+              N * (16 + 14 + 5) * 4 + tree_bytes]
+    bounds = [bound_ms(f, b) for f, b in zip(flops, nbytes)]
+    k_ms = (stage[("walk", 0)][1], st_split[("vis", 0)][1],
+            stage[("shade", 0)][1])
+    for i, kname in enumerate(("walk", "vis", "shade")):
+        st = r0["stats"][i]
+        print(f"[11] bounce {kname} kernel, depth 0 ({N} lanes): "
+              f"{k_ms[i]:.3f} ms kernel, {r0['plain_ms'][i]:.1f} ms plain; "
+              f"{st.get('box_tests', 0):.6g} box tests and "
+              f"{st.get('tests', 0):.6g} Woop tests, {nbytes[i]:.6g} bytes, "
+              f"bound {bounds[i][0]:.4f} ms ({bounds[i][1]})")
+    records = {
+        kname: {"launches": (main_counts[0], split_counts[1],
+                             main_counts[2])[i],
+                "max_abs_err": errs[i], "ms": k_ms[i],
+                "plain_ms": r0["plain_ms"][i], "bound_ms": bounds[i][0],
+                "bound_by": bounds[i][1], "library_ms": None}
+        for i, kname in enumerate(("walk", "vis", "shade"))}
+    del res, r0
+
+    # (b) the same box, textured, through the CLI -----------------------------
+    rtc_t = write_cornell(tmp / "bounce_tex", xres=W, yres=H, depth=D,
+                          levels=BIG_LEVELS, checker=True)
+    reset()
+    t0 = time.perf_counter()
+    img_t, report = run_cli(rtc_t, tmp / "tex.hdr", MAIN, report=True)
+    secs = time.perf_counter() - t0
+    tex_counts = counts()
+    diff = float(np.abs(img_t - img_b.cpu().numpy()).mean())
+    print(f"[11] textured box {MAIN} through the CLI: {secs:.3f} s (scene "
+          f"{report['scene_build_seconds']} s, render "
+          f"{report['render_seconds']} s = "
+          f"{rays / report['render_seconds']:.4g} primary rays/s), backend "
+          f"{report['backend']}, launches (walk, vis, shade) {tex_counts}, "
+          f"mean {img_t.mean():.6g} vs the solid box's "
+          f"{float(img_b.mean()):.6g}, mean |difference| {diff:.4g}")
+    check(report["backend"] == "bounce-kernel",
+          f"textured backend {report['backend']}")
+    check(report["triangles"] == 34 * 4 ** BIG_LEVELS + 2, "textured size")
+    check(tex_counts[0] > 0 and tex_counts[2] > 0, "textured render never "
+          "launched the bounce kernels")
+    check(img_t.shape == (H, W, 3) and np.isfinite(img_t).all()
+          and img_t.mean() > 0, "textured image")
+    check(diff > 1e-3, "the textured image equals the solid one")
+    del img_b
+    ps_t = engine.prepare(rtc_t, device=dev, xres=256, yres=256)
+    fn_t = bo.make_bounce_path_renderer(ps_t.scene, ps_t.camera, **cfg)
+    k = fn_t(0)
+    # the kernels given texel kd planes, on three bounces' recorded state
+    bounce_kernels_agree("textured 256x256", fn_t, 0, depths=(0, 1, 4))
+    p_ms, p = once_ms(lambda: bo.make_bounce_path_renderer(
+        ps_t.scene, ps_t.camera, steps=bo.PLAIN_STEPS, **cfg)(0))
+    mrel = abs(float(k.mean()) - float(p.mean())) / float(p.mean())
+    print(f"[11] textured 256x256: plain pipeline {p_ms:.1f} ms, mean rel "
+          f"{mrel:.3g}")
+    check(mrel <= 0.025, f"textured mean rel {mrel}")
+    fused_agree("textured bounce pipeline 256x256", k.reshape(-1, 3),
+                p.reshape(-1, 3))
+
+    # (c) the trainer ---------------------------------------------------------
+    TW, TH, TS, TD, TLS = (TRAIN["xres"], TRAIN["yres"], TRAIN["samples"],
+                           TRAIN["depth"], TRAIN["light_samples"])
+    tcfg = dict(samples=TS, max_depth=TD, light_samples=TLS)
+    seed = 3
+    ps = engine.prepare(rtc, device=dev)
+    kd_true = ps.scene.mat_diffuse.clone()
+    red = int(torch.argmax(kd_true[:, 0] - kd_true[:, 1]))
+    kd_pert = kd_true.clone()
+    kd_pert[red] *= 0.6
+    pert = dataclasses.replace(ps.scene, mat_diffuse=kd_pert)
+    params = {"mat_diffuse": kd_pert}
+
+    # gradients against the plain pipeline's, at 256x256
+    cam_s = camera_from_rtc(_resized(parse_rtc(rtc), dict(xres=256,
+                                                          yres=256)),
+                            device=dev)
+    target_s = bo.make_bounce_path_renderer(ps.scene, cam_s, **tcfg)(seed)
+    loss_k, g_k = bpr.make_bounce_train_step(pert, cam_s, target_s,
+                                             **tcfg)(seed)
+    loss_p, g_p = bpr.make_bounce_train_step(
+        pert, cam_s, target_s, steps=bo.PLAIN_STEPS, **tcfg)(seed)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / float(loss_p)
+    print(f"[11] train 256x256: loss kernels {float(loss_k):.7g} vs plain "
+          f"{float(loss_p):.7g} (rel {loss_rel:.3g})")
+    check(loss_rel <= 1e-3, f"bounce train loss rel {loss_rel}")
+    for pname in ("mat_diffuse", "mat_emissive"):
+        grad_agree(f"bounce train {pname} 256x256", g_k[pname], g_p[pname])
+
+    # one step at full width, timed
+    target = bo.make_bounce_path_renderer(ps.scene, ps.camera,
+                                          **tcfg)(seed)
+    step = bpr.make_bounce_train_step(pert, ps.camera, target,
+                                      dynamic_params=True, **tcfg)
+    reset()
+    timings = []
+    loss, grads = step(params, seed, timings=timings)
+    torch.cuda.synchronize()
+    step_counts = counts()
+    stage = _stage_ms(timings)
+    t_lanes = [stage[("walk", d)][0] for d in range(TD + 1)
+               if ("walk", d) in stage]
+    print(f"[11] bounce train step {TRAIN} on {pert.num_triangles} "
+          f"triangles: loss {float(loss):.6g}, launches (walk, vis, shade) "
+          f"{step_counts}, lanes per bounce {t_lanes}; largest |d kd| "
+          f"{float(grads['mat_diffuse'].abs().max()):.4g}")
+    print(f"[11]   of that step: "
+          + ", ".join(f"{k} {stage[(k, 0)][1]:.3f} ms"
+                      for k in ("primaries", "cotangent", "adjoints")))
+    check(step_counts[0] == len(t_lanes) == step_counts[2] > 1,
+          f"train step launches {step_counts}")
+    check(torch_isfinite(grads["mat_diffuse"])
+          and float(grads["mat_diffuse"].abs().max()) > 0, "train gradients")
+    pipe = step.ctx["pipeline"]
+    tab = step.ctx["data"].tab
+    f_ms, f_times, _ = event_ms(lambda: pipe(seed, tab), 3)
+    s_ms, s_times, _ = event_ms(lambda: step(params, seed), 3)
+    t_rays = TW * TH * TS
+    print(f"[11] bounce train step: {s_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in s_times)}) = "
+          f"{t_rays / (s_ms * 1e-3):.4g} fwd+bwd primary rays/s on {card}; "
+          f"forward with dumps {f_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in f_times)}), so table, image, "
+          f"realignment and backward {s_ms - f_ms:.3f} ms")
+
+    # the user's entry point: fit past the fused gate
+    ps_pert = dataclasses.replace(ps, scene=pert)
+    reset()
+    t0 = time.perf_counter()
+    res = fit(ps_pert, target, params=("mat_diffuse",), steps=5,
+              learning_rate=0.05, seed=seed, resample_keys=False, **tcfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err0 = float((kd_pert[red] - kd_true[red]).abs().sum())
+    err1 = float((res.params["mat_diffuse"][red] - kd_true[red]).abs().sum())
+    print(f"[11] fit 5 steps in {secs:.3f} s: losses "
+          f"{', '.join(f'{x:.6g}' for x in res.losses)}; red wall albedo "
+          f"error {err0:.5f} -> {err1:.5f}; launches (walk, vis, shade) "
+          f"{counts()}")
+    check(counts()[0] > 0 and counts()[2] > 0, "fit never launched the "
+          "bounce kernels")
+    check(res.losses[-1] < res.losses[0], "bounce fit loss did not fall")
+    check(err1 < err0, "bounce fit: the red wall's albedo error did not fall")
+    return records
+
+
+def _phase_big_path(tmp: Path, dev, card: str, lv5, cornell_mean: float,
+                    path_err: float) -> dict:
+    """Phase 9: the big path scene at full width on the BVH path kernel.
+    Returns the kernel's record."""
+    import torch
+
+    from orion_tpu_torch import engine, native
     from orion_tpu_torch.accel.bvh import build_scene_bvh
     from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.image import load_hdr, save_image
     from orion_tpu_torch.io.rtc import parse_rtc
     from orion_tpu_torch.ops import bvh_path as bp
 
@@ -1034,23 +1606,32 @@ def _phase_big_path(tmp: Path, dev, card: str, lv5, cornell_mean: float,
                       MAIN["depth"], MAIN["light_samples"])
     rtc = write_cornell(tmp / "big_main", xres=W, yres=H, depth=D,
                         levels=BIG_LEVELS)
+    # the "walk" candidate by name, whatever engine.BIG_PATH_ORDER puts
+    # first on the CLI's default route past the fused gate
     bp.KERNEL.launches = 0
     t0 = time.perf_counter()
-    img, report = run_cli(rtc, tmp / "big.hdr", MAIN, report=True)
+    ps = engine.prepare(rtc, device=dev)
+    fn, backend = engine.make_big_path_renderer(
+        ps.scene, ps.camera, samples=S, max_depth=D, light_samples=LS,
+        order_signs=ps.order_signs, order=("walk",))
+    t1 = time.perf_counter()
+    # through an .hdr file, as the CLI writes it and as phase 4's image
+    # came back (its 8-bit mantissas lower the mean by 1%)
+    save_image(str(tmp / "big.hdr"), fn(0).cpu().numpy())
+    img = load_hdr(tmp / "big.hdr")
     secs = time.perf_counter() - t0
     launches = bp.KERNEL.launches
     rays = W * H * S
     mrel = abs(float(img.mean()) - cornell_mean) / cornell_mean
-    print(f"[9] big path {MAIN} on {report['triangles']} triangles: "
-          f"{secs:.3f} s through the CLI ({rays / secs:.4g} primary rays/s "
-          f"incl. scene setup; scene {report['scene_build_seconds']} s, "
-          f"render {report['render_seconds']} s), backend "
-          f"{report['backend']}, BVH path launches {launches}, image mean "
-          f"{img.mean():.6g} vs the 36-triangle box's {cornell_mean:.6g} "
-          f"(rel {mrel:.3g})")
-    check(report["backend"] == "bvh-path-kernel",
-          f"big path backend {report['backend']}")
-    check(report["triangles"] == 34 * 4 ** BIG_LEVELS + 2, "big path size")
+    print(f"[9] big path {MAIN} on {ps.scene.num_triangles} triangles "
+          f"through make_big_path_renderer(order=('walk',)): {secs:.3f} s "
+          f"({rays / secs:.4g} primary rays/s incl. scene setup; scene "
+          f"{ps.build_seconds:.3f} s, tree and table {t1 - t0 - ps.build_seconds:.3f}"
+          f" s, render and .hdr {secs - (t1 - t0):.3f} s), backend {backend}, "
+          f"BVH path launches {launches}, image mean {img.mean():.6g} vs "
+          f"the 36-triangle box's {cornell_mean:.6g} (rel {mrel:.3g})")
+    check(backend == "bvh-path-kernel", f"big path backend {backend}")
+    check(ps.scene.num_triangles == 34 * 4 ** BIG_LEVELS + 2, "big path size")
     check(launches > 0, "big path never launched the BVH path kernel")
     check(img.shape == (H, W, 3) and np.isfinite(img).all(), "big image")
     check(mrel <= 0.02, f"big path mean rel {mrel}")
@@ -1141,10 +1722,15 @@ def _phase_bvh_wavefront(tmp: Path, dev, sweeps, walk_err: float) -> dict:
     check(rep["backend"] == "bvh-kernel", f"backend {rep['backend']}")
     check(n_wave > 0 and bp.KERNEL.launches == 0 and bi.KERNEL.launches == 0,
           "--backend bvh did not run on the walk kernel alone")
-    img_k = run_cli(rtc, tmp / "bvh_k.hdr", SECOND)
+    from orion_tpu_torch.engine import BIG_PATH_ORDER
+
+    img_k, rep_k = run_cli(rtc, tmp / "bvh_k.hdr", SECOND, report=True)
+    check(rep_k["backend"] == BIG_BACKENDS[BIG_PATH_ORDER[0]],
+          f"default route backend {rep_k['backend']}")
     c = corr(img_k, img_w)
     mrel = abs(img_k.mean() - img_w.mean()) / img_w.mean()
-    print(f"[10] path kernel vs BVH wavefront 256^2: corr {c:.4f}, mean "
+    print(f"[10] default big-path route ({rep_k['backend']}) vs BVH "
+          f"wavefront 256^2: corr {c:.4f}, mean "
           f"{img_k.mean():.6g} vs {img_w.mean():.6g} (rel {mrel:.3g})")
     check(np.isfinite(img_w).all(), "BVH wavefront image non-finite")
     check(c > 0.93 and mrel < 0.15, f"BVH wavefront corr {c} rel {mrel}")

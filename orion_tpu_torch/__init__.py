@@ -14,8 +14,10 @@ engine and the CLI; training: the path-replay kernels (ops/prb.py), the
 closed-form Whitted trainer (ops/prb_whitted.py) and `fit` (optim.py);
 big scenes: the BVH build (accel/bvh.py, native.py), the batched walk
 (ops/bvh_traverse.py), the BVH walk kernel (ops/bvh_intersect.py), the
-BVH path megakernel (ops/bvh_path.py), wavefront sorting (ops/reorder.py)
-and the regenerative wavefront (regen.py).
+BVH path megakernel (ops/bvh_path.py), wavefront sorting (ops/reorder.py),
+the regenerative wavefront (regen.py), the sorted-wavefront bounce pipeline
+with per-bounce texturing (ops/bounce.py) and its closed-form trainer
+(ops/bounce_prb.py).
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 

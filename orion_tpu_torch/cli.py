@@ -7,8 +7,12 @@ shadow-ray (light) samples.
 Routing (as in the JAX package, cli.py:74-143):
   - path-mode scenes inside the fused gate -> the path megakernel
     (ops/fused_path.py);
-  - path-mode scenes past the fused gate -> the BVH path megakernel
-    (engine.make_big_path_renderer, ops/bvh_path.py); outside every gate
+  - path-mode scenes past the fused gate -> engine.make_big_path_renderer:
+    the sorted-wavefront bounce pipeline (ops/bounce.py, "bounce-kernel")
+    or the BVH path megakernel (ops/bvh_path.py, "bvh-path-kernel"), in
+    the order of engine.BIG_PATH_ORDER; a scene with a diffuse texture
+    takes the bounce pipeline alone, the only route that resolves texels
+    at every bounce; outside every gate
     (too many or too large emitters) -> the wavefront over the engine's
     intersect, as the JAX package falls through;
   - Whitted-mode scenes inside the fused-Whitted gate -> the Whitted
@@ -19,10 +23,10 @@ Routing (as in the JAX package, cli.py:74-143):
     or Whitted mode;
   - --regen -> the regenerative wavefront (regen.py) over the engine's
     intersect, path mode only;
-  - everything else (the BVH Whitted megakernels, textured path scenes
-    past the fused gate, --shard, --checkpoint, --normal-maps) is not
-    ported yet: the command exits non-zero and names the missing piece.
-    It never substitutes another route.
+  - everything else (the BVH Whitted megakernels past the fused-Whitted
+    gate, --shard, --checkpoint, --normal-maps) is not ported yet: the
+    command exits non-zero and names the missing piece. It never
+    substitutes another route.
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.

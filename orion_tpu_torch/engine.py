@@ -109,10 +109,21 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
     return make_bvh_intersect(bvh), "bvh-torch", bvh, stats
 
 
-# Megakernel candidates for path scenes past the fused brute gate. Only
-# the walk is ported; the JAX package also has "bounce" (the per-bounce
-# sorted-wavefront pipeline) and "binned".
-BIG_PATH_ORDER = ("walk",)
+# Megakernel candidates for path scenes past the fused brute gate, in the
+# order they are tried: "bounce" is the sorted-wavefront pipeline
+# (ops/bounce.py, three kernels, a sort and a host sync per bounce over a
+# wavefront in device memory), "walk" the BVH path megakernel
+# (ops/bvh_path.py, one launch for the image, no state). The faster at
+# chip_smoke.py phase 11's shapes goes first: on an NVIDIA H100 80GB HBM3
+# at 700 W, the 34,818-triangle box at 1920x1080, 16 spp, depth 8, in
+# seven calls, bounce took 68.0 / 66.9 / 67.9 / 66.9 / 69.4 / 67.2 / 69.2
+# ms against walk's 70.3 / 70.2 / 70.1 / 70.3 / 70.0 / 70.4 / 70.0 ms:
+# ahead in every call, by 1-5%. The price: the pipeline holds 64 bytes a lane (2.1 GB at that
+# 1080p), its time follows the host (66.5-70.6 ms over its own runs), and
+# at 256x256, 16 spp, depth 4 it is the slower in some calls (7.0 / 9.5 /
+# 7.4 / 12.5 / 8.1 / 7.9 ms against 7.7 / 7.7 / 7.7 / 7.8 / 7.8 / 7.8 ms).
+# PERF.md has the runs. The JAX package also has "binned".
+BIG_PATH_ORDER = ("bounce", "walk")
 
 
 class NotPorted(ValueError):
@@ -129,39 +140,52 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
     """Path megakernel for scenes past the fused brute gate: returns
     (fn(seed: int) -> [H, W, 3], backend_name).
 
-    Candidates (BIG_PATH_ORDER) are tried in turn; one that raises
-    ValueError (outside its gate) falls through to the next, and
+    Candidates (BIG_PATH_ORDER; for a textured scene "bounce" alone, the
+    only route that resolves texels per bounce) are tried in turn; one that
+    raises ValueError (outside its gate) falls through to the next, and
     ValueError is raised when none fits, as in the JAX package, where the
-    caller then takes the wavefront. Asking for a candidate that is not
-    ported ("bounce", "binned"), or a textured scene that only the bounce
-    pipeline serves, raises NotPorted (a ValueError) naming it: callers do
-    not fall through to another route on that.
+    caller then takes the wavefront. Backend names: "bvh-path-kernel";
+    "bounce-kernel" on a CUDA scene, "bounce-torch" (the kernels' plain
+    versions) on a CPU scene. Asking for the candidate that is not ported
+    ("binned") raises NotPorted (a ValueError) naming it: callers do not
+    fall through to another route on that.
     """
     from orion_tpu_torch.ops.bvh_path import (bounce_textured_supported,
                                               bvh_path_supported,
                                               make_bvh_path_renderer)
 
-    order = tuple(order or BIG_PATH_ORDER)
-    for cand in order:
-        if cand in ("bounce", "binned"):
-            raise NotPorted(f"big-path candidate {cand!r} is not ported")
-        if cand != "walk":
-            raise ValueError(f"unknown big-path candidate {cand!r}")
     textured = not bvh_path_supported(scene)
     if textured and not bounce_textured_supported(scene):
         raise ValueError("scene outside the bvh-path gate "
                          "(textures / emitters)")
-    if textured:
-        # textured path scenes: only the bounce pipeline resolves texels
-        # per bounce, and it is not ported
-        raise NotPorted("textured path scenes past the fused gate need the "
-                        "'bounce' candidate (the bounce pipeline), which "
-                        "is not ported")
-    fn = make_bvh_path_renderer(scene, camera, samples=samples,
-                                max_depth=max_depth,
-                                light_samples=light_samples,
-                                strategy=strategy, order_signs=order_signs)
-    return fn, "bvh-path-kernel"
+    order = tuple(order or (("bounce",) if textured else BIG_PATH_ORDER))
+    for cand in order:
+        if cand == "binned":
+            raise NotPorted(f"big-path candidate {cand!r} (the binned "
+                            f"renderer) is not ported")
+        if cand not in ("walk", "bounce"):
+            raise ValueError(f"unknown big-path candidate {cand!r}")
+    errs = []
+    for cand in order:
+        try:
+            if cand == "bounce":
+                from orion_tpu_torch.ops.bounce import \
+                    make_bounce_path_renderer
+
+                fn = make_bounce_path_renderer(
+                    scene, camera, samples=samples, max_depth=max_depth,
+                    light_samples=light_samples, strategy=strategy)
+                return fn, ("bounce-kernel" if scene.device.type == "cuda"
+                            else "bounce-torch")
+            fn = make_bvh_path_renderer(scene, camera, samples=samples,
+                                        max_depth=max_depth,
+                                        light_samples=light_samples,
+                                        strategy=strategy,
+                                        order_signs=order_signs)
+            return fn, "bvh-path-kernel"
+        except ValueError as e:
+            errs.append(f"{cand}: {e}")
+    raise ValueError("no big-path megakernel fits: " + "; ".join(errs))
 
 
 def octant_signs(front) -> tuple:

@@ -92,9 +92,8 @@ def pack_bvh_path_table(bvh: BVH, scene: Scene) -> np.ndarray:
 
 def pack_bvh_tex_table(bvh: BVH, scene: Scene) -> np.ndarray:
     """[B_pad, 8] per-bundled-row texture data for the bounce pipeline's
-    deferred texturing: cols 0-5 = the three corner uvs (uv0 uv1 uv2, xy
-    each), 6-7 pad. Data only: its consumer (the bounce pipeline) is not
-    ported yet."""
+    per-bounce texturing (ops/bounce.py): cols 0-5 = the three corner uvs
+    (uv0 uv1 uv2, xy each), 6-7 pad."""
     B = bvh.num_bundled
     out = np.zeros((_b_pad(B), 8), np.float32)
     T = int(scene.num_triangles)
@@ -105,6 +104,35 @@ def pack_bvh_tex_table(bvh: BVH, scene: Scene) -> np.ndarray:
     out[:B, 2:4] = scene.numpy("uv1")[orig] * m
     out[:B, 4:6] = scene.numpy("uv2")[orig] * m
     return out
+
+
+def tab_updater_from_bvh(bvh: BVH, scene: Scene):
+    """`update(mat_diffuse=None, mat_emissive=None) -> tab` for an
+    ALREADY-BUILT tree: the bundled [B_pad, 32] table with only its
+    material columns (kd, ke) regathered from the given tensors (default:
+    the scene's), differentiable with respect to them; geometry columns
+    are baked. Used by the trainers over a tree (ops/bounce_prb.py)."""
+    dev = scene.device
+    base = torch.as_tensor(pack_bvh_path_table(bvh, scene), device=dev)
+    B_pad = base.shape[0]
+    T = int(scene.num_triangles)
+    raw = bvh.numpy("tri_orig")[:bvh.num_bundled]
+    real = np.zeros(B_pad, np.float32)
+    real[:raw.shape[0]] = (raw >= 0).astype(np.float32)
+    mat = np.zeros(B_pad, np.int64)
+    mat[:raw.shape[0]] = scene.numpy("tri_mat")[np.clip(raw, 0, T - 1)]
+    mat_idx = torch.as_tensor(mat, device=dev)
+    realf = torch.as_tensor(real, device=dev)[:, None]
+
+    def update(mat_diffuse=None, mat_emissive=None) -> torch.Tensor:
+        kd = scene.mat_diffuse if mat_diffuse is None else mat_diffuse
+        ke = scene.mat_emissive if mat_emissive is None else mat_emissive
+        return torch.cat([base[:, :_C_KD],
+                          kd[mat_idx].to(torch.float32) * realf,
+                          ke[mat_idx].to(torch.float32) * realf,
+                          base[:, _C_AREA:]], dim=1)
+
+    return update
 
 
 def _small_emitters(scene: Scene) -> bool:

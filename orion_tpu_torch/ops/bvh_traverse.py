@@ -22,7 +22,7 @@ import torch
 
 from orion_tpu_torch.accel.bvh import BVH
 from orion_tpu_torch.ops.intersect import Hit
-from orion_tpu_torch.ops.woop import BIG, woop_rows, woop_t
+from orion_tpu_torch.ops.woop import BIG, woop_rows, woop_t, woop_tuv
 
 
 class TraversalStats(NamedTuple):
@@ -151,6 +151,124 @@ def walk_plain(lo, hi, skip, start, rows13, orig, dirs, *, leaf_width: int,
                      ("leaf_visits", leaf_visits), ("steps", steps)):
             stats[k] = stats.get(k, 0) + v
     return t_best, row_best
+
+
+def lean_plain(lo, hi, skip, start, rows13, orig, dirs, *, leaf_width: int,
+               alive=None, cap: float = BIG, first=None,
+               count: Optional[int] = None, stats: Optional[dict] = None):
+    """The bounce pipeline's nearest-hit walk (the TPU sweep's `lean`):
+    (t, hit, u, v, row) per ray, `row` the global bundled row as float32.
+    `walk_plain` over flagged leaf starts, then the winner's barycentrics.
+    A miss or a ray with alive == False gives (BIG, False, 0, 0, 0)."""
+    t, row = walk_plain(lo, hi, skip, start, rows13, orig, dirs,
+                        leaf_width=leaf_width, alive=alive, cap=cap,
+                        first=first, count=count, flagged_starts=True,
+                        stats=stats)
+    hit = row >= 0
+    g = rows13[torch.clamp(row, min=0), :13]
+    _, u, v = woop_tuv(tuple(orig[:, i] for i in range(3)),
+                       tuple(dirs[:, i] for i in range(3)),
+                       tuple(g[:, i] for i in range(13)))
+    zero = torch.zeros_like(t)
+    return (t, hit, torch.where(hit, u, zero), torch.where(hit, v, zero),
+            torch.where(hit, row, torch.zeros_like(row)).to(torch.float32))
+
+
+def shadow_em_plain(lo, hi, skip, start, rows13, mesh_col, orig, dirs, alive,
+                    em_mesh: float, *, leaf_width: int, cap: float,
+                    first=None, count: Optional[int] = None,
+                    stats: Optional[dict] = None, budget: int = 1 << 22):
+    """NEE visibility walks (the TPU sweep's `shadow_em` and `shadow_em2`):
+    for each of the k rays that leave one origin per lane (`dirs` and
+    `alive` are k-tuples; k = 2 walks both light samples of a bounce behind
+    ONE pointer), does the nearest hit below `cap` lie on mesh `em_mesh`?
+    Returns a k-tuple of bool [N].
+
+    Each ray carries (t_best, emitter flag). A node is entered when any of
+    the lane's rays slab-hits it inside its own live segment [0, t_best);
+    a ray with alive == False starts at t = -BIG and never votes. In a leaf
+    every ray tests every row: min t with ties to the smallest row, across
+    leaves only a strictly smaller t wins; the flag becomes whether the
+    winner's `mesh_col` entry equals em_mesh. Bit 0 of a leaf's start says
+    the leaf holds no emitter rows: an improving hit there clears the flag
+    without looking at the row. stats as in walk_plain, slab and Woop tests
+    counted per live ray."""
+    k = len(dirs)
+    N = orig.shape[0]
+    dev = orig.device
+    M = int(lo.shape[0])
+    W = int(leaf_width)
+    if count is None:
+        count = M
+    inv = [1.0 / d for d in dirs]
+    if first is None:
+        ptr = torch.zeros((N,), dtype=torch.int64, device=dev)
+    else:
+        ptr = first.to(torch.int64).clone()
+    end = ptr + count
+    any_alive = alive[0]
+    for a in alive[1:]:
+        any_alive = any_alive | a
+    ptr = torch.where(any_alive, ptr, end)
+    t_best = [torch.where(a, torch.full((N,), cap, dtype=torch.float32,
+                                        device=dev),
+                          torch.full((N,), -BIG, dtype=torch.float32,
+                                     device=dev)) for a in alive]
+    em_f = [torch.zeros((N,), dtype=torch.bool, device=dev) for _ in range(k)]
+    skip = skip.to(torch.int64)
+    start = start.to(torch.int64)
+    w13 = rows13[:, :13]
+    is_em = mesh_col == float(em_mesh)
+    real = (w13[:, 12] > 0.0) if stats is not None else None
+    lane = torch.arange(W, device=dev)
+    step_rays = max(1, budget // (W * k))
+    box_tests = leaf_visits = tests = steps = 0
+
+    while True:
+        active = ptr < end
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        steps += 1
+        p = torch.clamp(ptr, max=M - 1)
+        hit_box = torch.zeros((N,), dtype=torch.bool, device=dev)
+        for j in range(k):
+            hb, tmin = _slab(orig, inv[j], lo[p], hi[p])
+            hit_box = hit_box | (hb & (tmin < t_best[j]))
+            if stats is not None:
+                box_tests += int((active & alive[j]).sum())
+        hit_box = hit_box & active
+        st = start[p]
+        is_leaf = st >= 0
+        idx_all = torch.nonzero(hit_box & is_leaf).flatten()
+        leaf_visits += idx_all.numel()
+        for s in range(0, idx_all.numel(), step_rays):
+            idx = idx_all[s:s + step_rays]
+            off = st[idx] & -2
+            no_em = (st[idx] & 1) > 0
+            rows = off[:, None] + lane[None, :]              # [n, W]
+            g = w13[rows]                                    # [n, W, 13]
+            w = tuple(g[:, :, i] for i in range(13))
+            o = tuple(orig[idx, i, None] for i in range(3))
+            for j in range(k):
+                d = tuple(dirs[j][idx, i, None] for i in range(3))
+                t = woop_t(o, d, w)
+                if stats is not None:
+                    tests += int(real[rows][alive[j][idx]].sum())
+                arg = torch.argmin(t, dim=1)                 # first min
+                t_leaf = torch.gather(t, 1, arg[:, None])[:, 0]
+                upd = (t_leaf < t_best[j][idx]) & (t_leaf < BIG)
+                sel = idx[upd]
+                t_best[j][sel] = t_leaf[upd]
+                win = torch.gather(rows, 1, arg[:, None])[:, 0]
+                em_f[j][sel] = (is_em[win] & ~no_em)[upd]
+        descend = hit_box & ~is_leaf
+        ptr = torch.where(active, torch.where(descend, p + 1, skip[p]), ptr)
+    if stats is not None:
+        for name, v in (("box_tests", box_tests), ("tests", tests),
+                        ("leaf_visits", leaf_visits), ("steps", steps)):
+            stats[name] = stats.get(name, 0) + v
+    return tuple((t_best[j] < cap) & em_f[j] & alive[j] for j in range(k))
 
 
 def traverse(bvh: BVH, orig: torch.Tensor, dirs: torch.Tensor,

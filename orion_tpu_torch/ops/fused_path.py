@@ -253,6 +253,35 @@ def _f32(x: float, dev) -> torch.Tensor:
     return torch.tensor(np.float32(x), dtype=torch.float32, device=dev)
 
 
+def _sample_jitter(samp, seed: int, W: int, H: int):
+    """(jx, jy): the sub-pixel offsets of sample indices `samp`, one PCG4D
+    draw per sample shared by every pixel."""
+    dev = samp.device
+    seed_t = torch.full_like(samp, int(seed) & _M32)
+    jb0, jb1, _, _ = _pcg4d(samp, seed_t, torch.full_like(samp, 0x4A17),
+                            torch.full_like(samp, 0x7E57))
+    return _u01(jb0) * _f32(2.0 / W, dev), _u01(jb1) * _f32(2.0 / H, dev)
+
+
+def _pixel_base(pix, W: int, H: int):
+    """(x, y) of pixels `pix` on the image plane before jitter and before
+    y's sign flip: 2 * column / W - 1 and 2 * row / H - 1."""
+    dev = pix.device
+    pix_f = pix.to(torch.float32)
+    inv_w, inv_h = _f32(1.0 / W, dev), _f32(1.0 / H, dev)
+    i = torch.floor((pix_f + 0.5) * inv_w)              # image row
+    j = pix_f - i * float(W)                            # image column
+    return 2.0 * (j * inv_w) - 1.0, 2.0 * (i * inv_h) - 1.0
+
+
+def _camera_rays(cam, x, y):
+    """(o, d) tuples of planes shaped like x: rays through image-plane
+    points (x, y) of the 12-float camera `cam`."""
+    d = tuple(cam[3 + k] + x * cam[6 + k] + y * cam[9 + k] for k in range(3))
+    o = tuple(cam[k].expand(x.shape) for k in range(3))
+    return o, d
+
+
 def _make_primary(cam, seed: int, W: int, H: int, dev, pix=None):
     """`primary(samp) -> (o, d)`: the kernels' camera rays of the lanes
     `pix` (default: all W*H pixels), (x, y, z) tuples of [n] tensors, for
@@ -260,28 +289,142 @@ def _make_primary(cam, seed: int, W: int, H: int, dev, pix=None):
     every pixel."""
     if pix is None:
         pix = torch.arange(W * H, dtype=torch.int64, device=dev)
-    n = pix.shape[0]
     cam = [cam[k] for k in range(12)]
-    seed_t = torch.full((n,), int(seed) & _M32, dtype=torch.int64, device=dev)
-    pix_f = pix.to(torch.float32)
-    inv_w, inv_h = _f32(1.0 / W, dev), _f32(1.0 / H, dev)
-    px_sz, py_sz = _f32(2.0 / W, dev), _f32(2.0 / H, dev)
+    base_x, base_y = _pixel_base(pix, W, H)
 
     def primary(samp):
-        jb0, jb1, _, _ = _pcg4d(samp, seed_t, torch.full_like(samp, 0x4A17),
-                                torch.full_like(samp, 0x7E57))
-        jx = _u01(jb0) * px_sz
-        jy = _u01(jb1) * py_sz
-        i = torch.floor((pix_f + 0.5) * inv_w)              # image row
-        j = pix_f - i * float(W)                            # image column
-        x = 2.0 * (j * inv_w) - 1.0 + jx
-        y = -(2.0 * (i * inv_h) - 1.0 + jy)
-        d = tuple(cam[3 + k] + x * cam[6 + k] + y * cam[9 + k]
-                  for k in range(3))
-        o = tuple(cam[k].expand(n) for k in range(3))
-        return o, d
+        jx, jy = _sample_jitter(samp, seed, W, H)
+        return _camera_rays(cam, base_x + jx, -(base_y + jy))
 
     return primary
+
+
+def _cosine_bounce(sn, u1, u2):
+    """Cosine-weighted direction about the unit normal `sn` from two
+    uniforms: tangent frame from cross(n, (0, 1, 0)), falling back to
+    cross(n, (0, 0, 1)), normalized (raytracer.cpp:173-192)."""
+    snx, sny, snz = sn
+    zero = torch.zeros_like(snx)
+    two_pi = _f32(2.0 * np.pi, snx.device)
+    sin_th = torch.sqrt(u1)
+    cos_th = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    psi = u2 * two_pi
+    t1x, t1y, t1z = snz, zero, -snx
+    deg = (t1x * t1x + t1z * t1z) == 0.0
+    t1x = torch.where(deg, -sny, t1x)
+    t1y = torch.where(deg, snx, t1y)
+    t1x, t1y, t1z = _norm3(t1x, t1y, t1z)
+    btx = sny * t1z - snz * t1y
+    bty = snz * t1x - snx * t1z
+    btz = snx * t1y - sny * t1x
+    ca = sin_th * torch.cos(psi)
+    cb = sin_th * torch.sin(psi)
+    return (ca * t1x + cb * btx + cos_th * snx,
+            ca * t1y + cb * bty + cos_th * sny,
+            ca * t1z + cb * btz + cos_th * snz)
+
+
+def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
+               h, sn, so, *, legacy: bool, shadow_rows=None, shadow_vis=None,
+               shadow_vis2=None, vis_planes=None, vis_only: bool = False):
+    """Next-event estimation of every lane at hit point `h` (shading
+    normal `sn`, shadow origin `so`): (A, sum_scale), A the NEE radiance
+    without the surface kd and sum_scale the sum of the samples' scales.
+    Only lanes in `gate` (hit and still running) can contribute.
+
+    legacy=True: `shadow_rows(so, sd, need) -> row` walks every gated lane;
+    the light normal and emitted color are the shadow winner's, read from
+    `tab`. legacy=False (fast shadow): light normal and emitted color come
+    from the sampled emitter triangle, lanes whose geometry term is <= 0
+    never walk, and `shadow_vis(so, sd, need, mesh) -> bool` asks whether
+    the nearest hit below NEE_T_CAP lies on the sampled mesh. With two
+    light samples `shadow_vis2(so, sd0, sd1, need0, need1, mesh)` answers
+    both in one walk, or `vis_planes` (two 0/1 planes computed earlier)
+    replaces the walk; vis_only=True returns the first emitter's pair of
+    visibility planes instead (float32 0/1). The PCG4D sites are the TPU
+    kernel's: (pixel, sample * 131071 + depth, 0x11 + 0x101 * site, seed).
+    """
+    dev = tab.device
+    n = pix.shape[0]
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    inv_ls = _f32(1.0 / light_samples, dev)
+    hx, hy, hz = h
+    snx, sny, snz = sn
+    A = [zero, zero, zero]
+    sum_scale = zero
+    for mi in range(em_np.shape[0]):
+        rec = em_np[mi]
+        count = int(rec[1])
+        tris = torch.as_tensor(
+            rec[EM_HEADER:EM_HEADER + count * EM_TRI].reshape(count, EM_TRI),
+            device=dev)
+        draws = []
+        for ls in range(light_samples):
+            site = ls + light_samples * mi
+            u0_, u1_, u2_, _ = _pcg4d(pix, site_sd,
+                                      torch.full_like(pix,
+                                                      0x11 + 0x101 * site),
+                                      seed_t)
+            ut, ua, ub = _u01(u0_), _u01(u1_), _u01(u2_)
+            sel = torch.clamp((ut * float(count)).to(torch.int64),
+                              max=count - 1)
+            L = tris[sel]
+            flip = (ua + ub) > 1.0
+            a = torch.where(flip, 1.0 - ua, ua)
+            b = torch.where(flip, 1.0 - ub, ub)
+            sd = tuple(L[:, k] + a * L[:, 3 + k] + b * L[:, 6 + k] - hk
+                       for k, hk in enumerate((hx, hy, hz)))
+            ldx, ldy, ldz = _norm3(*sd)
+            cos_s = snx * ldx + sny * ldy + snz * ldz
+            d2 = sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2]
+            if legacy:
+                # the shadow sweep carries the winner's attributes
+                srow = shadow_rows(so, sd, gate)
+                gs = tab[torch.clamp(srow, min=0)]
+                g13 = gs[:, :13].detach()
+                _, su, sv = woop_tuv(so, sd, tuple(g13[:, k]
+                                                   for k in range(13)))
+                sw = 1.0 - su - sv
+                lnx, lny, lnz = _norm3(*(sw * gs[:, _C_N0 + k]
+                                         + su * gs[:, _C_N1 + k]
+                                         + sv * gs[:, _C_N2 + k]
+                                         for k in range(3)))
+                cos_l = -(lnx * ldx + lny * ldy + lnz * ldz)
+                geom = torch.clamp(cos_s * cos_l, min=0.0)
+                vis = (srow >= 0) & gate & (gs[:, _C_MESH] == float(rec[0]))
+                ske = [gs[:, _C_KE + k] for k in range(3)]
+                scale = torch.where(vis, geom * L[:, 9] / (1.0 + d2) * inv_ls,
+                                    zero)
+                A = [A[k] + ske[k] * scale for k in range(3)]
+                sum_scale = sum_scale + scale
+                continue
+            lw = 1.0 - a - b
+            lnx, lny, lnz = _norm3(*(lw * L[:, 10 + k] + a * L[:, 13 + k]
+                                     + b * L[:, 16 + k] for k in range(3)))
+            cos_l = -(lnx * ldx + lny * ldy + lnz * ldz)
+            geom = cos_s * cos_l
+            draws.append((sd, gate & (geom > 0.0),
+                          geom * L[:, 9] / (1.0 + d2) * inv_ls))
+        if legacy:
+            continue
+        if light_samples == 2 and (shadow_vis2 is not None
+                                   or vis_planes is not None):
+            if vis_planes is not None:
+                vis2 = (vis_planes[0] > 0.0, vis_planes[1] > 0.0)
+            else:
+                vis2 = shadow_vis2(so, draws[0][0], draws[1][0], draws[0][1],
+                                   draws[1][1], rec[0])
+            if vis_only:
+                return tuple(v.to(torch.float32) for v in vis2)
+        else:
+            vis2 = [shadow_vis(so, sd, need, rec[0])
+                    for sd, need, _ in draws]
+        ske = [float(rec[2 + k]) for k in range(3)]
+        for (_, _, full), vis in zip(draws, vis2):
+            scale = torch.where(vis, full, zero)
+            A = [A[k] + ske[k] * scale for k in range(3)]
+            sum_scale = sum_scale + scale
+    return A, sum_scale
 
 
 def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
@@ -330,8 +473,6 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
     seed_t = torch.full((n,), int(seed) & _M32, dtype=torch.int64, device=dev)
     pix = torch.arange(n, dtype=torch.int64, device=dev) + pix_base
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    two_pi = _f32(2.0 * np.pi, dev)
-    inv_ls = _f32(1.0 / light_samples, dev)
     primary = _make_primary(cam, seed, W, H, dev, pix)
 
     def nearest(o, d, cap, lanes=None):
@@ -348,6 +489,32 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
         """(t, u, v) of each lane's ray against its winner row."""
         g = woop[torch.clamp(row, min=0)]
         return woop_tuv(o, d, tuple(g[:, k] for k in range(13)))
+
+    def shadow_rows(so, sd, need):
+        """Legacy NEE: the shadow segment's winner row of the lanes in
+        `need`, -1 elsewhere."""
+        nonlocal tests
+        lanes = torch.nonzero(need).flatten()
+        if tree is None:
+            tests += lanes.numel() * n_real
+        _, srow_l = nearest(so, sd, NEE_T_CAP, lanes)
+        srow = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        srow[lanes] = srow_l
+        return srow
+
+    def shadow_vis(so, sd, need, mesh):
+        """Fast-shadow NEE: does the nearest hit below NEE_T_CAP lie on
+        `mesh`? Only the lanes in `need` walk."""
+        nonlocal tests
+        lanes = torch.nonzero(need).flatten()
+        if tree is None:
+            tests += lanes.numel() * n_real
+        _, srow = nearest(so, sd, NEE_T_CAP, lanes)
+        vis_l = (srow >= 0) & (tab[torch.clamp(srow, min=0), _C_MESH]
+                               == float(mesh))
+        vis = torch.zeros((n,), dtype=torch.bool, device=dev)
+        vis[lanes] = vis_l
+        return vis
 
     samp = torch.zeros((n,), dtype=torch.int64, device=dev)
     depth = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -393,78 +560,10 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
         # next-event estimation
         so = (hx + BIAS * gnx, hy + BIAS * gny, hz + BIAS * gnz)
         site_sd = (samp * 131071 + depth) & _M32
-        A = [zero, zero, zero]
-        sum_scale = zero
-        for mi in range(em_np.shape[0]):
-            rec = em_np[mi]
-            count = int(rec[1])
-            tris = torch.as_tensor(
-                rec[EM_HEADER:EM_HEADER + count * EM_TRI].reshape(count,
-                                                                  EM_TRI),
-                device=dev)
-            for ls in range(light_samples):
-                site = ls + light_samples * mi
-                u0_, u1_, u2_, _ = _pcg4d(pix, site_sd,
-                                          torch.full_like(pix,
-                                                          0x11 + 0x101 * site),
-                                          seed_t)
-                ut, ua, ub = _u01(u0_), _u01(u1_), _u01(u2_)
-                sel = torch.clamp((ut * float(count)).to(torch.int64),
-                                  max=count - 1)
-                L = tris[sel]
-                flip = (ua + ub) > 1.0
-                a = torch.where(flip, 1.0 - ua, ua)
-                b = torch.where(flip, 1.0 - ub, ub)
-                sd = tuple(L[:, k] + a * L[:, 3 + k] + b * L[:, 6 + k] - h
-                           for k, h in enumerate((hx, hy, hz)))
-                ldx, ldy, ldz = _norm3(*sd)
-                cos_s = snx * ldx + sny * ldy + snz * ldz
-                d2 = sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2]
-                if legacy:
-                    # the shadow sweep carries the winner's attributes
-                    need = hit & active
-                    lanes = torch.nonzero(need).flatten()
-                    if tree is None:
-                        tests += lanes.numel() * n_real
-                    _, srow_l = nearest(so, sd, NEE_T_CAP, lanes)
-                    srow = torch.full((n,), -1, dtype=torch.int64,
-                                      device=dev)
-                    srow[lanes] = srow_l
-                    gs = tab[torch.clamp(srow, min=0)]
-                    _, su, sv = winner_tuv(so, sd, srow)
-                    sw = 1.0 - su - sv
-                    lnx, lny, lnz = _norm3(*(sw * gs[:, _C_N0 + k]
-                                             + su * gs[:, _C_N1 + k]
-                                             + sv * gs[:, _C_N2 + k]
-                                             for k in range(3)))
-                    cos_l = -(lnx * ldx + lny * ldy + lnz * ldz)
-                    geom = torch.clamp(cos_s * cos_l, min=0.0)
-                    vis = (srow >= 0) & hit & (gs[:, _C_MESH]
-                                               == float(rec[0]))
-                    ske = [gs[:, _C_KE + k] for k in range(3)]
-                else:
-                    lw = 1.0 - a - b
-                    lnx, lny, lnz = _norm3(*(lw * L[:, 10 + k]
-                                             + a * L[:, 13 + k]
-                                             + b * L[:, 16 + k]
-                                             for k in range(3)))
-                    cos_l = -(lnx * ldx + lny * ldy + lnz * ldz)
-                    geom = cos_s * cos_l
-                    need = hit & active & (geom > 0.0)
-                    lanes = torch.nonzero(need).flatten()
-                    if tree is None:
-                        tests += lanes.numel() * n_real
-                    _, srow = nearest(so, sd, NEE_T_CAP, lanes)
-                    vis_l = (srow >= 0) & (
-                        tab[torch.clamp(srow, min=0), _C_MESH]
-                        == float(rec[0]))
-                    vis = torch.zeros((n,), dtype=torch.bool, device=dev)
-                    vis[lanes] = vis_l
-                    ske = [float(rec[2 + k]) for k in range(3)]
-                scale = torch.where(vis, geom * L[:, 9] / (1.0 + d2) * inv_ls,
-                                    zero)
-                A = [A[k] + ske[k] * scale for k in range(3)]
-                sum_scale = sum_scale + scale
+        A, sum_scale = _nee_plain(
+            tab, em_np, pix, site_sd, seed_t, light_samples, hit & active,
+            (hx, hy, hz), (snx, sny, snz), so, legacy=legacy,
+            shadow_rows=shadow_rows, shadow_vis=shadow_vis)
         rr = rr + kdr * A[0]
         rg = rg + kdg * A[1]
         rb = rb + kdb * A[2]
@@ -489,22 +588,7 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
                    em_scale=em_scale, contrib=contrib, p=p_cont,
                    inv_p=inv_p, cont=cont, n_samp=n_samp)
 
-        sin_th = torch.sqrt(u1)
-        cos_th = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
-        psi = u2 * two_pi
-        t1x, t1y, t1z = snz, zero, -snx
-        deg = (t1x * t1x + t1z * t1z) == 0.0
-        t1x = torch.where(deg, -sny, t1x)
-        t1y = torch.where(deg, snx, t1y)
-        t1x, t1y, t1z = _norm3(t1x, t1y, t1z)
-        btx = sny * t1z - snz * t1y
-        bty = snz * t1x - snx * t1z
-        btz = snx * t1y - sny * t1x
-        ca = sin_th * torch.cos(psi)
-        cb = sin_th * torch.sin(psi)
-        bd = (ca * t1x + cb * btx + cos_th * snx,
-              ca * t1y + cb * bty + cos_th * sny,
-              ca * t1z + cb * btz + cos_th * snz)
+        bd = _cosine_bounce((snx, sny, snz), u1, u2)
         n_o = (hx + snx * BIAS, hy + sny * BIAS, hz + snz * BIAS)
         n_t = (tr * kdr * inv_p, tg * kdg * inv_p, tb * kdb * inv_p)
 

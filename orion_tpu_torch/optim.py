@@ -15,11 +15,13 @@ Gradient routes, as the JAX package chooses them (`_prb_loss_and_grad`):
   - path scenes inside the fused-train gate, mat_diffuse / mat_emissive
     only, MSE: the path-replay kernels (ops/prb.py) through the
     autograd.Function `FusedPathPRB`;
+  - path scenes past that gate with one small emitter, mat_diffuse only:
+    the closed-form trainer over the bounce pipeline (ops/bounce_prb.py);
   - everything else: wavefront autograd through `render`.
-The JAX package's other routes (the bounce-pipeline PRB and the BVH PRB past
-the fused gate, and the BVH refit loss for geometry on a BVH backend) are
-not ported: `fit` raises NotImplementedError naming the piece rather than
-take another route.
+The JAX package's other routes (the BVH PRB past the fused gate, which it
+takes for mat_emissive there, and the BVH refit loss for geometry on a BVH
+backend) are not ported: `fit` raises NotImplementedError naming the piece
+rather than take another route.
 
 Optimizers: `optimizer` is a callable `params -> torch.optim.Optimizer`
 over the list of parameter tensors; the default, `torch.optim.Adam` at
@@ -131,9 +133,7 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
         return None
     if not set(params) <= {"mat_diffuse", "mat_emissive"}:
         return None
-    from orion_tpu_torch.ops.bvh_path import bvh_path_supported
-    from orion_tpu_torch.ops.prb import (M_LANES, MAX_SAMPLES,
-                                         fused_train_supported,
+    from orion_tpu_torch.ops.prb import (MAX_SAMPLES, fused_train_supported,
                                          make_fused_train_step)
 
     if fused_train_supported(scene, samples):
@@ -141,14 +141,18 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
                                      samples=samples, max_depth=max_depth,
                                      light_samples=light_samples,
                                      dynamic_params=True)
-    # past the fused gate the JAX package trains with the bounce-pipeline
-    # PRB (diffuse only) or the BVH PRB; neither is ported
-    one_emitter = (bvh_path_supported(scene) and scene.num_meshes <= M_LANES
-                   and scene.num_emissive == 1)
+    # past the fused gate: the closed-form trainer over the bounce
+    # pipeline for diffuse-only fits (its fast-shadow NEE reads ke from the
+    # emitter records, so mat_emissive fits go to the BVH PRB, as in JAX)
+    from orion_tpu_torch.ops.bounce_prb import (make_bounce_train_step,
+                                                wavefront_train_supported)
+
+    one_emitter = wavefront_train_supported(scene)
     if set(params) <= {"mat_diffuse"} and one_emitter:
-        raise NotImplementedError(
-            "the bounce-pipeline PRB trainer (orion_tpu.ops.pallas_bounce_prb"
-            ") for scenes past the fused-train gate is not ported yet")
+        return make_bounce_train_step(scene, ps.camera, target,
+                                      samples=samples, max_depth=max_depth,
+                                      light_samples=light_samples,
+                                      dynamic_params=True)
     if one_emitter and samples <= MAX_SAMPLES:
         raise NotImplementedError(
             "the BVH PRB trainer (orion_tpu.ops.pallas_bvh_prb) for scenes "

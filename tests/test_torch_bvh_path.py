@@ -136,23 +136,32 @@ def test_make_big_path_renderer(lv2, tmp_path):
     _, js, jrtc = lv2
     ts = to_torch(js)
     cam = camera_from_rtc(jrtc, device="cpu")
+    assert engine.BIG_PATH_ORDER == ("bounce", "walk")
+    fn_b, name_b = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
+                                          light_samples=1)
+    assert name_b == "bounce-torch"
+    # the BVH path renderer on request: the same estimator up to the light
+    # normal's rounding
     fn, name = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
-                                      light_samples=1)
+                                      light_samples=1, order=("walk",))
     assert name == "bvh-path-kernel"
     img = fn(5)
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
     assert img.mean() > 0
-    for cand in ("bounce", "binned"):
-        with pytest.raises(ValueError, match="not ported"):
-            make_big_path_renderer(ts, cam, samples=1, max_depth=1,
-                                   order=(cand,))
+    np.testing.assert_allclose(fn_b(5).numpy(), img.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(NotPorted, match="binned"):
+        make_big_path_renderer(ts, cam, samples=1, max_depth=1,
+                               order=("bounce", "binned"))
     with pytest.raises(ValueError, match="unknown"):
         make_big_path_renderer(ts, cam, samples=1, max_depth=1,
                                order=("sweep",))
-    # a textured path scene: only the bounce pipeline serves it
+    # a textured path scene: the bounce pipeline alone serves it
     tex = load_scene(write_textured(tmp_path), device="cpu")[0]
-    with pytest.raises(NotPorted, match="bounce"):
-        make_big_path_renderer(tex, cam, samples=1, max_depth=1)
+    fn_t, name_t = make_big_path_renderer(tex, cam, samples=1, max_depth=1)
+    assert name_t == "bounce-torch"
+    img_t = fn_t(5)
+    assert img_t.shape == (H, W, 3) and torch.isfinite(img_t).all()
     # outside every gate (a second emitter of > 8 triangles): a plain
     # ValueError, on which callers take the wavefront as the JAX CLI does
     big_em = dataclasses.replace(
@@ -171,9 +180,9 @@ def lv5(tmp_path_factory):
 @pytest.mark.parametrize("route", ["default", "fused", "bvh", "regen"])
 def test_cli_big_scene_routes(lv5, tmp_path, capsys, route):
     """The levels-5 box (34,818 triangles, past the fused gate) through
-    the CLI on the CPU: the BVH path renderer by default and for
-    --backend fused, the wavefront over the tree for --backend bvh, the
-    regenerative wavefront for --regen."""
+    the CLI on the CPU: the first big-path candidate (the bounce pipeline)
+    by default and for --backend fused, the wavefront over the tree for
+    --backend bvh, the regenerative wavefront for --regen."""
     out = tmp_path / "o.hdr"
     extra = {"default": [], "fused": ["--backend", "fused"],
              "bvh": ["--backend", "bvh", "--strategy", "median"],
@@ -181,7 +190,7 @@ def test_cli_big_scene_routes(lv5, tmp_path, capsys, route):
     assert cli.main([str(lv5), "-o", str(out), "-p", "1", "-l", "1",
                      "--device", "cpu", "--stats"] + extra) == 0
     cap = capsys.readouterr()
-    name = "bvh-torch" if route in ("bvh", "regen") else "bvh-path-kernel"
+    name = "bvh-torch" if route in ("bvh", "regen") else "bounce-torch"
     assert f'"backend": "{name}"' in cap.err
     assert '"triangles": 34818' in cap.err
     assert '"bvh_nodes": 0' not in cap.err

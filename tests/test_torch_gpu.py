@@ -15,17 +15,23 @@ replay's gradients (float32 terms summed in double by atomics in an order
 that varies from run to run) to 1e-3 x the largest entry, chip_smoke.py's
 GRAD_TOL. The BVH walk kernel, like the brute sweep, has no multiply-add
 to contract and must equal its plain version bit for bit; the BVH path
-kernel is held to the fused kernel's pixel tolerance.
+kernel is held to the fused kernel's pixel tolerance. The three bounce
+kernels (walk, vis, shade) are held by chip_smoke.py's `walk_agree`,
+`vis_agree` and `shade_agree` on every bounce of one render: winners and
+visibility planes equal on >= 99.9% of lanes (a tie may break the other
+way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (random_rays, two_emitter, write_cornell,
-                        write_cornell_whitted)
+from chip_smoke import (bounce_kernels_agree, random_rays, two_emitter,
+                        write_cornell, write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
+from orion_tpu_torch.ops import bounce as bo
+from orion_tpu_torch.ops import bounce_prb as bpr
 from orion_tpu_torch.ops import brute_intersect as bi
 from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.ops import bvh_path as bp
@@ -259,3 +265,99 @@ def test_bvh_wrappers_reject_bad_inputs(tmp_path, cuda_device):
     with pytest.raises(ValueError):
         bp.bvh_path(dd["nodes"], dd["tab"], *args, leaf_width=2,
                     pix_base=32 * 24 - 2, n_lanes=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,leaf,octants,with_aux",
+                         [("cornell", 2, False, False),
+                          ("levels-3", 2, False, True),
+                          ("levels-3", 128, True, False),
+                          ("two-emitter", 8, True, True)])
+def test_bounce_kernels_match_plain(tmp_path, cuda_device, name, leaf,
+                                    octants, with_aux):
+    """Walk, vis and shade kernel (with and without the replay dump, with
+    its own shadow walks and given the vis planes) on the recorded state of
+    every bounce of one render."""
+    sc, cam = _scene(tmp_path, cuda_device, name)
+    fn = bo.make_bounce_path_renderer(sc, cam, samples=4, max_depth=4,
+                                      light_samples=2, leaf_width=leaf,
+                                      octant_trees=octants)
+    before = (bo.WALK_KERNEL.launches, bo.SHADE_KERNEL.launches)
+    img = fn(99)
+    torch.cuda.synchronize()
+    bounces = bo.WALK_KERNEL.launches - before[0]
+    assert 2 <= bounces <= 5
+    assert bo.SHADE_KERNEL.launches - before[1] == bounces
+    res = bounce_kernels_agree(name, fn, 99, with_aux=with_aux)
+    assert sorted(res) == list(range(bounces))
+    assert res[0]["n"] == 32 * 24 * 4 > res[bounces - 1]["n"] > 0
+    # the whole pipeline against the plain pipeline on the card
+    plain = bo.make_bounce_path_renderer(sc, cam, samples=4, max_depth=4,
+                                         light_samples=2, leaf_width=leaf,
+                                         octant_trees=octants,
+                                         steps=bo.PLAIN_STEPS)
+    _images_agree(img.reshape(-1, 3), plain(99).reshape(-1, 3))
+
+
+@pytest.mark.gpu
+def test_bounce_renders_agree_on_card(tmp_path, cuda_device):
+    """split_vis, the unsorted wavefront and tiles give the fused sorted
+    render; the BVH path kernel's image differs by rounding and ties."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    cfg = dict(samples=4, max_depth=4, light_samples=2)
+    base = bo.make_bounce_path_renderer(sc, cam, **cfg)
+    assert base.ctx["data"].leaf_width == 2 and base.ctx["data"].copies == 1
+    img = base(5)
+    before = bo.VIS_KERNEL.launches
+    split = bo.make_bounce_path_renderer(sc, cam, split_vis=True, **cfg)(5)
+    assert bo.VIS_KERNEL.launches > before
+    assert torch.allclose(split, img, rtol=1e-6, atol=1e-7)
+    assert torch.equal(bo.make_bounce_path_renderer(sc, cam, sort=False,
+                                                    **cfg)(5), img)
+    assert torch.equal(base(5), img)                   # run to run
+    pipe, ctx = bo.build_forward_pipeline(sc, cam, pix_count=200, **cfg)
+    st, _ = pipe(5, pix_base=301)
+    assert torch.equal(bo.state_image(st, 200, 4, 301),
+                       img.reshape(-1, 3)[301:501])
+    k8 = bp.make_bvh_path_renderer(sc, cam, **cfg)(5)
+    _images_agree(img.reshape(-1, 3), k8.reshape(-1, 3))
+
+
+@pytest.mark.gpu
+def test_bounce_train_step_on_card_matches_plain(tmp_path, cuda_device):
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    target = np.full((24, 32, 3), 0.1, np.float32)
+    cfg = dict(samples=4, max_depth=4, light_samples=2)
+    before = bo.SHADE_KERNEL.launches
+    loss_k, g_k = bpr.make_bounce_train_step(sc, cam, target, **cfg)(7)
+    assert bo.SHADE_KERNEL.launches > before
+    loss_p, g_p = bpr.make_bounce_train_step(sc, cam, target,
+                                             steps=bo.PLAIN_STEPS, **cfg)(7)
+    assert float(loss_k) == pytest.approx(float(loss_p), rel=1e-3)
+    for k in g_p:
+        assert (g_k[k] - g_p[k]).abs().max() <= 1e-3 * g_p[k].abs().max()
+
+
+@pytest.mark.gpu
+def test_bounce_wrappers_reject_bad_inputs(tmp_path, cuda_device):
+    sc, cam = _scene(tmp_path, cuda_device, "cornell")
+    fn = bo.make_bounce_path_renderer(sc, cam, samples=1, max_depth=1)
+    data, N = fn.ctx["data"], fn.ctx["N"]
+    st = torch.zeros((16, N), device=cuda_device)
+    hd = torch.zeros((8, N), device=cuda_device)
+    with pytest.raises(ValueError):          # a state on the wrong device
+        bo.bounce_walk(data, st.cpu(), N)
+    with pytest.raises(ValueError):          # of the wrong dtype
+        bo.bounce_walk(data, st.double(), N)
+    with pytest.raises(ValueError, match="live prefix"):
+        bo.bounce_walk(data, st, N + 1)
+    with pytest.raises(ValueError):          # hitdata of the wrong height
+        bo.bounce_shade(data, st, hd[:5], 0, 0, 1, 2)
+    with pytest.raises(ValueError):
+        bo.bounce_shade(data, st, hd, 0, 0, 1, 2,
+                        kd=torch.zeros((3, N - 1), device=cuda_device))
+    with pytest.raises(ValueError, match="two light samples"):
+        bo.bounce_shade(data, st, hd, 0, 0, 1, 3, vis=hd)
+    with pytest.raises(ValueError):          # not contiguous
+        bo.bounce_vis(data, st, hd.t().contiguous().t(), 0, 0)
+    assert bo.bounce_walk(data, st, 0).shape == (8, 0)     # nothing to do

@@ -132,10 +132,11 @@ def test_use_prb_true_outside_gate_raises(cornell):
                   steps=1, use_prb=True)
 
 
-def test_unported_routes_raise(cornell):
+def test_unported_routes_raise(cornell, monkeypatch):
     _, js, jrtc, target = cornell
-    # past the fused-train gate (T_pad > 16384), one emitter: JAX trains
-    # diffuse with the bounce-pipeline PRB and materials with the BVH PRB
+    # past the fused-train gate (T_pad > 16384), one emitter: diffuse fits
+    # train on the bounce pipeline in both packages; JAX trains the other
+    # materials with the BVH PRB, which is not ported
     big_j = jsubdivide(js, levels=5)
     assert not jp.fused_train_supported(big_j, S)
     assert jpw.wavefront_train_supported(big_j)
@@ -143,8 +144,18 @@ def test_unported_routes_raise(cornell):
     assert not prb.fused_train_supported(big, S)
     ps = _port_ps(big, jrtc, backend="bvh-kernel")
     cfg = dict(steps=1, samples=S, max_depth=D, light_samples=LS)
-    with pytest.raises(NotImplementedError, match="bounce-pipeline PRB"):
-        optim.fit(ps, target, params=("mat_diffuse",), **cfg)
+    from orion_tpu_torch.ops import bounce_prb
+
+    assert bounce_prb.wavefront_train_supported(big)
+    made = []
+    monkeypatch.setattr(
+        bounce_prb, "make_bounce_train_step",
+        lambda *a, **k: made.append(k) or (lambda params, seed: (
+            torch.zeros(()), {n: torch.zeros_like(v)
+                              for n, v in params.items()})))
+    res = optim.fit(ps, target, params=("mat_diffuse",), **cfg)
+    assert len(made) == 1 and made[0]["dynamic_params"] is True
+    assert made[0]["samples"] == S and res.losses == [0.0]
     with pytest.raises(NotImplementedError, match="BVH PRB"):
         optim.fit(ps, target, params=("mat_diffuse", "mat_emissive"), **cfg)
     with pytest.raises(NotImplementedError, match="make_refit_loss"):

@@ -161,8 +161,12 @@ def test_cli_unported_routes_fail(tmp_path, case):
         # package would take a BVH Whitted megakernel, which is not ported
         rtc.write_text(rtc.read_text() + "L 0 1.5 0 255 255 255 1.0\n" * 8)
     argv = [str(rtc), "-o", str(tmp_path / "o.ppm"), "--device", "cpu"]
-    # a textured path scene leaves the fused gate: the JAX package would
-    # run its bounce pipeline, which is not ported
+    if case == "textured":
+        # a textured path scene leaves the fused gate and, since the
+        # bounce pipeline is ported, renders through it
+        assert cli.main(argv) == 0
+        assert (tmp_path / "o.ppm").stat().st_size > 24 * 24 * 3
+        return
     extra = {"checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt")],
              "textured": [],
              "shard": ["--shard"], "normal-maps": ["--normal-maps"],
@@ -216,7 +220,9 @@ def test_port_never_imports_jax():
             "orion_tpu_torch/regen.py", "orion_tpu_torch/ops/reorder.py",
             "orion_tpu_torch/ops/bvh_traverse.py",
             "orion_tpu_torch/ops/bvh_intersect.py",
-            "orion_tpu_torch/ops/bvh_path.py"} <= names
+            "orion_tpu_torch/ops/bvh_path.py",
+            "orion_tpu_torch/ops/bounce.py",
+            "orion_tpu_torch/ops/bounce_prb.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -228,7 +234,8 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.native, orion_tpu_torch.regen, "
             "orion_tpu_torch.ops.bvh_traverse, "
             "orion_tpu_torch.ops.bvh_intersect, orion_tpu_torch.ops.bvh_path, "
-            "orion_tpu_torch.ops.reorder, chip_smoke; "
+            "orion_tpu_torch.ops.reorder, orion_tpu_torch.ops.bounce, "
+            "orion_tpu_torch.ops.bounce_prb, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
