@@ -79,14 +79,37 @@ Phases (any failure raises and the script exits non-zero):
      at 1920x1080, 4 spp, depth 8 with its times, its gradients against
      the plain pipeline's at 256x256, and a 5-step optim.fit of
      mat_diffuse whose loss and red wall's albedo error fall.
+ 12. this slice's paths at full width on the levels-5 box: (a) the
+     point-light box at 1920x1080, 4 spp, depth 4 through cli.main on the
+     BVH Whitted kernel (backend bvh-whitted-kernel, launches > 0), the
+     kernel's CUDA-event time, the kernel against its plain version over
+     the whole image (whose counters give the bound) and on 48 tiles of
+     1,024 lanes, against the Whitted kernel over the brute sweep on
+     levels-2 at 64x64, and against the `--backend bvh` Whitted wavefront
+     at 256x256, 16 spp (means within 2.5%); (b) the same box with the 8x8
+     checker through cli.main on the deferred kernel (backend
+     bvh-whitted-deferred-kernel), the records kernel and the epilogue
+     timed apart, the records against the plain version's over the whole
+     image and on the tiles, and the render against the textured
+     wavefront at 256x256; (c) one make_bvh_train_step at 1920x1080, 4
+     spp, depth 8 (red wall x 0.6) with the times of the BVH PRB pair and
+     of the step, the pair against its plain versions at those shapes and
+     the gradients at 256x256, and a 5-step optim.fit of mat_diffuse and
+     mat_emissive whose loss and red wall's albedo error fall; (d) a
+     3-step optim.fit of tri_v0 over the refitted tree (`--backend bvh`
+     tree, 128x128, 1 spp, depth 2): walk launches, finite losses, refit
+     milliseconds a step.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
 levels-4, the BVH path kernel against its plain version at 64x64 on
 levels-2 and levels-5 and against the brute training forward on levels-2,
-and the three bounce kernels against their plain versions on every bounce
+the three bounce kernels against their plain versions on every bounce
 of a 64x64 render of Cornell, levels-2 and levels-5 at leaf widths 2 and
-128, with and without the replay dump.
+128, with and without the replay dump, and this slice's kernels (BVH
+Whitted, deferred records, BVH PRB forward and replay) against their plain
+versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths 2 and
+128.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -284,17 +307,22 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
 
 
 def write_cornell_whitted(directory, *, xres: int = 64, yres: int = 64,
-                          depth: int = 4, levels: int = 0) -> Path:
+                          depth: int = 4, levels: int = 0,
+                          checker: bool = False) -> Path:
     """The Cornell box lit by one rtc point light (Whitted mode), its tall
     box a glossy mirror (Ks 0.5, Ns 20) so that reflection chains run;
-    the ceiling emitter stays (depth-0 emission)."""
+    the ceiling emitter stays (depth-0 emission). checker=True maps
+    write_cornell's 8x8 checker as map_Kd onto every material but the
+    emitter's, the mirror's too: a textured Whitted scene, which of the
+    Whitted megakernels only the deferred-texturing BVH kernel renders."""
     rtc = write_cornell(directory, xres=xres, yres=yres, depth=depth,
-                        levels=levels)
+                        levels=levels, checker=checker)
     obj, mtl = rtc.with_suffix(".obj"), rtc.with_suffix(".mtl")
     obj.write_text(obj.read_text().replace("o tall_box\nusemtl white",
                                            "o tall_box\nusemtl mirror"))
     mtl.write_text(mtl.read_text() + "\nnewmtl mirror\nKd 0.73 0.73 0.73\n"
-                   "Ks 0.5 0.5 0.5\nNs 20\n")
+                   "Ks 0.5 0.5 0.5\nNs 20\n"
+                   + ("map_Kd checker.png\n" if checker else ""))
     rtc.write_text(rtc.read_text() + "L 0 1.8 0.5 255 255 255 2.0\n")
     return rtc
 
@@ -380,6 +408,42 @@ def grad_agree(name: str, kernel, plain) -> float:
     check(err <= GRAD_TOL * scale,
           f"grad {name}: {err} > {GRAD_TOL} x {scale}")
     return err
+
+
+def rows_agree(name: str, k, p) -> float:
+    """Hold rows [n, c] (records of the deferred Whitted kernel, one row of
+    12 floats per (sample, bounce, lane)) against the plain version's on
+    the card, as fused_agree holds pixels: <= 1% of rows off by more than
+    1e-4 + 1e-3*|ref|. Returns the largest absolute difference."""
+    import torch
+
+    check(torch_isfinite(k), f"rows {name}: non-finite")
+    bad = (k - p).abs() > 1e-4 + 1e-3 * p.abs()
+    frac_bad = float(bad.any(dim=1).float().mean())
+    err = float((k - p).abs().max())
+    print(f"[rows {name}] {p.shape[0]} rows, rows off {frac_bad:.6f}, max "
+          f"abs {err:.3g}, nonzero rows {int((p != 0).any(dim=1).sum())}")
+    check(frac_bad <= 0.01, f"rows {name}: {frac_bad} rows off")
+    check(bool((p != 0).any()), f"rows {name}: all zero")
+    return err
+
+
+def agreeing_lanes(ls_k, ls_p):
+    """[n] bool: lanes whose per-sample radiance (ls [n, 3 samples]) the
+    kernel and the plain version agree on to fused_agree's tolerance. A
+    nearest hit on a shared edge that the kernel's contracted Woop test
+    decides the other way sends a path elsewhere; the replays of such a
+    lane follow different paths, so a replay is held against its plain
+    version on the agreeing lanes (a zero cotangent elsewhere)."""
+    return ~((ls_k - ls_p).abs() > 1e-4 + 1e-3 * ls_p.abs()).any(dim=1)
+
+
+def record_rows(rec):
+    """[groups * 12, n] deferred records -> [groups * n, 12] rows."""
+    from orion_tpu_torch.ops.bvh_whitted import REC_ROWS
+
+    return rec.reshape(-1, REC_ROWS, rec.shape[1]).permute(0, 2, 1).reshape(
+        -1, REC_ROWS)
 
 
 def once_ms(fn):
@@ -680,7 +744,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda_build.build(["fused_path", "brute_intersect", "prb",
                               "whitted", "bvh_intersect", "bvh_path",
-                              "bounce"])
+                              "bounce", "bvh_whitted"])
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -765,6 +829,7 @@ def main() -> int:
         bounce_errs = _phase_bounce_checks(
             (("cornell", cornell), ("levels-2", lv2),
              (f"levels-{BIG_LEVELS}", lv5)), cam64)
+        slice5_errs = _phase_slice5_checks(tmp, dev, cornell, lv2, lv5, cam64)
 
         # 4. main path ------------------------------------------------------
         fp.KERNEL.launches = 0
@@ -869,6 +934,9 @@ def main() -> int:
                               path_err)
         walk = _phase_bvh_wavefront(tmp, dev, walk_sweeps, walk_err)
         bounce = _phase_bounce(tmp, dev, card, lv5, bounce_errs)
+        big_whitted = _phase_big_whitted(tmp, dev, card, slice5_errs)
+        bvh_train = _phase_bvh_train(tmp, dev, card, slice5_errs)
+        walk["launches"] += _phase_refit(tmp, dev)
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -907,6 +975,20 @@ def main() -> int:
         {"name": "bounce_shade", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bounce.cu",
          "replaces": "orion_tpu/ops/pallas_bounce.py:359", **bounce["shade"]},
+        {"name": "bvh_whitted", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bvh_whitted.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_whitted.py:384",
+         **big_whitted["7a"]},
+        {"name": "bvh_whitted_deferred", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bvh_whitted.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_whitted.py:689",
+         **big_whitted["7b"]},
+        {"name": "bvh_prb_fwd_ls", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/prb.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_prb.py:113", **bvh_train["9a"]},
+        {"name": "bvh_prb_replay", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/prb.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_prb.py:151", **bvh_train["9b"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -1824,6 +1906,470 @@ def _phase_bvh_wavefront(tmp: Path, dev, sweeps, walk_err: float) -> dict:
     return {"launches": n_wave + n_regen + n_near + n_any,
             "max_abs_err": walk_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def _phase_slice5_checks(tmp: Path, dev, cornell, lv2, lv5, cam64) -> dict:
+    """Phase 3, kernels 7a, 7b, 9a and 9b against their plain versions at
+    64x64, 4 spp, depth 4 (2 light samples for the path pair) on Cornell,
+    levels-2 and levels-5, at leaf width 2 (one tree) and 128 (eight octant
+    copies): the BVH Whitted kernel on the point-light box, the deferred
+    kernel's records (and their image) on the checker-textured point-light
+    box, the BVH PRB forward (image, per-sample radiance) and replay
+    (gradients) on the path box. Returns the largest errors by kernel."""
+    import torch
+
+    from orion_tpu_torch.ops import bvh_prb as bvp
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.scene import load_scene, subdivide_scene
+
+    errs = {"7a": 0.0, "7b": 0.0, "9a": 0.0, "9b": 0.0}
+    S, D = 4, 4
+    solid, _ = load_scene(write_cornell_whitted(tmp / "s5w", xres=64,
+                                                yres=64, depth=D), device=dev)
+    tex, _ = load_scene(write_cornell_whitted(tmp / "s5t", xres=64, yres=64,
+                                              depth=D, checker=True),
+                        device=dev)
+    whitted = [("cornell", solid, tex)] + [
+        (f"levels-{lv}", subdivide_scene(solid, levels=lv),
+         subdivide_scene(tex, levels=lv)) for lv in (2, BIG_LEVELS)]
+    paths = (("cornell", cornell), ("levels-2", lv2),
+             (f"levels-{BIG_LEVELS}", lv5))
+    for leaf in (2, 128):
+        tree = dict(leaf_width=leaf, octants=8 if leaf == 128 else 1)
+        kw = dict(leaf_width=leaf, copies=tree["octants"])
+        for sname, ws, ts in whitted:
+            tag = f"{sname} leaf {leaf} 64x64"
+            fn = bw.make_bvh_whitted_renderer(ws, cam64, samples=S,
+                                              max_depth=D, **tree)
+            k = fn(1234).reshape(-1, 3)
+            torch.cuda.synchronize()
+            dd = fn.data
+            p = bw.bvh_whitted_plain(dd["nodes"], dd["tab"], dd["lights"],
+                                     dd["cam"], 1234, 64, 64, S, D,
+                                     dd["with_emissive"], **kw)
+            errs["7a"] = max(errs["7a"], fused_agree(f"bvh whitted {tag}", k,
+                                                     p))
+            fd = bw.make_bvh_whitted_deferred(ts, cam64, samples=S,
+                                              max_depth=D, **tree)
+            dd = fd.data
+            args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 1234,
+                    64, 64, S, 0, D, dd["with_emissive"])
+            rec_k = bw.bvh_whitted_deferred(*args, **kw)
+            torch.cuda.synchronize()
+            rec_p = bw.bvh_whitted_deferred_plain(*args, **kw)
+            errs["7b"] = max(errs["7b"], rows_agree(
+                f"deferred records {tag}", record_rows(rec_k),
+                record_rows(rec_p)))
+            fused_agree(f"deferred image {tag}", fd(1234).reshape(-1, 3),
+                        bw.deferred_epilogue(ts, rec_p, S, D) / S)
+        for sname, sc in paths:
+            tag = f"{sname} leaf {leaf} 64x64"
+            nodes, _, update = bvp.make_bvh_tab_updater(sc, **tree)
+            args = (nodes, update(),
+                    torch.as_tensor(fp.pack_emitters(sc), device=dev),
+                    fp.camera_vec(cam64).to(dev), 1234)
+            cfg = (64, 64, S, D, 2)
+            img_k, ls_k = bvp.bvh_fwd_ls(*args, *cfg, **kw)
+            torch.cuda.synchronize()
+            img_p, ls_p = bvp.bvh_fwd_ls_plain(*args, *cfg, **kw)
+            errs["9a"] = max(errs["9a"],
+                             fused_agree(f"bvh prb fwd {tag}", img_k, img_p),
+                             fused_agree(f"bvh prb fwd L_s {tag}", ls_k,
+                                         ls_p))
+            keep = agreeing_lanes(ls_k, ls_p)
+            w = _cotangent(img_p, S, 7) * keep[:, None]
+            print(f"[3] bvh prb replay {tag}: lanes held "
+                  f"{int(keep.sum())} of {keep.numel()}")
+            g_k = bvp.bvh_prb_replay(*args, w, ls_k, *cfg, **kw)
+            torch.cuda.synchronize()
+            g_p = bvp.bvh_prb_replay_plain(*args, w, ls_p, *cfg, **kw)
+            errs["9b"] = max(errs["9b"], grad_agree(
+                f"bvh prb replay {tag}", g_k, g_p))
+    return errs
+
+
+def _phase_big_whitted(tmp: Path, dev, card: str, errs: dict) -> dict:
+    """Phase 12 (a) and (b): Whitted past the fused gate at full width, the
+    levels-5 point-light box untextured (kernel 7a) and checker-textured
+    (kernel 7b) through cli.main. Returns the two kernels' records."""
+    import torch
+
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import octant_signs
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import whitted as wh
+    from orion_tpu_torch.scene import load_scene, subdivide_scene
+
+    W, H, S, D = (WHITTED["xres"], WHITTED["yres"], WHITTED["samples"],
+                  WHITTED["depth"])
+    n_pix, rays = W * H, W * H * WHITTED["samples"]
+    small = dict(xres=256, yres=256, samples=16, light_samples=1, depth=D)
+    bases = [int(i * (n_pix - TILE_LANES) / (N_TILES - 1))
+             for i in range(N_TILES)]
+
+    def reset():
+        bw.KERNEL.launches = bw.DEFERRED_KERNEL.launches = 0
+        wh.KERNEL.launches = 0
+
+    def against_wavefront(name, checker, backend):
+        rtc = write_cornell_whitted(tmp / f"bw256_{name}", xres=256,
+                                    yres=256, depth=D, levels=BIG_LEVELS,
+                                    checker=checker)
+        img_k, rep = run_cli(rtc, tmp / f"{name}_k.hdr", small, report=True)
+        img_w, rep_w = run_cli(rtc, tmp / f"{name}_w.hdr", small,
+                               backend="bvh", report=True)
+        c = corr(img_k, img_w)
+        mrel = abs(img_k.mean() - img_w.mean()) / img_w.mean()
+        print(f"[12] {name} {rep['backend']} vs the Whitted wavefront "
+              f"({rep_w['backend']}) at {small}: corr {c:.4f}, means "
+              f"{img_k.mean():.6g} vs {img_w.mean():.6g} (rel {mrel:.3g})")
+        check(rep["backend"] == backend and rep_w["backend"] == "bvh-kernel",
+              f"backends {rep['backend']}, {rep_w['backend']}")
+        check(c > 0.93 and mrel <= 0.025, f"{name}: corr {c}, mean rel {mrel}")
+
+    # (a) untextured ---------------------------------------------------------
+    rtc = write_cornell_whitted(tmp / "bw_main", xres=W, yres=H, depth=D,
+                                levels=BIG_LEVELS)
+    reset()
+    t0 = time.perf_counter()
+    img, rep = run_cli(rtc, tmp / "bw.hdr", WHITTED, report=True)
+    secs = time.perf_counter() - t0
+    launches = bw.KERNEL.launches
+    print(f"[12] (a) Whitted {WHITTED} on {rep['triangles']} triangles "
+          f"through the CLI: {secs:.3f} s (render {rep['render_seconds']} s),"
+          f" backend {rep['backend']}, BVH Whitted launches {launches} "
+          f"(deferred {bw.DEFERRED_KERNEL.launches}, brute Whitted "
+          f"{wh.KERNEL.launches}), image mean {img.mean():.6g}")
+    check(rep["backend"] == "bvh-whitted-kernel", f"backend {rep['backend']}")
+    check(launches > 0 and wh.KERNEL.launches == 0,
+          "the CLI never launched the BVH Whitted kernel")
+    check(img.shape == (H, W, 3) and np.isfinite(img).all()
+          and img.mean() > 0, "BVH Whitted image")
+
+    scene, r = load_scene(rtc, device=dev)
+    cam = camera_from_rtc(_resized(r, WHITTED), device=dev)
+    signs = octant_signs(cam.front)
+    fn = bw.make_bvh_whitted_renderer(scene, cam, samples=S, max_depth=D,
+                                      order_signs=signs)
+    ms, times, k = event_ms(lambda: fn(0), 3)
+    k = k.reshape(-1, 3)
+    dd = fn.data
+    stats = {}
+    plain_ms, p = once_ms(lambda: bw.bvh_whitted_plain(
+        dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 0, W, H, S, D,
+        dd["with_emissive"], leaf_width=dd["leaf_width"], stats=stats))
+    err_a = max(errs["7a"], fused_agree("bvh whitted 1080p", k, p))
+    tile_ms, _, tiles = event_ms(lambda: torch.cat(
+        [fn(0, pix_base=b, n_lanes=TILE_LANES) for b in bases]), 3)
+    pix = torch.cat([torch.arange(b, b + TILE_LANES, device=dev)
+                     for b in bases])
+    check(torch.equal(tiles, k[pix]),
+          "a BVH Whitted tile does not render the whole image's pixels")
+    fused_agree(f"bvh whitted 1080p, {N_TILES} tiles x {TILE_LANES} lanes",
+                tiles, p[pix])
+    box, tri = stats["box_tests"], stats["tests"]
+    bound, by = bound_ms(box * SLAB_TEST_FLOPS + tri * WOOP_TEST_FLOPS,
+                         (dd["nodes"].numel() + dd["tab"].numel()) * 4
+                         + n_pix * 12)
+    print(f"[12] bvh whitted: {ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in times)}) = "
+          f"{rays / (ms * 1e-3):.4g} primary rays/s of device time on "
+          f"{card}; {plain_ms:.1f} ms plain; {box:.6g} box tests and "
+          f"{tri:.6g} Woop tests, bound {bound:.4f} ms ({by}); the "
+          f"{N_TILES} tiles: {tile_ms:.3f} ms in {N_TILES} launches")
+    # the same estimator as kernel 4 (the brute sweep) on levels-2
+    w2 = subdivide_scene(load_scene(write_cornell_whitted(
+        tmp / "bw64", xres=64, yres=64, depth=D), device=dev)[0], levels=2)
+    cam64 = camera_from_rtc(_resized(r, dict(xres=64, yres=64)), device=dev)
+    fused_agree("bvh whitted vs the Whitted kernel, levels-2 64x64",
+                bw.make_bvh_whitted_renderer(w2, cam64, samples=S,
+                                             max_depth=D)(1234).reshape(-1, 3),
+                wh.fused_whitted(*wh.whitted_args(w2, cam64), 1234, 64, 64,
+                                 S, D, True))
+    against_wavefront("untextured", False, "bvh-whitted-kernel")
+    rec_a = {"launches": launches, "max_abs_err": err_a, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None}
+
+    # (b) textured -------------------------------------------------------
+    rtc_t = write_cornell_whitted(tmp / "bwt_main", xres=W, yres=H, depth=D,
+                                  levels=BIG_LEVELS, checker=True)
+    reset()
+    t0 = time.perf_counter()
+    img_t, rep = run_cli(rtc_t, tmp / "bwt.hdr", WHITTED, report=True)
+    secs = time.perf_counter() - t0
+    launches = bw.DEFERRED_KERNEL.launches
+    print(f"[12] (b) textured Whitted {WHITTED} through the CLI: {secs:.3f} "
+          f"s (render {rep['render_seconds']} s), backend {rep['backend']}, "
+          f"deferred launches {launches} (BVH Whitted {bw.KERNEL.launches}),"
+          f" image mean {img_t.mean():.6g} (untextured {img.mean():.6g})")
+    check(rep["backend"] == "bvh-whitted-deferred-kernel",
+          f"backend {rep['backend']}")
+    check(launches > 0 and bw.KERNEL.launches == 0,
+          "the CLI never launched the deferred kernel")
+    check(np.isfinite(img_t).all() and img_t.mean() > 0
+          and not np.allclose(img_t, img, atol=1e-3), "textured image")
+    tsc, _ = load_scene(rtc_t, device=dev)
+    fd = bw.make_bvh_whitted_deferred(tsc, cam, samples=S, max_depth=D,
+                                      order_signs=signs)
+    dd = fd.data
+    check(dd["chunks"] == [(0, S)], f"deferred chunks {dd['chunks']}")
+    args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 0, W, H, S, 0,
+            D, dd["with_emissive"])
+    kw = dict(leaf_width=dd["leaf_width"])
+    k_ms, k_times, rec_k = event_ms(
+        lambda: bw.bvh_whitted_deferred(*args, **kw), 3)
+    e_ms, e_times, _ = event_ms(
+        lambda: bw.deferred_epilogue(tsc, rec_k, S, D), 3)
+    r_ms, r_times, _ = event_ms(lambda: fd(0), 3)
+    stats = {}
+    d_plain_ms, rec_p = once_ms(lambda: bw.bvh_whitted_deferred_plain(
+        *args, **kw, stats=stats))
+    err_b = max(errs["7b"], rows_agree("deferred records 1080p",
+                                       record_rows(rec_k),
+                                       record_rows(rec_p)))
+    for b in bases:
+        tile = bw.bvh_whitted_deferred(*args, **kw, pix_base=b,
+                                       n_lanes=TILE_LANES)
+        check(torch.equal(tile, rec_k[:, b:b + TILE_LANES]),
+              "a deferred tile does not give the whole image's records")
+    rows_agree(f"deferred records, {N_TILES} tiles x {TILE_LANES} lanes",
+               record_rows(torch.cat([rec_k[:, b:b + TILE_LANES]
+                                      for b in bases], dim=1)),
+               record_rows(torch.cat([rec_p[:, b:b + TILE_LANES]
+                                      for b in bases], dim=1)))
+    rec_bytes = rec_k.numel() * 4
+    del rec_p
+    box, tri = stats["box_tests"], stats["tests"]
+    d_bound, d_by = bound_ms(box * SLAB_TEST_FLOPS + tri * WOOP_TEST_FLOPS,
+                             (dd["nodes"].numel() + dd["tab"].numel()) * 4
+                             + rec_bytes)
+    print(f"[12] deferred: kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in k_times)}), epilogue {e_ms:.3f} "
+          f"ms (runs {', '.join(f'{x:.3f}' for x in e_times)}), whole render"
+          f" {r_ms:.3f} ms = {rays / (r_ms * 1e-3):.4g} primary rays/s on "
+          f"{card}; {d_plain_ms:.1f} ms plain; {rec_bytes:.6g} record bytes,"
+          f" {box:.6g} box tests and {tri:.6g} Woop tests, bound "
+          f"{d_bound:.4f} ms ({d_by})")
+    against_wavefront("textured", True, "bvh-whitted-deferred-kernel")
+    return {"7a": rec_a,
+            "7b": {"launches": launches, "max_abs_err": err_b, "ms": k_ms,
+                   "plain_ms": d_plain_ms, "bound_ms": d_bound,
+                   "bound_by": d_by, "library_ms": None}}
+
+
+def _phase_bvh_train(tmp: Path, dev, card: str, errs: dict) -> dict:
+    """Phase 12 (c): the BVH path-replay trainer at TRAIN shapes on the
+    levels-5 box, red wall x 0.6. Returns the records of kernels 9a/9b."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import bvh_prb as bvp
+    from orion_tpu_torch.optim import fit
+
+    W, H, S, D, LS = (TRAIN["xres"], TRAIN["yres"], TRAIN["samples"],
+                      TRAIN["depth"], TRAIN["light_samples"])
+    tcfg = dict(samples=S, max_depth=D, light_samples=LS)
+    seed = 3
+    rtc = write_cornell(tmp / "bvh_train", xres=W, yres=H, depth=D,
+                        levels=BIG_LEVELS)
+    ps = engine.prepare(rtc, device=dev)
+    target = bp.make_bvh_path_renderer(ps.scene, ps.camera, **tcfg)(seed)
+    kd_true = ps.scene.mat_diffuse.clone()
+    red = int(torch.argmax(kd_true[:, 0] - kd_true[:, 1]))
+    kd_pert = kd_true.clone()
+    kd_pert[red] *= 0.6
+    pert = dataclasses.replace(ps.scene, mat_diffuse=kd_pert)
+    params = {"mat_diffuse": kd_pert, "mat_emissive": pert.mat_emissive}
+
+    def reset():
+        bvp.FWD_KERNEL.launches = bvp.REPLAY_KERNEL.launches = 0
+
+    def counts():
+        return bvp.FWD_KERNEL.launches, bvp.REPLAY_KERNEL.launches
+
+    step = bvp.make_bvh_train_step(pert, ps.camera, target,
+                                   order_signs=ps.order_signs,
+                                   dynamic_params=True, **tcfg)
+    reset()
+    loss, grads = step(params, seed)
+    torch.cuda.synchronize()
+    print(f"[12] (c) BVH PRB step {TRAIN} on {pert.num_triangles} "
+          f"triangles: loss {float(loss):.6g}, launches (fwd, replay) "
+          f"{counts()}, largest |d kd| "
+          f"{float(grads['mat_diffuse'].abs().max()):.4g}, |d ke| "
+          f"{float(grads['mat_emissive'].abs().max()):.4g}")
+    check(counts() == (1, 1), f"BVH PRB step launches {counts()}")
+    plan = step.plan
+    tab = plan.table(kd_pert, pert.mat_emissive)
+    kw = dict(leaf_width=plan.leaf_width, copies=plan.copies)
+    args = (plan.nodes, tab, plan.em, plan.cam, seed)
+    cfg = (W, H, S, D, LS)
+    f_ms, f_times, (img_k, ls_k) = event_ms(
+        lambda: plan.forward(tab, seed), 3)
+    diff = img_k.reshape(H, W, 3) - target
+    w = (diff * (2.0 / (H * W * 3 * S))).reshape(-1, 3).contiguous()
+    r_ms, r_times, _ = event_ms(lambda: plan.replay(tab, seed, w, ls_k), 3)
+    s_ms, s_times, _ = event_ms(lambda: step(params, seed), 3)
+    rays = W * H * S
+    f_stats = {}
+    f_plain_ms, (img_p, ls_p) = once_ms(lambda: bvp.bvh_fwd_ls_plain(
+        *args, *cfg, **kw, stats=f_stats))
+    fwd_err = max(errs["9a"], fused_agree("bvh prb fwd 1080p", img_k, img_p),
+                  fused_agree("bvh prb fwd L_s 1080p", ls_k, ls_p))
+    keep = agreeing_lanes(ls_k, ls_p)
+    w_keep = (w * keep[:, None]).contiguous()
+    print(f"[12] bvh prb replay 1080p: lanes held {int(keep.sum())} of "
+          f"{keep.numel()}")
+    r_plain_ms, g_p = once_ms(lambda: bvp.bvh_prb_replay_plain(
+        *args, w_keep, ls_p, *cfg, **kw))
+    replay_err = max(errs["9b"], grad_agree(
+        "bvh prb replay 1080p", plan.replay(tab, seed, w_keep, ls_k), g_p))
+    del ls_p, img_p
+    box, tri = f_stats["box_tests"], f_stats["tests"]
+    ops = box * SLAB_TEST_FLOPS + tri * WOOP_TEST_FLOPS
+    tree_bytes = (plan.nodes.numel() + tab.numel()) * 4
+    ls_bytes = W * H * 12 * S
+    f_bound, f_by = bound_ms(ops, tree_bytes + W * H * 12 + ls_bytes)
+    r_bound, r_by = bound_ms(ops, tree_bytes + W * H * 12 + ls_bytes
+                             + 6 * bvp.M_LANES * 8)
+    print(f"[12] bvh prb fwd: {f_ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in f_times)}), {f_plain_ms:.1f} ms "
+          f"plain, {box:.6g} box tests and {tri:.6g} Woop tests, bound "
+          f"{f_bound:.4f} ms ({f_by})")
+    print(f"[12] bvh prb replay: {r_ms:.3f} ms kernel (runs "
+          f"{', '.join(f'{x:.3f}' for x in r_times)}), {r_plain_ms:.1f} ms "
+          f"plain, bound {r_bound:.4f} ms ({r_by})")
+    print(f"[12] BVH PRB train step (fwd + replay + loss + table): "
+          f"{s_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in s_times)}) = "
+          f"{rays / (s_ms * 1e-3):.4g} fwd+bwd primary rays/s on {card}")
+
+    # gradients against the plain pair at 256x256
+    cam_s = camera_from_rtc(_resized(parse_rtc(rtc), dict(xres=256,
+                                                          yres=256)),
+                            device=dev)
+    target_s = bp.make_bvh_path_renderer(ps.scene, cam_s, **tcfg)(seed)
+    step_s = bvp.make_bvh_train_step(pert, cam_s, target_s,
+                                     order_signs=ps.order_signs, **tcfg)
+    loss_k, _ = step_s(seed)
+    pl = step_s.plan
+    tab_s = pl.table()
+    a_s = (pl.nodes, tab_s, pl.em, pl.cam, seed)
+    c_s = (256, 256, S, D, LS)
+    img_ps, ls_ps = bvp.bvh_fwd_ls_plain(*a_s, *c_s, **kw)
+    _, ls_ks = pl.forward(tab_s, seed)
+    d_s = img_ps.reshape(256, 256, 3) - target_s
+    loss_p = float(torch.mean(d_s * d_s))
+    keep = agreeing_lanes(ls_ks, ls_ps)
+    w_s = ((d_s * (2.0 / (256 * 256 * 3 * S))).reshape(-1, 3)
+           * keep[:, None]).contiguous()
+    g_ks = pl.replay(tab_s, seed, w_s, ls_ks)
+    g_ps = bvp.bvh_prb_replay_plain(*a_s, w_s, ls_ps, *c_s, **kw)
+    M = pert.num_meshes
+    loss_rel = abs(float(loss_k) - loss_p) / loss_p
+    print(f"[12] BVH PRB 256x256: loss kernels {float(loss_k):.7g} vs plain "
+          f"{loss_p:.7g} (rel {loss_rel:.3g}); lanes held "
+          f"{int(keep.sum())} of {keep.numel()}")
+    check(loss_rel <= 1e-3, f"BVH PRB loss rel {loss_rel}")
+    replay_err = max(replay_err,
+                     grad_agree("bvh prb mat_diffuse 256x256",
+                                g_ks[0:3, :M], g_ps[0:3, :M]),
+                     grad_agree("bvh prb mat_emissive 256x256",
+                                g_ks[3:6, :M], g_ps[3:6, :M]))
+
+    # the user's entry point: fit past the fused gate, emission included
+    # (plain gradient steps: Adam would move every mesh's emission by its
+    # learning rate at once and light the walls)
+    ps_pert = dataclasses.replace(ps, scene=pert)
+    reset()
+    stamps = [time.perf_counter()]
+    res = fit(ps_pert, target, params=("mat_diffuse", "mat_emissive"),
+              steps=5, optimizer=lambda p: torch.optim.SGD(p, lr=1.0),
+              seed=seed, resample_keys=False,
+              callback=lambda i, v: stamps.append(time.perf_counter()),
+              **tcfg)
+    launches = counts()
+    per_step = np.diff(stamps[1:]) * 1e3
+    err0 = float((kd_pert[red] - kd_true[red]).abs().sum())
+    err1 = float((res.params["mat_diffuse"][red] - kd_true[red]).abs().sum())
+    print(f"[12] fit 5 steps (mat_diffuse, mat_emissive): first step "
+          f"{(stamps[1] - stamps[0]) * 1e3:.1f} ms (set-up included), later "
+          f"steps median {float(np.median(per_step)):.3f} ms; losses "
+          f"{', '.join(f'{x:.6g}' for x in res.losses)}; red wall albedo "
+          f"error {err0:.5f} -> {err1:.5f}; launches (fwd, replay) "
+          f"{launches}")
+    check(min(launches) > 0, "fit never launched the BVH PRB kernels")
+    check(res.losses[-1] < res.losses[0], "BVH PRB fit loss did not fall")
+    check(err1 < err0, "BVH PRB fit: the red wall's albedo error did not fall")
+    return {
+        "9a": {"launches": launches[0], "max_abs_err": fwd_err, "ms": f_ms,
+               "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
+               "library_ms": None},
+        "9b": {"launches": launches[1], "max_abs_err": replay_err,
+               "ms": r_ms, "plain_ms": r_plain_ms, "bound_ms": r_bound,
+               "bound_by": r_by, "library_ms": None},
+    }
+
+
+def _phase_refit(tmp: Path, dev) -> int:
+    """Phase 12 (d): a vertex fit on the levels-5 box over the BVH backend,
+    the tree refitted every step. Returns the walk kernel's launches."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.accel.refit import RefitPlan
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.optim import fit
+    from orion_tpu_torch.render import render
+
+    cfg = dict(samples=1, max_depth=2, light_samples=1)
+    rtc = write_cornell(tmp / "refit", xres=128, yres=128, depth=2,
+                        levels=BIG_LEVELS)
+    ps = engine.prepare(rtc, device=dev, force_backend="bvh")
+    check(ps.backend == "bvh-kernel" and ps.bvh is not None,
+          f"refit backend {ps.backend}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        target = render(ps.scene, ps.camera, gen, intersect=ps.intersect,
+                        **cfg)
+    noise = np.random.default_rng(5).normal(0.0, 2e-3, ps.scene.tri_v0.shape)
+    v0 = ps.scene.tri_v0 + torch.as_tensor(noise, dtype=torch.float32,
+                                           device=dev)
+    ps_p = dataclasses.replace(ps, scene=dataclasses.replace(ps.scene,
+                                                             tri_v0=v0))
+    bx.KERNEL.launches = bx.ANY_HIT_KERNEL.launches = 0
+    stamps = [time.perf_counter()]
+    res = fit(ps_p, target, params=("tri_v0",), steps=3, learning_rate=1e-3,
+              seed=0, callback=lambda i, v: stamps.append(time.perf_counter()),
+              **cfg)
+    launches = bx.KERNEL.launches + bx.ANY_HIT_KERNEL.launches
+    plan = RefitPlan(ps.bvh)
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        plan.refit(v0, ps.scene.tri_e1, ps.scene.tri_e2, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    moved = float((res.params["tri_v0"] - v0).abs().max())
+    print(f"[12] (d) vertex fit over the refitted tree, {ps.scene.num_triangles}"
+          f" triangles, {ps.bvh.num_nodes} nodes, 128x128 1 spp depth 2: "
+          f"losses {', '.join(f'{x:.6g}' for x in res.losses)}; step wall "
+          f"times {', '.join(f'{x * 1e3:.1f}' for x in np.diff(stamps))} ms; "
+          f"refit {float(np.median(secs)) * 1e3:.2f} ms a step (median of 5,"
+          f" host NumPy + copy); walk launches {launches}; largest vertex "
+          f"move {moved:.3g}")
+    check(launches > 0, "the vertex fit never launched the walk kernel")
+    check(np.isfinite(res.losses).all() and moved > 0, "vertex fit")
+    return launches
 
 
 if __name__ == "__main__":

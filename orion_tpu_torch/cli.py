@@ -15,18 +15,26 @@ Routing (as in the JAX package, cli.py:74-143):
     at every bounce; outside every gate
     (too many or too large emitters) -> the wavefront over the engine's
     intersect, as the JAX package falls through;
-  - Whitted-mode scenes inside the fused-Whitted gate -> the Whitted
-    megakernel (ops/whitted.py);
+  - Whitted-mode scenes -> engine.make_whitted_megakernel: the Whitted
+    megakernel inside its gate (ops/whitted.py, "fused-whitted-kernel"),
+    else the BVH Whitted megakernel for untextured scenes
+    (ops/bvh_whitted.py, "bvh-whitted-kernel"), else the
+    deferred-texturing BVH Whitted megakernel for depth <= 4
+    ("bvh-whitted-deferred-kernel"); outside every gate (more than 8
+    point lights, or a textured scene deeper than 4) -> the Whitted
+    wavefront, as the JAX package falls through. On --device cpu the BVH
+    names end in "-torch";
+  - --backend fused fails only when every megakernel gate of the scene's
+    mode rejects it;
   - --backend brute / --backend bvh -> the wavefront renderer (render.py)
     over the brute sweep kernel (ops/brute_intersect.py) or the BVH walk
     kernel (ops/bvh_intersect.py; any-hit for Whitted shadow rays), path
     or Whitted mode;
   - --regen -> the regenerative wavefront (regen.py) over the engine's
     intersect, path mode only;
-  - everything else (the BVH Whitted megakernels past the fused-Whitted
-    gate, --shard, --checkpoint, --normal-maps) is not ported yet: the
-    command exits non-zero and names the missing piece. It never
-    substitutes another route.
+  - --shard, --checkpoint and --normal-maps (multi-device rendering and
+    the host services) are not ported yet: the command exits non-zero and
+    names the missing piece. It never substitutes another route.
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.
@@ -102,7 +110,8 @@ def main(argv=None) -> int:
     import torch
 
     from orion_tpu_torch.engine import (NotPorted, make_big_path_renderer,
-                                        prepare, render_report)
+                                        make_whitted_megakernel, prepare,
+                                        render_report)
     from orion_tpu_torch.io.image import save_image
 
     unported = [flag for flag, on in (("--shard", args.shard),
@@ -130,21 +139,17 @@ def main(argv=None) -> int:
     fused_fn = None
     megakernel = args.backend in (None, "fused") and not args.regen
     if megakernel and mode == "whitted":
-        from orion_tpu_torch.ops.whitted import (fused_whitted_supported,
-                                                 make_fused_whitted_renderer)
-
-        if not fused_whitted_supported(ps.scene):
+        try:
+            fused_fn, ps.backend = make_whitted_megakernel(
+                ps.scene, ps.camera, samples=args.samples,
+                max_depth=max_depth, strategy=args.strategy,
+                order_signs=ps.order_signs)
+        except ValueError:
+            # outside every gate: the Whitted wavefront, as in JAX
             if args.backend == "fused":
-                _fail("--backend fused, but the scene is outside the Whitted "
-                      "megakernel gate (textures / lights / triangle count); "
-                      "see ops/whitted.py")
-            _fail("the Whitted megakernels past the fused-Whitted gate (BVH "
-                  "Whitted, deferred-texturing BVH Whitted) are not ported "
-                  "yet (use --backend bvh or --backend brute for the "
-                  "Whitted wavefront)")
-        fused_fn = make_fused_whitted_renderer(
-            ps.scene, ps.camera, samples=args.samples, max_depth=max_depth)
-        ps.backend = "fused-whitted-kernel"
+                _fail("--backend fused, but the scene is outside every "
+                      "Whitted megakernel gate (1..8 point lights; textured "
+                      "scenes depth <= 4); see ops/bvh_whitted.py")
     elif megakernel:
         from orion_tpu_torch.ops.fused_path import (fused_path_supported,
                                                     make_fused_path_renderer)

@@ -33,20 +33,21 @@
 // longest lane's chain of dependent loads; incoherent rays diverge.
 //
 // Design: one thread per ray, its state (origin, direction, inverse
-// direction, best t, best row, pointer) in registers. A node row is read
-// as two float4 through the read-only cache, a Woop row as four. The Woop
+// direction, best t, best row, pointer) in registers. The walk is
+// fused_common.cuh's walk_tree, the one the megakernels' tree walks use;
+// a node row is read as two float4 through the read-only cache, a Woop row
+// here as four. The Woop
 // test is written with explicit round-to-nearest multiplies and adds (as
 // brute_intersect.cu) and the slab test has no multiply-add to contract, so
 // (t, row) equal the plain PyTorch walk's bit for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kBig = 3.0e38f;
-constexpr float kMtEps = 1e-6f;
+using orion::kBig;
+using orion::kMtEps;
+using orion::kThreads;
 
 __device__ __forceinline__ float dot3(float a, float b, float c, float x,
                                       float y, float z) {
@@ -90,36 +91,17 @@ bvh_intersect_kernel(const float* __restrict__ orig,
   if (alive[i] != 0) {
     const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
     const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
-    const float ix = __fdiv_rn(1.0f, dx), iy = __fdiv_rn(1.0f, dy),
-                iz = __fdiv_rn(1.0f, dz);
-    int ptr = 0;
-    while (ptr < M) {
-      const float4 n0 = __ldg(nodes + 2 * ptr);      // lo.xyz, hi.x
-      const float4 n1 = __ldg(nodes + 2 * ptr + 1);  // hi.yz, skip, start
-      const float tx0 = __fmul_rn(__fsub_rn(n0.x, ox), ix);
-      const float tx1 = __fmul_rn(__fsub_rn(n0.w, ox), ix);
-      const float ty0 = __fmul_rn(__fsub_rn(n0.y, oy), iy);
-      const float ty1 = __fmul_rn(__fsub_rn(n1.x, oy), iy);
-      const float tz0 = __fmul_rn(__fsub_rn(n0.z, oz), iz);
-      const float tz1 = __fmul_rn(__fsub_rn(n1.y, oz), iz);
-      const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                               fminf(tz0, tz1));
-      const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                               fmaxf(tz0, tz1));
-      const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
-      const int start = __float_as_int(n1.w);
-      if (hit && start >= 0) {
-        for (int k = start; k < start + W; ++k) {
-          const float t = woop_t(tri + 4 * k, ox, oy, oz, dx, dy, dz);
-          if (t < t_best) {  // strict: smallest row, earliest leaf win a tie
-            t_best = t;
-            row_best = k;
+    orion::walk_tree<kAnyHit>(
+        nodes, 0, M, ox, oy, oz, dx, dy, dz, t_best, row_best,
+        [&](int start, float& tb, int& rb) {
+          for (int k = start; k < start + W; ++k) {
+            const float t = woop_t(tri + 4 * k, ox, oy, oz, dx, dy, dz);
+            if (t < tb) {  // strict: smallest row, earliest leaf win a tie
+              tb = t;
+              rb = k;
+            }
           }
-        }
-        if (kAnyHit && row_best >= 0) break;
-      }
-      ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
-    }
+        });
   }
   row_out[i] = row_best;
   t_out[i] = row_best < 0 ? __int_as_float(0x7f800000)  // +inf

@@ -1,10 +1,11 @@
 // Shared device code of the path kernels (fused_path.cu, prb.cu,
-// bvh_path.cu) and the Whitted kernel (whitted.cu): PCG4D, the Woop test,
-// the nearest-hit and any-hit sweeps over a triangle table, the nearest-hit
-// walk over a flattened tree, primary rays, and the regenerative path lane
-// loop, templated over its geometry (`Geo`: a table swept chunk by chunk;
-// `Tree`: a skip-pointer BVH over a bundled table), its NEE form and what
-// it records.
+// bvh_path.cu), the Whitted kernels (whitted.cu, bvh_whitted.cu, through
+// whitted_common.cuh) and the wavefront's walk kernel (bvh_intersect.cu):
+// PCG4D, the Woop test, the nearest-hit and any-hit sweeps over a triangle
+// table, the skip-pointer walk over a flattened tree (nearest and any hit),
+// primary rays, and the regenerative path lane loop, templated over its
+// geometry (`Geo`: a table swept chunk by chunk; `Tree`: a skip-pointer BVH
+// over a bundled table), its NEE form and what it records.
 //
 // The lane loop (`path_lane`) is the estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body, one thread per pixel
@@ -189,39 +190,30 @@ __device__ __forceinline__ bool any_hit(const Geo& g, const float* sgeo,
   return false;
 }
 
-// a flattened skip-pointer BVH over a bundled table (bvh_path.cu): `copies`
-// concatenated flattenings of one tree, copy k ordered near-first for the
-// direction octant k; node rows are lo xyz, hi xyz, skip, start (the last
-// two int32 bits); a leaf owns rows [start & ~1, +leaf_width) of `tab`
-// (bit 0 of a leaf start is a flag that this walk does not use)
-struct Tree {
-  const float4* nodes;  // [copies * M, 2]
-  const float* tab;     // [B_pad, kCols]
-  int M, leaf_width, copies;
-};
-
-// nearest row with t < cap over the tree, or -1: per node the slab test
-// against the ray's live segment [0, t_best); in a leaf min t with ties to
-// the smallest row; across leaves only a strictly smaller t wins, in
-// flattened order. `sgeo` is unused (nothing is staged for a tree).
-template <int kStride>
-__device__ __forceinline__ int nearest(const Tree& g, const float* sgeo,
-                                       const Ray& r, float cap, float& t) {
-  (void)sgeo;
-  float t_best = cap;
-  int row = -1;
-  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
-  int ptr = 0;
-  if (g.copies == 8)
-    ptr = g.M * ((r.dx >= 0.0f ? 1 : 0) + (r.dy >= 0.0f ? 2 : 0) +
-                 (r.dz >= 0.0f ? 4 : 0));
-  const int end = ptr + g.M;
+// The skip-pointer walk over the node rows [ptr, end) of a flattened BVH
+// (node i's subtree is [i + 1, skip[i]); rows are lo xyz, hi xyz, skip,
+// start, the last two int32 bits; start < 0 marks an internal node). Per
+// node the slab test against the ray's live segment [0, t_best) (>= so
+// flat boxes hit); on a hit leaf `leaf(start, t_best, row)` tests its rows
+// and lowers (t_best, row) where it finds a nearer hit; a missed box or a
+// leaf jumps to skip. kAnyHit: the walk leaves after the first leaf that
+// set a row. The one walk of every tree kernel: the megakernels' nearest
+// and any-hit (below) and the wavefront's walk kernel (bvh_intersect.cu).
+// The slab arithmetic has no multiply-add to contract and `/` rounds to
+// nearest, so it gives the same bits wherever it is compiled.
+template <bool kAnyHit, class Leaf>
+__device__ __forceinline__ void walk_tree(const float4* nodes, int ptr,
+                                          int end, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& t_best, int& row,
+                                          Leaf leaf) {
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   while (ptr < end) {
-    const float4 n0 = __ldg(g.nodes + 2 * ptr);      // lo.xyz, hi.x
-    const float4 n1 = __ldg(g.nodes + 2 * ptr + 1);  // hi.yz, skip, start
-    const float tx0 = (n0.x - r.ox) * ix, tx1 = (n0.w - r.ox) * ix;
-    const float ty0 = (n0.y - r.oy) * iy, ty1 = (n1.x - r.oy) * iy;
-    const float tz0 = (n0.z - r.oz) * iz, tz1 = (n1.y - r.oz) * iz;
+    const float4 n0 = __ldg(nodes + 2 * ptr);      // lo.xyz, hi.x
+    const float4 n1 = __ldg(nodes + 2 * ptr + 1);  // hi.yz, skip, start
+    const float tx0 = (n0.x - ox) * ix, tx1 = (n0.w - ox) * ix;
+    const float ty0 = (n0.y - oy) * iy, ty1 = (n1.x - oy) * iy;
+    const float tz0 = (n0.z - oz) * iz, tz1 = (n1.y - oz) * iz;
     const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                              fminf(tz0, tz1));
     const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
@@ -229,14 +221,76 @@ __device__ __forceinline__ int nearest(const Tree& g, const float* sgeo,
     const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
     const int start = __float_as_int(n1.w);
     if (hit && start >= 0) {
-      const int lo = start & ~1;
-      sweep_rows<true>(g.tab, kStride, lo, lo + g.leaf_width, r, t_best, row);
+      leaf(start, t_best, row);
+      if (kAnyHit && row >= 0) return;
     }
     ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
   }
+}
+
+// a flattened skip-pointer BVH over a bundled table (bvh_path.cu,
+// bvh_whitted.cu, prb.cu): `copies` concatenated flattenings of one tree,
+// copy k ordered near-first for the direction octant k; a leaf owns rows
+// [start & ~1, +leaf_width) of `tab` (bit 0 of a leaf start is a flag
+// that these walks do not use)
+struct Tree {
+  const float4* nodes;  // [copies * M, 2]
+  const float* tab;     // [B_pad, stride]
+  int M, leaf_width, copies;
+  // the node range of the copy that a ray of this direction walks
+  __device__ __forceinline__ int first(const Ray& r) const {
+    if (copies != 8) return 0;
+    return M * ((r.dx >= 0.0f ? 1 : 0) + (r.dy >= 0.0f ? 2 : 0) +
+                (r.dz >= 0.0f ? 4 : 0));
+  }
+};
+
+// nearest row with t < cap over the tree, or -1: in a leaf min t with ties
+// to the smallest row; across leaves only a strictly smaller t wins, in
+// flattened order. `sgeo` is unused (nothing is staged for a tree).
+template <int kStride>
+__device__ __forceinline__ int nearest(const Tree& g, const float* sgeo,
+                                       const Ray& r, float cap, float& t) {
+  (void)sgeo;
+  float t_best = cap;
+  int row = -1;
+  const int ptr = g.first(r);
+  walk_tree<false>(g.nodes, ptr, ptr + g.M, r.ox, r.oy, r.oz, r.dx, r.dy,
+                   r.dz, t_best, row,
+                   [&](int start, float& tb, int& rb) {
+                     const int lo = start & ~1;
+                     sweep_rows<true>(g.tab, kStride, lo, lo + g.leaf_width,
+                                      r, tb, rb);
+                   });
   t = t_best;
   return row;
 }
+
+// does the ray hit any row of the tree at any t >= 0? Leaves at the first
+// hit (the reference's shadow test, raytracer.cpp:196-201).
+template <int kStride>
+__device__ __forceinline__ bool any_hit(const Tree& g, const float* sgeo,
+                                        const Ray& r) {
+  (void)sgeo;
+  float t_best = kBig;
+  int row = -1;
+  const int ptr = g.first(r);
+  walk_tree<true>(g.nodes, ptr, ptr + g.M, r.ox, r.oy, r.oz, r.dx, r.dy,
+                  r.dz, t_best, row,
+                  [&](int start, float& tb, int& rb) {
+                    const int lo = start & ~1;
+                    for (int k = lo; k < lo + g.leaf_width; ++k)
+                      if (woop<true>(g.tab + k * kStride, r) < kBig) {
+                        rb = k;
+                        return;
+                      }
+                  });
+  return row >= 0;
+}
+
+// nothing is staged for a tree
+template <int kStride>
+__device__ __forceinline__ void stage_geo(const Tree&, float*) {}
 
 // stage a resident table's 13 Woop floats per row into shared memory
 template <int kStride>

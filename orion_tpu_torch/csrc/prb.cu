@@ -1,8 +1,14 @@
-// Path-replay backpropagation: the training forward and the replay.
+// Path-replay backpropagation: the training forward and the replay, over a
+// swept table (kernels 3a/3b) or over a BVH (kernels 9a/9b).
 //
 // Replaces: orion_tpu/ops/pallas_prb.py::_make_fwd_ls_kernel (launched by
 // build_fwd_ls_call) and ::_make_replay_kernel / replay_impl (launched by
-// build_replay_call).
+// build_replay_call); and orion_tpu/ops/pallas_bvh_prb.py::
+// _make_bvh_fwd_ls_kernel and ::_make_bvh_replay_kernel (launched by
+// make_bvh_train_step), the same pair over the BVH walk of bvh_path.cu.
+// Both pairs are one template each, instantiated over `Geo` and `Tree`
+// (fused_common.cuh): the forward and the replay walk the same tree with
+// the same code, so the replay's U cancels as it does over the table.
 //
 // prb_fwd_ls_kernel: the path estimator of fused_path.cu with the legacy
 // NEE (the shadow sweep runs on every hit lane and carries the winner's
@@ -36,11 +42,14 @@
 // 3.35 TB/s about 0.03 ms each way. The replay adds atomics on shared
 // memory, which serialise when a warp's lanes hit one material.
 //
+// Over a tree add 12 FP32 operations per slab test; the tree and its
+// bundled [B_pad, 32] table stay in L2 as for kernel 8.
+//
 // Design: one thread per pixel lane with the whole path state in registers,
 // lanes leave the loop on their own; resident tables staged in shared
 // memory, larger ones swept chunk by chunk with the same AABB cull in both
 // kernels (value-identical between them, so the replay sees the forward's
-// paths).
+// paths); trees walked by fused_common.cuh's walk_tree.
 
 #include "fused_common.cuh"
 
@@ -48,17 +57,19 @@ namespace {
 
 using namespace orion;
 
+template <class G>
 __global__ void __launch_bounds__(kThreads)
-prb_fwd_ls_kernel(const PathParams p) {
+prb_fwd_ls_kernel(const PathParamsT<G> p) {
   extern __shared__ float sgeo[];  // resident tables only: [T_pad, 16]
-  stage_geo<kCols>(p.geo, sgeo);
+  stage_geo<kCols>(p.geo, sgeo);   // nothing for a tree
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= p.W * p.H) return;
   path_lane<true, kForwardLs>(p, sgeo, pix, nullptr, nullptr);
 }
 
+template <class G>
 __global__ void __launch_bounds__(kThreads)
-prb_replay_kernel(const PathParams p, double* grad, int em_mesh) {
+prb_replay_kernel(const PathParamsT<G> p, double* grad, int em_mesh) {
   extern __shared__ float sgeo[];  // resident tables only: [T_pad, 16]
   __shared__ double sacc[6 * kMLanes];
   __shared__ double sek[3];
@@ -134,6 +145,69 @@ extern "C" int prb_replay_launch(const float* cam, const float* tab,
   const size_t smem = p.geo.resident() ? sizeof(float) * T_pad * kGeo : 0;
   if (n_pix > 0) {
     prb_replay_kernel<<<(n_pix + kThreads - 1) / kThreads, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(p, grad,
+                                                              em_mesh);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// over a BVH (kernels 9a/9b)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+using TreePath = PathParamsT<Tree>;
+
+TreePath make_tree_params(const float* cam, const float* nodes,
+                          const float* tab, const float* em, float* out,
+                          float* ls, const float* w, int M, int leaf_width,
+                          int copies, int n_em, int W, int H, int samples,
+                          int max_depth, int light_samples, int seed) {
+  return TreePath{cam,
+                  Tree{reinterpret_cast<const float4*>(nodes), tab, M,
+                       leaf_width, copies},
+                  em, out, ls, w, n_em, W, H, samples, max_depth,
+                  light_samples, static_cast<uint32_t>(seed)};
+}
+
+}  // namespace
+
+extern "C" int bvh_prb_fwd_ls_launch(const float* cam, const float* nodes,
+                                     const float* tab, const float* em,
+                                     float* out, float* ls, int M,
+                                     int leaf_width, int copies, int n_em,
+                                     int W, int H, int samples,
+                                     int max_depth, int light_samples,
+                                     int seed, void* stream) {
+  const TreePath p = make_tree_params(cam, nodes, tab, em, out, ls, nullptr,
+                                      M, leaf_width, copies, n_em, W, H,
+                                      samples, max_depth, light_samples,
+                                      seed);
+  const int n_pix = W * H;
+  if (n_pix > 0) {
+    prb_fwd_ls_kernel<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_prb_replay_launch(const float* cam, const float* nodes,
+                                     const float* tab, const float* em,
+                                     const float* w, const float* ls,
+                                     double* grad, int M, int leaf_width,
+                                     int copies, int n_em, int W, int H,
+                                     int samples, int max_depth,
+                                     int light_samples, int seed,
+                                     int em_mesh, void* stream) {
+  const TreePath p = make_tree_params(cam, nodes, tab, em, nullptr,
+                                      const_cast<float*>(ls), w, M,
+                                      leaf_width, copies, n_em, W, H,
+                                      samples, max_depth, light_samples,
+                                      seed);
+  const int n_pix = W * H;
+  if (n_pix > 0) {
+    prb_replay_kernel<<<(n_pix + kThreads - 1) / kThreads, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p, grad,
                                                               em_mesh);
   }

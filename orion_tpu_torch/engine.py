@@ -21,7 +21,9 @@ spatial treelets; here device memory holds the whole tree, so neither the
 cap nor the treelets are carried over (treelets come with primitive
 sharding).
 
-The megakernel routes (cli.py) do not use this selection.
+The megakernel routes (cli.py: make_big_path_renderer for path scenes
+past the fused gate, make_whitted_megakernel for point-light scenes) do
+not use this selection.
 """
 
 from __future__ import annotations
@@ -186,6 +188,42 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
         except ValueError as e:
             errs.append(f"{cand}: {e}")
     raise ValueError("no big-path megakernel fits: " + "; ".join(errs))
+
+
+def make_whitted_megakernel(scene: Scene, camera, *, samples: int,
+                            max_depth: int, strategy: str = SAH,
+                            order_signs=(1.0, 1.0, 1.0)):
+    """Whitted megakernel for a point-light scene: returns (fn(seed: int)
+    -> [H, W, 3], backend_name), tried in the JAX package's order
+    (cli.py:107-143): the Whitted kernel over the brute sweep inside its
+    gate ("fused-whitted-kernel", ops/whitted.py), then the BVH Whitted
+    kernel for untextured scenes ("bvh-whitted-kernel",
+    ops/bvh_whitted.py), then the deferred-texturing BVH Whitted kernel
+    for max_depth <= 4 ("bvh-whitted-deferred-kernel"). On a CPU scene the
+    two BVH names end in "-torch" (the kernels' plain versions). Raises
+    ValueError when every gate rejects the scene (more than MAX_LIGHTS
+    lights, or a textured scene deeper than the deferred chain): the
+    caller then takes the wavefront, as in the JAX package."""
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops.whitted import (fused_whitted_supported,
+                                             make_fused_whitted_renderer)
+
+    if fused_whitted_supported(scene):
+        return (make_fused_whitted_renderer(scene, camera, samples=samples,
+                                            max_depth=max_depth),
+                "fused-whitted-kernel")
+    tail = "kernel" if scene.device.type == "cuda" else "torch"
+    kw = dict(samples=samples, max_depth=max_depth, strategy=strategy,
+              order_signs=order_signs)
+    if bw.bvh_whitted_supported(scene):
+        return (bw.make_bvh_whitted_renderer(scene, camera, **kw),
+                f"bvh-whitted-{tail}")
+    if bw.bvh_whitted_deferred_supported(scene, max_depth):
+        return (bw.make_bvh_whitted_deferred(scene, camera, **kw),
+                f"bvh-whitted-deferred-{tail}")
+    raise ValueError("scene outside every Whitted megakernel gate "
+                     f"(1..{bw.MAX_LIGHTS} point lights; textured scenes "
+                     f"max_depth <= {bw.MAX_DEFERRED_DEPTH})")
 
 
 def octant_signs(front) -> tuple:

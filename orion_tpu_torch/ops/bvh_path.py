@@ -43,7 +43,7 @@ from orion_tpu_torch.ops.fused_path import (_C_AREA, _C_KD, _C_KE, _C_MESH,
                                             _regen_steps, camera_vec,
                                             pack_emitters)
 from orion_tpu_torch.ops.reorder import direction_octant
-from orion_tpu_torch.ops.woop import woop_rows_np
+from orion_tpu_torch.ops.woop import BIG, woop_rows_np
 from orion_tpu_torch.scene import Scene
 
 LEAF_WIDTH = 128      # the JAX package's bundle width; the table's row
@@ -150,17 +150,20 @@ def bounce_textured_supported(scene: Scene) -> bool:
     return _small_emitters(scene)
 
 
-def bvh_path_supported(scene: Scene) -> bool:
-    """The fused gate without its triangle cap: untextured, 1..8 emissive
-    meshes of <= 8 triangles."""
-    if not _small_emitters(scene):
-        return False
+def untextured(scene: Scene) -> bool:
+    """No texture image and no material map (diffuse, specular, bump)."""
     if int(scene.numpy("tex_hw").max()) > 1:
         return False
     maps = np.concatenate([scene.numpy("mat_map_diffuse"),
                            scene.numpy("mat_map_specular"),
                            scene.numpy("mat_map_bump")])
     return bool((maps < 0).all())
+
+
+def bvh_path_supported(scene: Scene) -> bool:
+    """The fused gate without its triangle cap: untextured, 1..8 emissive
+    meshes of <= 8 triangles."""
+    return _small_emitters(scene) and untextured(scene)
 
 
 def reflatten_octant(lo, hi, skip, start, signs):
@@ -320,15 +323,20 @@ class TreeData:
         return cls(lo, hi, skip, start, nodes.shape[0] // copies, copies,
                    leaf_width)
 
-    def nearest(self, woop, orig, dirs, cap, stats):
+    def nearest(self, woop, orig, dirs, cap, stats, any_hit: bool = False):
         """(t, row) of each ray's walk (the ray's own octant's copy)."""
         first = None
         if self.copies == 8:
             first = direction_octant(dirs).to(torch.int64) * self.per_copy
         return walk_plain(self.lo, self.hi, self.skip, self.start, woop,
                           orig, dirs, leaf_width=self.leaf_width, cap=cap,
-                          first=first, count=self.per_copy,
+                          any_hit=any_hit, first=first, count=self.per_copy,
                           flagged_starts=True, stats=stats)
+
+    def any_hit(self, woop, orig, dirs, stats):
+        """Does each ray hit any row at any t >= 0 (the Whitted shadow
+        query; the walk leaves at its first leaf with a hit)?"""
+        return self.nearest(woop, orig, dirs, BIG, stats, any_hit=True)[1] >= 0
 
 
 def _check_tree(name: str, nodes, tab, em, cam, copies: int, W: int, H: int,

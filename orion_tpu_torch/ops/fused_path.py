@@ -630,12 +630,13 @@ def fused_path_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
 
 def fused_fwd_ls_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
                        samples: int, max_depth: int, light_samples: int,
-                       stats: dict | None = None):
+                       stats: dict | None = None, tree=None):
     """The training forward (legacy NEE) batched over all lanes:
     (img [W*H, 3] radiance/spp, ls [W*H, 3*samples]), where ls[:, 3s + c]
     is channel c of sample s's radiance L_s (the record the replay starts
     its remaining radiance from). Differentiable with respect to `tab`'s
-    material columns. `stats` as in fused_path_plain."""
+    material columns. `stats` as in fused_path_plain; `tree` as in
+    `_regen_steps` (the forward over a BVH, ops/bvh_prb.py)."""
     del clo, chi
     if samples > MAX_SAMPLES:
         raise ValueError(f"{samples} samples; the per-sample record holds "
@@ -645,7 +646,8 @@ def fused_fwd_ls_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
     acc = [0.0, 0.0, 0.0]
     planes = [zero.expand(W * H)] * (3 * samples)
     for st in _regen_steps(tab, em, cam, seed, W, H, samples, max_depth,
-                           light_samples, legacy=True, stats=stats):
+                           light_samples, legacy=True, stats=stats,
+                           tree=tree):
         c3 = st["contrib"]
         acc = [acc[k] + c3[k] for k in range(3)]
         for s in range(samples):

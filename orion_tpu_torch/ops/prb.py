@@ -69,14 +69,17 @@ def fused_train_supported(scene: Scene, samples: int = 1) -> bool:
 
 def prb_replay_plain(tab, clo, chi, em, cam, seed: int, w, ls, W: int,
                      H: int, samples: int, max_depth: int,
-                     light_samples: int, stats: dict | None = None):
+                     light_samples: int, stats: dict | None = None,
+                     tree=None):
     """The replay batched over all lanes: [6, M_LANES] gradient rows
     (0-2: d kd, 3-5: d ke, per material column).
 
     w: [W*H, 3] per-lane adjoint of the summed sample radiance (the image
     cotangent / samples); ls: [W*H, 3*samples] from the training forward.
     A lane that misses has no material and scatters nothing. Per-lane
-    terms are float32 and their sums float64, as in the kernel.
+    terms are float32 and their sums float64, as in the kernel. tree: a
+    `bvh_path.TreeData` walks a bundled `tab` instead of sweeping it (the
+    replay over a BVH, ops/bvh_prb.py).
     """
     del clo, chi
     dev = tab.device
@@ -99,7 +102,8 @@ def prb_replay_plain(tab, clo, chi, em, cam, seed: int, w, ls, W: int,
         L0 = l_of(torch.zeros((n,), dtype=torch.int64, device=dev))
         U = [L0[:, c] for c in range(3)]
         for st in _regen_steps(tab, em, cam, seed, W, H, samples, max_depth,
-                               light_samples, legacy=True, stats=stats):
+                               light_samples, legacy=True, stats=stats,
+                               tree=tree):
             T, kd, A = st["T"], st["kd"], st["A"]
             U = [U[c] - st["contrib"][c] for c in range(3)]
             hit = st["hit"]
@@ -254,7 +258,9 @@ class PRBPlan:
 
 class FusedPathPRB(torch.autograd.Function):
     """img = training-forward(mat_diffuse, mat_emissive) as [H, W, 3]; its
-    backward is the replay kernel (closed-form adjoints, no residuals)."""
+    backward is the replay kernel (closed-form adjoints, no residuals).
+    `plan` is a PRBPlan, or a bvh_prb.BVHPRBPlan for the pair over a
+    tree."""
 
     @staticmethod
     def forward(ctx, mat_diffuse, mat_emissive, plan: PRBPlan, seed: int):
@@ -325,6 +331,13 @@ def make_fused_train_step(scene: Scene, camera, target, *, samples: int,
     _gate(scene, samples)
     plan = PRBPlan.build(scene, camera, samples=samples, max_depth=max_depth,
                          light_samples=light_samples)
+    return train_step_over(scene, plan, target, dynamic_params)
+
+
+def train_step_over(scene: Scene, plan, target, dynamic_params: bool):
+    """The MSE train step of make_fused_train_step over any plan with
+    `table`, `forward`, `replay`, W, H and samples (a PRBPlan, or
+    ops/bvh_prb.BVHPRBPlan over a tree)."""
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=scene.device)
 
@@ -344,6 +357,7 @@ def make_fused_train_step(scene: Scene, camera, target, *, samples: int,
         def step(seed: int):
             return _loss_and_grads({}, seed, ("mat_diffuse", "mat_emissive"))
 
+        step.plan = plan
         return step
 
     def step_params(params, seed: int):
@@ -353,4 +367,5 @@ def make_fused_train_step(scene: Scene, camera, target, *, samples: int,
                              f"got {sorted(bad)}")
         return _loss_and_grads(params, seed, tuple(params))
 
+    step_params.plan = plan
     return step_params

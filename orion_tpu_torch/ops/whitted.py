@@ -8,8 +8,11 @@ over a [T_pad, 40] table, depth-0 emission (scenes with an emitter only),
 one any-hit shadow sweep per point light (<= MAX_LIGHTS), Phong shading
 with C's pow(0, 0) = 1, the Ks-scaled mirror continuation, pruning of
 zero-throughput rays and regeneration onto the lane's next sample. The
-kernel is `csrc/whitted.cu`; `fused_whitted_plain` computes the same
-estimator batched over all lanes, a fixed samples * (max_depth + 1) steps.
+kernel is `csrc/whitted.cu` over the lane of `csrc/whitted_common.cuh`;
+`fused_whitted_plain` computes the same estimator batched over all lanes, a
+fixed samples * (max_depth + 1) steps. `_whitted_plain` is that one
+estimator for every Whitted kernel: over a tree it is the plain version of
+the BVH Whitted kernels too (ops/bvh_whitted.py).
 
 `fused_whitted` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -30,7 +33,7 @@ import torch
 
 from orion_tpu_torch.ops.cuda_build import CudaKernel, stream_ptr
 from orion_tpu_torch.ops.fused_path import (
-    BIAS, FUSED_MAX_TRIS, _C_AREA, _C_KD, _C_KE, _C_N0, _C_N1, _C_N2,
+    BIAS, FUSED_MAX_TRIS, _C_AREA, _C_KD, _C_KE, _C_MESH, _C_N0, _C_N1, _C_N2,
     _C_WOOP, _f32, _fused_t_pad, _make_primary, _norm3, camera_vec,
     check_tables, fused_chunk_bounds, pack_fused_tri_table)
 from orion_tpu_torch.ops.woop import BIG, nearest_rows, woop_tuv
@@ -41,6 +44,10 @@ MAX_LIGHTS = 8
 # Whitted extension columns ([T_pad, 40] table: 0-29 as the path table)
 _C_KA, _C_KS, _C_SHIN = 32, 35, 38
 _W_COLS = 40
+# the deferred kernel's table adds the corner uvs, corner-major per axis
+# (u0 u1 u2 | v0 v1 v2): [B_pad, 48]
+_C_UV = 40
+_D_COLS = 48
 LIGHT_COLS = 8      # light record: position(3) color(3) intensity, 0
 
 _P = ctypes.c_void_p
@@ -81,17 +88,12 @@ def pack_lights(scene: Scene) -> np.ndarray:
 
 
 def fused_whitted_supported(scene: Scene) -> bool:
-    """Gate: solid-material Whitted scene with few lights, small T."""
-    if _fused_t_pad(int(scene.num_triangles)) > FUSED_MAX_TRIS:
-        return False
-    if not 1 <= int(scene.num_lights) <= MAX_LIGHTS:
-        return False
-    if int(scene.numpy("tex_hw").max()) > 1:
-        return False
-    maps = np.concatenate([scene.numpy("mat_map_diffuse"),
-                           scene.numpy("mat_map_specular"),
-                           scene.numpy("mat_map_bump")])
-    return bool((maps < 0).all())
+    """Gate: solid-material Whitted scene with few lights, small T (the
+    BVH Whitted gate with the brute sweep's triangle cap)."""
+    from orion_tpu_torch.ops.bvh_whitted import bvh_whitted_supported
+
+    return (_fused_t_pad(int(scene.num_triangles)) <= FUSED_MAX_TRIS
+            and bvh_whitted_supported(scene))
 
 
 def _pow_like_c(x, e):
@@ -122,43 +124,89 @@ def _first_hit_rows(rows13, orig, dirs, budget: int = 1 << 24):
     return out
 
 
-def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
-                        H: int, samples: int, max_depth: int,
-                        with_emissive: bool,
-                        stats: dict | None = None) -> torch.Tensor:
-    """The kernel's estimator batched over all lanes: [W*H, 3] radiance/spp.
+REC_ROWS = 12       # deferred record floats per (sample, bounce, lane)
 
-    clo/chi only let the kernel skip chunks (value-identical). When
-    `stats` is a dict, stats["tests"] counts the Woop tests the kernel's
-    sweeps need without chunk culling (lanes inside their samples, real
-    rows only; a shadow sweep stops at its first hit).
+
+def _whitted_plain(tab, lights, cam, seed: int, W: int, H: int,
+                   samples: int, max_depth: int, with_emissive: bool, *,
+                   tree=None, pix_base: int = 0, n_lanes: int | None = None,
+                   records: tuple | None = None,
+                   stats: dict | None = None) -> torch.Tensor:
+    """The Whitted megakernels' estimator batched over the lanes
+    [pix_base, pix_base + n_lanes) (default: the whole image), run as a
+    fixed samples * (max_depth + 1) regenerative steps (a lane past its last
+    sample idles): [n_lanes, 3] radiance / spp.
+
+    tree: None sweeps every row of `tab` (kernel 4); a `bvh_path.TreeData`
+    walks the bundled `tab` instead (kernel 7a): the nearest hit by
+    `tree.nearest`, each light's shadow query by `tree.any_hit`.
+
+    records=(samp_base, chunk) gives the deferred kernel's function
+    (kernel 7b) instead: the lanes run the samples [samp_base, samp_base +
+    chunk) with no zero-throughput pruning (the mirror chain goes on
+    wherever a bounce hits, since ks(uv) is unknown), and the result is the
+    records [chunk * (max_depth + 1) * REC_ROWS, n_lanes] of every (sample,
+    bounce): uv, material id, the ambient (+ depth-0 emission) sum, the
+    diffuse light sum Cd and the specular light sum Cs; zero where the
+    bounce is not reached or misses. `tab` then carries the corner uvs
+    (bvh_whitted.pack_bvh_whitted_table(textured=True)).
+
+    When `stats` is a dict it accumulates the work of the kernel's sweeps:
+    stats["tests"] the Woop tests (a brute sweep without chunk culling over
+    real rows, a shadow sweep up to its first hit; a walk's tests of real
+    rows in visited leaves) and, over a tree, stats["box_tests"].
     """
-    del clo, chi
     dev = tab.device
-    n = W * H
-    S = samples
+    n = W * H - pix_base if n_lanes is None else n_lanes
+    samp0, S = (0, samples) if records is None else (
+        records[0], records[0] + records[1])
+    D1 = max_depth + 1
     woop = tab[:, :13]
     lt = lights.detach().cpu().numpy()
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    primary = _make_primary(cam, seed, W, H, dev)
+    pix = torch.arange(n, dtype=torch.int64, device=dev) + pix_base
+    primary = _make_primary(cam, seed, W, H, dev, pix)
 
     pad_row = torch.zeros((13,), dtype=torch.float32, device=dev)
     pad_row[_C_WOOP + 11] = 1.0
     n_real = int((woop != pad_row).any(dim=1).sum())
     # the rank of each table row among the real rows (tests up to a hit)
     real_rank = torch.cumsum((woop != pad_row).any(dim=1).to(torch.int64), 0)
+    tests = 0
 
-    samp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    def nearest(o, d, lanes):
+        oo, dd = torch.stack(o, 1)[lanes], torch.stack(d, 1)[lanes]
+        if tree is None:
+            return nearest_rows(woop, oo, dd)
+        return tree.nearest(woop, oo, dd, BIG, stats)
+
+    def occluded(so, sd):
+        """Any hit at any t >= 0 of each shadow ray."""
+        nonlocal tests
+        if tree is None:
+            first = _first_hit_rows(woop, so, sd)
+            tests += int(torch.where(first >= 0,
+                                     real_rank[first.clamp(min=0)],
+                                     torch.full_like(first, n_real)).sum())
+            return first >= 0
+        return tree.any_hit(woop, so, sd, stats)
+
+    samp = torch.full((n,), samp0, dtype=torch.int64, device=dev)
     depth = torch.zeros((n,), dtype=torch.int64, device=dev)
     o, d = primary(samp)
     one = torch.ones((n,), dtype=torch.float32, device=dev)
     tr, tg, tb = one, one, one
     acc = [zero, zero, zero]
-    tests = 0
-    for _ in range(samples * (max_depth + 1)):
-        active = samp < S
-        tests += int(active.sum()) * n_real
-        t, row = nearest_rows(woop, torch.stack(o, 1), torch.stack(d, 1))
+    rec = (None if records is None else
+           torch.zeros((records[1] * D1, n, REC_ROWS), dtype=torch.float32,
+                       device=dev))
+    for _ in range((S - samp0) * D1):
+        active = torch.nonzero(samp < S).flatten()
+        if tree is None:
+            tests += active.numel() * n_real
+        t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+        row = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        t[active], row[active] = nearest(o, d, active)
         hit = row >= 0
         g = tab[torch.clamp(row, min=0)]
         _, u, v = woop_tuv(o, d, tuple(g[:, k] for k in range(13)))
@@ -174,6 +222,8 @@ def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
         shin = g[:, _C_SHIN]
 
         r3 = [zero, zero, zero]
+        cd = [zero, zero, zero]
+        cs = [zero, zero, zero]
         if with_emissive:
             nd = _norm3(*d)
             cosv = -(nd[0] * sn[0] + nd[1] * sn[1] + nd[2] * sn[2])
@@ -184,17 +234,13 @@ def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
         vd = _norm3(-d[0], -d[1], -d[2])
         so = torch.stack([hx + BIAS * gn[0], hy + BIAS * gn[1],
                           hz + BIAS * gn[2]], 1)
-        lanes = torch.nonzero(hit & active).flatten()
+        lanes = torch.nonzero(hit).flatten()
         for li in range(lt.shape[0]):
             tl = (float(lt[li, 0]) - hx, float(lt[li, 1]) - hy,
                   float(lt[li, 2]) - hz)
             d2 = tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2]
-            first = _first_hit_rows(woop, so[lanes],
-                                    torch.stack(tl, 1)[lanes])
-            tests += int(torch.where(first >= 0, real_rank[first.clamp(min=0)],
-                                     torch.full_like(first, n_real)).sum())
             occ = torch.zeros((n,), dtype=torch.bool, device=dev)
-            occ[lanes] = first >= 0
+            occ[lanes] = occluded(so[lanes], torch.stack(tl, 1)[lanes])
             lit = hit & ~occ
             ldx, ldy, ldz = _norm3(*tl)
             ndotl = torch.clamp(sn[0] * ldx + sn[1] * ldy + sn[2] * ldz,
@@ -208,17 +254,31 @@ def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
             spec = 0.5 * _pow_like_c(spec_cos, shin)
             scale = lit.to(torch.float32) * float(lt[li, 6]) \
                 / torch.clamp(d2, min=1e-20)
-            r3 = [r3[c] + float(lt[li, 3 + c])
-                  * (ka[c] + ndotl * kd[c] + spec * ks[c]) * scale
-                  for c in range(3)]
-        T3 = (tr, tg, tb)
-        acc = [acc[c] + torch.where(hit, T3[c] * r3[c], zero)
-               for c in range(3)]
+            lc = [float(lt[li, 3 + c]) for c in range(3)]
+            if records is None:
+                r3 = [r3[c] + lc[c] * (ka[c] + ndotl * kd[c] + spec * ks[c])
+                      * scale for c in range(3)]
+            else:
+                r3 = [r3[c] + lc[c] * ka[c] * scale for c in range(3)]
+                cd = [cd[c] + lc[c] * ndotl * scale for c in range(3)]
+                cs = [cs[c] + lc[c] * spec * scale for c in range(3)]
 
-        # mirror continuation scaled by Ks; zero-throughput rays retire
-        n_t = (tr * ks[0], tg * ks[1], tb * ks[2])
-        nonzero = (n_t[0] > 0.0) | (n_t[1] > 0.0) | (n_t[2] > 0.0)
-        cont = hit & (depth < max_depth) & nonzero & active
+        T3 = (tr, tg, tb)
+        if records is None:
+            acc = [acc[c] + torch.where(hit, T3[c] * r3[c], zero)
+                   for c in range(3)]
+            # mirror continuation scaled by Ks; zero-throughput rays retire
+            n_t = (tr * ks[0], tg * ks[1], tb * ks[2])
+            nonzero = (n_t[0] > 0.0) | (n_t[1] > 0.0) | (n_t[2] > 0.0)
+            cont = hit & (depth < max_depth) & nonzero
+        else:
+            uv = [wb * g[:, _C_UV + 3 * a] + u * g[:, _C_UV + 3 * a + 1]
+                  + v * g[:, _C_UV + 3 * a + 2] for a in range(2)]
+            vals = torch.stack(uv + [g[:, _C_MESH]] + r3 + cd + cs, 1)
+            slot = (samp - samp0) * D1 + depth
+            rec[slot[lanes], lanes] = vals[lanes]
+            n_t = T3
+            cont = hit & (depth < max_depth)
         dot_dn = d[0] * sn[0] + d[1] * sn[1] + d[2] * sn[2]
         bd = tuple(d[k] - 2.0 * dot_dn * sn[k] for k in range(3))
         n_o = (hx + sn[0] * BIAS, hy + sn[1] * BIAS, hz + sn[2] * BIAS)
@@ -232,8 +292,26 @@ def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
         samp = n_samp
     if stats is not None:
         stats["tests"] = stats.get("tests", 0) + tests
+    if records is not None:
+        return rec.permute(0, 2, 1).reshape(-1, n)
     inv_s = _f32(1.0 / samples, dev)
     return torch.stack(acc, dim=1) * inv_s
+
+
+def fused_whitted_plain(tab, clo, chi, lights, cam, seed: int, W: int,
+                        H: int, samples: int, max_depth: int,
+                        with_emissive: bool,
+                        stats: dict | None = None) -> torch.Tensor:
+    """The kernel's estimator batched over all lanes: [W*H, 3] radiance/spp.
+
+    clo/chi only let the kernel skip chunks (value-identical). When
+    `stats` is a dict, stats["tests"] counts the Woop tests the kernel's
+    sweeps need without chunk culling (lanes inside their samples, real
+    rows only; a shadow sweep stops at its first hit).
+    """
+    del clo, chi
+    return _whitted_plain(tab, lights, cam, seed, W, H, samples, max_depth,
+                          with_emissive, stats=stats)
 
 
 def fused_whitted(tab, clo, chi, lights, cam, seed: int, W: int, H: int,

@@ -9,19 +9,21 @@ tensors, so scene recovery is gradient descent:
     result = fit(ps, target_image, params=("mat_diffuse",), steps=100)
     recovered_scene = result.scene
 
-Gradient routes, as the JAX package chooses them (`_prb_loss_and_grad`):
+Gradient routes, as the JAX package chooses them (`_prb_loss_and_grad`,
+`fit`):
+  - geometry (tri_v0 / tri_e1 / tri_e2) on a BVH backend: wavefront
+    autograd through the walk kernel (ops/bvh_intersect.py) over the tree
+    refitted to the current vertices every step (`make_refit_loss`,
+    accel/refit.py); this takes precedence over the closed forms;
   - point-light (Whitted) scenes, material tables only: the closed-form
     Whitted trainer (ops/prb_whitted.py) over the scene's intersect;
   - path scenes inside the fused-train gate, mat_diffuse / mat_emissive
     only, MSE: the path-replay kernels (ops/prb.py) through the
     autograd.Function `FusedPathPRB`;
-  - path scenes past that gate with one small emitter, mat_diffuse only:
+  - path scenes past that gate with one small emitter: mat_diffuse only,
     the closed-form trainer over the bounce pipeline (ops/bounce_prb.py);
+    with mat_emissive, the path-replay kernels over a BVH (ops/bvh_prb.py);
   - everything else: wavefront autograd through `render`.
-The JAX package's other routes (the BVH PRB past the fused gate, which it
-takes for mat_emissive there, and the BVH refit loss for geometry on a BVH
-backend) are not ported: `fit` raises NotImplementedError naming the piece
-rather than take another route.
 
 Optimizers: `optimizer` is a callable `params -> torch.optim.Optimizer`
 over the list of parameter tensors; the default, `torch.optim.Adam` at
@@ -49,8 +51,8 @@ UNIT_INTERVAL_PARAMS = ("mat_diffuse", "mat_specular", "mat_ambient",
 
 DEFAULT_PARAMS = ("mat_diffuse",)
 
-# parameters that move geometry: on a BVH backend the JAX package refits
-# the tree every step (make_refit_loss)
+# parameters that move geometry: on a BVH backend fit refits the tree
+# every step (make_refit_loss), as the JAX package does
 GEOMETRY_PARAMS = ("tri_v0", "tri_e1", "tri_e2")
 
 
@@ -97,21 +99,54 @@ def make_loss(scene: Scene, camera, *, samples: int, max_depth: int,
     return loss
 
 
-def make_refit_loss(ps, **kwargs):
-    """Geometry optimization on a BVH backend (the JAX package refits the
-    tree's values from the moving vertices every step): not ported."""
-    raise NotImplementedError(
-        "make_refit_loss (geometry fits over a refitted BVH, "
-        "orion_tpu.optim.make_refit_loss) is not ported yet; fit geometry "
-        "on the brute backend (prepare(..., force_backend='brute'))")
+def make_refit_loss(ps, *, samples: int, max_depth: int,
+                    light_samples: int, mode: Optional[str],
+                    loss_fn: Optional[Callable] = None,
+                    remat: bool | str = "hits"):
+    """(loss, plan) for geometry fits on a BVH backend.
+
+    loss(params, generator, target, nodes, tri) renders the wavefront with
+    `params` substituted into the scene, its intersect the walk kernel
+    (ops/bvh_intersect.bvh_walk) over the REFITTED tree `nodes`, `tri`
+    that `plan.refit(v0, e1, e2)` (accel/refit.RefitPlan of ps.bvh) gives
+    for the current vertices, so vertex motion never stales the tree. Hits
+    are detached (ids from the walk); t, u, v and shading are recomputed
+    differentiably from the live scene (the contract of ops/intersect.py),
+    so gradients reach the vertices. MSE, or `loss_fn(img, target)`.
+
+    remat: the JAX package's "hits" keeps its backward pass from re-running
+    the traversal kernel. PyTorch's eager autograd keeps the forward's
+    tensors and never re-runs the walk in the backward pass, so every value
+    of `remat` means that here.
+    """
+    del remat
+    from orion_tpu_torch.accel.refit import RefitPlan
+    from orion_tpu_torch.ops.bvh_intersect import make_bvh_intersect_kernel
+
+    bvh = getattr(ps, "bvh", None)
+    if bvh is None:
+        raise ValueError(f"backend {ps.backend!r} carries no refittable "
+                         "tree; use force_backend='brute' for geometry fits")
+    plan = RefitPlan(bvh)
+    scene, camera = ps.scene, ps.camera
+
+    def loss(params, generator, target, nodes, tri):
+        s = dataclasses.replace(scene, **params)
+        intersect = make_bvh_intersect_kernel(bvh, scene, layout=(nodes, tri))
+        img = render(s, camera, generator, samples=samples,
+                     max_depth=max_depth, light_samples=light_samples,
+                     mode=mode, intersect=intersect, prune_zero=False)
+        if loss_fn is not None:
+            return loss_fn(img, target)
+        return torch.mean((img - target) ** 2)
+
+    return loss, plan
 
 
 def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
                        light_samples, mode, loss_fn):
     """The closed-form trainer for this setup, as `(params, seed) ->
-    (loss, grads)`, or None (wavefront autograd). Raises
-    NotImplementedError where the JAX package would take a trainer that
-    is not ported."""
+    (loss, grads)`, or None (wavefront autograd)."""
     if loss_fn is not None:
         return None
     scene = ps.scene
@@ -133,7 +168,7 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
         return None
     if not set(params) <= {"mat_diffuse", "mat_emissive"}:
         return None
-    from orion_tpu_torch.ops.prb import (MAX_SAMPLES, fused_train_supported,
+    from orion_tpu_torch.ops.prb import (fused_train_supported,
                                          make_fused_train_step)
 
     if fused_train_supported(scene, samples):
@@ -153,10 +188,15 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
                                       samples=samples, max_depth=max_depth,
                                       light_samples=light_samples,
                                       dynamic_params=True)
-    if one_emitter and samples <= MAX_SAMPLES:
-        raise NotImplementedError(
-            "the BVH PRB trainer (orion_tpu.ops.pallas_bvh_prb) for scenes "
-            "past the fused-train gate is not ported yet")
+    from orion_tpu_torch.ops.bvh_prb import (bvh_train_supported,
+                                             make_bvh_train_step)
+
+    if bvh_train_supported(scene, samples):
+        return make_bvh_train_step(
+            scene, ps.camera, target, samples=samples, max_depth=max_depth,
+            light_samples=light_samples,
+            order_signs=getattr(ps, "order_signs", (1.0, 1.0, 1.0)),
+            dynamic_params=True)
     return None
 
 
@@ -182,10 +222,15 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
     PCG4D stream, so their losses differ from the wavefront's at the
     noise level.
     """
+    dev = ps.scene.device
+    refit_loss = refit_plan = None
     if (any(p in GEOMETRY_PARAMS for p in params)
             and str(getattr(ps, "backend", "")).startswith("bvh")):
-        make_refit_loss(ps)
-    dev = ps.scene.device
+        # moving geometry over a tree backend: refit the tree's values from
+        # the current vertices every step (fixed topology)
+        refit_loss, refit_plan = make_refit_loss(
+            ps, samples=samples, max_depth=max_depth,
+            light_samples=light_samples, mode=mode, loss_fn=loss_fn)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     theta = {name: getattr(ps.scene, name).detach().clone()
              .to(torch.float32).requires_grad_(True) for name in params}
@@ -194,7 +239,7 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
                list(theta.values()))
 
     prb = None
-    if use_prb:
+    if use_prb and refit_plan is None:
         prb = _prb_loss_and_grad(ps, target, params, samples=samples,
                                  max_depth=max_depth,
                                  light_samples=light_samples, mode=mode,
@@ -203,23 +248,34 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
             raise ValueError("use_prb=True but the setup is outside the "
                              "PRB gate (params/mode/loss/scene)")
 
-    if prb is not None:
-        def value_and_grad(theta, step_seed):
-            return prb({k: v.detach() for k, v in theta.items()}, step_seed)
-    else:
-        loss = make_loss(ps.scene, ps.camera, samples=samples,
-                         max_depth=max_depth, light_samples=light_samples,
-                         mode=mode, intersect=ps.intersect, loss_fn=loss_fn)
-
+    def autograd_step(loss, extra=lambda: ()):
         def value_and_grad(theta, step_seed):
             gen = torch.Generator(device=dev)
             gen.manual_seed(step_seed)
-            value = loss(theta, gen, target)
+            value = loss(theta, gen, target, *extra())
             grads = torch.autograd.grad(value, list(theta.values()),
                                         allow_unused=True)
             return value.detach(), {
                 k: torch.zeros_like(v) if g is None else g
                 for (k, v), g in zip(theta.items(), grads)}
+
+        return value_and_grad
+
+    if refit_plan is not None:
+        def refitted():
+            return refit_plan.refit(
+                *(theta[n].detach() if n in theta else getattr(ps.scene, n)
+                  for n in GEOMETRY_PARAMS), device=dev)
+
+        value_and_grad = autograd_step(refit_loss, refitted)
+    elif prb is not None:
+        def value_and_grad(theta, step_seed):
+            return prb({k: v.detach() for k, v in theta.items()}, step_seed)
+    else:
+        value_and_grad = autograd_step(make_loss(
+            ps.scene, ps.camera, samples=samples, max_depth=max_depth,
+            light_samples=light_samples, mode=mode, intersect=ps.intersect,
+            loss_fn=loss_fn))
 
     seeds = torch.Generator()
     seeds.manual_seed(seed)

@@ -296,6 +296,66 @@ def build_scene(
     ), device)
 
 
+def make_synthetic_scene(num_triangles: int, seed: int = 0,
+                         extent: float = 10.0, with_light: bool = True,
+                         device="cuda") -> Scene:
+    """Random triangle-soup Scene for large-scene tests and benchmarks.
+
+    `num_triangles` uniformly placed triangles in a cube of half-width
+    `extent`, sized so the expected local density stays roughly constant
+    (edge ~ extent / cbrt(T)); one grey material; one point light above
+    the cube when `with_light` (a Whitted scene). The draws are NumPy's
+    `default_rng(seed)` in the JAX package's order, so both packages give
+    the same arrays bit for bit.
+    """
+    rng = np.random.default_rng(seed)
+    T = num_triangles
+    T_pad = max(_round_up(T, LANE), LANE)
+    size = 4.0 * extent / max(float(T) ** (1.0 / 3.0), 1.0)
+    v0 = rng.uniform(-extent, extent, (T, 3)).astype(np.float32)
+    e1 = rng.normal(0.0, size, (T, 3)).astype(np.float32)
+    e2 = rng.normal(0.0, size, (T, 3)).astype(np.float32)
+
+    def pad(a):
+        out = np.zeros((T_pad,) + a.shape[1:], np.float32)
+        out[:T] = a
+        return out
+
+    gn = np.cross(e1, e2)
+    gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+    uv = rng.uniform(0.0, 1.0, (T, 2)).astype(np.float32)
+    tri_valid = np.zeros(T_pad, bool)
+    tri_valid[:T] = True
+    areas = triangle_areas(e1, e2)
+    return scene_from_numpy(dict(
+        tri_v0=pad(v0), tri_e1=pad(e1), tri_e2=pad(e2),
+        n0=pad(gn), n1=pad(gn), n2=pad(gn),
+        uv0=pad(uv), uv1=pad(uv), uv2=pad(uv),
+        tri_mat=np.zeros(T_pad, np.int32), tri_valid=tri_valid,
+        mesh_tri_start=np.array([0], np.int32),
+        mesh_tri_count=np.array([T], np.int32),
+        mesh_area=np.array([float(areas.sum())], np.float32),
+        mat_ambient=np.full((1, 3), 0.05, np.float32),
+        mat_diffuse=np.full((1, 3), 0.7, np.float32),
+        mat_specular=np.zeros((1, 3), np.float32),
+        mat_emissive=np.zeros((1, 3), np.float32),
+        mat_shininess=np.array([8.0], np.float32),
+        mat_opacity=np.ones(1, np.float32),
+        mat_map_diffuse=np.full(1, -1, np.int32),
+        mat_map_specular=np.full(1, -1, np.int32),
+        mat_map_bump=np.full(1, -1, np.int32),
+        tex_atlas=np.zeros((1, 1, 3), np.float32),
+        tex_off=np.zeros((1, 2), np.int32),
+        tex_hw=np.ones((1, 2), np.int32),
+        emissive_mesh_ids=np.full(1, -1, np.int32),
+        light_pos=np.array([[0.0, 2.5 * extent, 0.0]], np.float32),
+        light_color=np.ones((1, 3), np.float32),
+        light_intensity=np.full(
+            1, 25.0 * extent * extent if with_light else 0.0, np.float32),
+        num_triangles=T, num_meshes=1, num_emissive=0,
+        num_lights=1 if with_light else 0), device)
+
+
 def subdivide_scene(scene: Scene, levels: int = 1,
                     skip_emissive: bool = True) -> Scene:
     """4-to-1 midpoint subdivision of every triangle: a geometrically

@@ -19,15 +19,18 @@ kernel is held to the fused kernel's pixel tolerance. The three bounce
 kernels (walk, vis, shade) are held by chip_smoke.py's `walk_agree`,
 `vis_agree` and `shade_agree` on every bounce of one render: winners and
 visibility planes equal on >= 99.9% of lanes (a tie may break the other
-way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|.
+way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|. The BVH
+Whitted kernel (7a), the deferred kernel's records (7b, per record row)
+and the BVH PRB pair (9a/9b) are held to the fused kernel's and the
+replay's tolerances.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (bounce_kernels_agree, random_rays, two_emitter,
-                        write_cornell, write_cornell_whitted)
+from chip_smoke import (agreeing_lanes, bounce_kernels_agree, random_rays,
+                        two_emitter, write_cornell, write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import bounce as bo
@@ -35,6 +38,8 @@ from orion_tpu_torch.ops import bounce_prb as bpr
 from orion_tpu_torch.ops import brute_intersect as bi
 from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.ops import bvh_path as bp
+from orion_tpu_torch.ops import bvh_prb as bvp
+from orion_tpu_torch.ops import bvh_whitted as bw
 from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops import whitted as wh
@@ -361,3 +366,153 @@ def test_bounce_wrappers_reject_bad_inputs(tmp_path, cuda_device):
     with pytest.raises(ValueError):          # not contiguous
         bo.bounce_vis(data, st, hd.t().contiguous().t(), 0, 0)
     assert bo.bounce_walk(data, st, 0).shape == (8, 0)     # nothing to do
+
+
+def _whitted_scene(tmp_path, device, levels=3, checker=False):
+    sc, rtc = load_scene(write_cornell_whitted(tmp_path, xres=32, yres=24,
+                                               checker=checker),
+                         device=device)
+    if levels:
+        sc = subdivide_scene(sc, levels=levels)
+    return sc, camera_from_rtc(rtc, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf,octants", [(2, 1), (128, 8)])
+def test_bvh_whitted_kernel_matches_plain(tmp_path, cuda_device, leaf,
+                                          octants):
+    sc, cam = _whitted_scene(tmp_path, cuda_device)
+    fn = bw.make_bvh_whitted_renderer(sc, cam, samples=4, max_depth=4,
+                                      leaf_width=leaf, octants=octants)
+    before = bw.KERNEL.launches
+    k = fn(99)
+    torch.cuda.synchronize()
+    assert bw.KERNEL.launches == before + 1
+    dd = fn.data
+    p = bw.bvh_whitted_plain(dd["nodes"], dd["tab"], dd["lights"], dd["cam"],
+                             99, 32, 24, 4, 4, dd["with_emissive"],
+                             leaf_width=leaf, copies=octants)
+    _images_agree(k.reshape(-1, 3), p)
+    tile = fn(99, pix_base=100, n_lanes=300)
+    torch.cuda.synchronize()
+    assert torch.equal(tile, k.reshape(-1, 3)[100:400])
+    # the Whitted kernel over the brute sweep (kernel 4): the same estimator
+    _images_agree(k.reshape(-1, 3), wh.fused_whitted(
+        *wh.whitted_args(sc, cam), 99, 32, 24, 4, 4, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checker", [False, True])
+def test_bvh_whitted_deferred_kernel_matches_plain(tmp_path, cuda_device,
+                                                   checker):
+    sc, cam = _whitted_scene(tmp_path, cuda_device, levels=2,
+                             checker=checker)
+    fn = bw.make_bvh_whitted_deferred(sc, cam, samples=3, max_depth=2)
+    dd = fn.data
+    args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 99, 32, 24, 2,
+            1, 2, dd["with_emissive"])
+    before = bw.DEFERRED_KERNEL.launches
+    rec_k = bw.bvh_whitted_deferred(*args, leaf_width=2)
+    torch.cuda.synchronize()
+    assert bw.DEFERRED_KERNEL.launches == before + 1
+    rec_p = bw.bvh_whitted_deferred_plain(*args, leaf_width=2)
+    assert rec_k.shape == rec_p.shape == (2 * 3 * bw.REC_ROWS, 32 * 24)
+
+    def rows(r):        # one row of 12 record floats per (group, lane)
+        return r.reshape(6, bw.REC_ROWS, -1).permute(0, 2, 1).reshape(
+            -1, bw.REC_ROWS)
+
+    _images_agree(rows(rec_k), rows(rec_p))
+    img = fn(99)
+    assert bw.DEFERRED_KERNEL.launches == before + 2
+    acc = bw.deferred_epilogue(sc, bw.bvh_whitted_deferred_plain(
+        *args[:7], 3, 0, *args[9:], leaf_width=2), 3, 2)
+    _images_agree(img.reshape(-1, 3), acc / 3.0)
+    if not checker:     # the untextured records give the BVH Whitted image
+        _images_agree(img.reshape(-1, 3), bw.make_bvh_whitted_renderer(
+            sc, cam, samples=3, max_depth=2)(99).reshape(-1, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf,octants", [(2, 1), (8, 8)])
+def test_bvh_prb_kernels_match_plain(tmp_path, cuda_device, leaf, octants):
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    nodes, _, update = bvp.make_bvh_tab_updater(sc, leaf_width=leaf,
+                                                octants=octants)
+    tab = update()
+    em = torch.as_tensor(fp.pack_emitters(sc), device=cuda_device)
+    cam_v = fp.camera_vec(cam).to(cuda_device)
+    args = (nodes, tab, em, cam_v, 99)
+    cfg = (32, 24, 4, 4, 2)
+    kw = dict(leaf_width=leaf, copies=octants)
+    before = (bvp.FWD_KERNEL.launches, bvp.REPLAY_KERNEL.launches)
+    img_k, ls_k = bvp.bvh_fwd_ls(*args, *cfg, **kw)
+    img_p, ls_p = bvp.bvh_fwd_ls_plain(*args, *cfg, **kw)
+    _images_agree(img_k, img_p)
+    _images_agree(ls_k, ls_p)
+    # lanes whose paths the two forwards trace alike (see
+    # chip_smoke.agreeing_lanes); the others get a zero cotangent
+    keep = agreeing_lanes(ls_k, ls_p)
+    assert keep.float().mean() >= 0.99
+    w = ((img_p * 0.5 + 0.01) * keep[:, None]).contiguous() / (32 * 24 * 3 * 4)
+    g_k = bvp.bvh_prb_replay(*args, w, ls_k, *cfg, **kw)
+    torch.cuda.synchronize()
+    assert (bvp.FWD_KERNEL.launches, bvp.REPLAY_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    g_p = bvp.bvh_prb_replay_plain(*args, w, ls_p, *cfg, **kw)
+    scale = g_p.abs().max()
+    assert scale > 0 and (g_k - g_p).abs().max() <= 1e-3 * scale
+    # the training step on the card against the same step on the CPU
+    sc_cpu, cam_cpu = _scene(tmp_path / "cpu", torch.device("cpu"),
+                             "levels-3")
+    target = np.full((24, 32, 3), 0.1, np.float32)
+    step_cfg = dict(samples=2, max_depth=3, light_samples=2, leaf_width=leaf,
+                    octants=octants)
+    loss_k, gk = bvp.make_bvh_train_step(sc, cam, target, **step_cfg)(7)
+    loss_p, gp = bvp.make_bvh_train_step(sc_cpu, cam_cpu, target,
+                                         **step_cfg)(7)
+    assert float(loss_k) == pytest.approx(float(loss_p), rel=1e-3)
+    for k in gp:
+        assert (gk[k].cpu() - gp[k]).abs().max() <= 1e-3 * gp[k].abs().max()
+
+
+@pytest.mark.gpu
+def test_bvh_whitted_and_prb_wrappers_reject_bad_inputs(tmp_path,
+                                                        cuda_device):
+    sc, cam = _whitted_scene(tmp_path, cuda_device, levels=1)
+    fn = bw.make_bvh_whitted_renderer(sc, cam, samples=1, max_depth=1)
+    dd = fn.data
+    args = (dd["lights"], dd["cam"], 0, 32, 24, 1, 1, True)
+    with pytest.raises(ValueError):          # a tree on the wrong device
+        bw.bvh_whitted(dd["nodes"].cpu(), dd["tab"], *args, leaf_width=2)
+    with pytest.raises(ValueError):          # the deferred table's width
+        bw.bvh_whitted(dd["nodes"], torch.zeros((128, 48), device=cuda_device),
+                       *args, leaf_width=2)
+    with pytest.raises(ValueError):          # lanes outside the image
+        bw.bvh_whitted(dd["nodes"], dd["tab"], *args, leaf_width=2,
+                       pix_base=32 * 24 - 2, n_lanes=5)
+    with pytest.raises(ValueError):          # nine lights
+        bw.bvh_whitted(dd["nodes"], dd["tab"], dd["lights"].repeat(9, 1),
+                       *args[1:], leaf_width=2)
+    with pytest.raises(ValueError):          # the Whitted table's width
+        bw.bvh_whitted_deferred(dd["nodes"], dd["tab"], dd["lights"],
+                                dd["cam"], 0, 32, 24, 1, 0, 1, True,
+                                leaf_width=2)
+    psc, pcam = _scene(tmp_path / "p", cuda_device, "levels-1")
+    nodes, _, update = bvp.make_bvh_tab_updater(psc)
+    tab = update()
+    em = torch.as_tensor(fp.pack_emitters(psc), device=cuda_device)
+    cam_v = fp.camera_vec(pcam).to(cuda_device)
+    with pytest.raises(ValueError, match="exactly one"):
+        bvp.bvh_fwd_ls(nodes, tab, em.repeat(2, 1), cam_v, 0, 4, 4, 1, 1, 1,
+                       leaf_width=2)
+    with pytest.raises(ValueError, match="samples"):
+        bvp.bvh_fwd_ls(nodes, tab, em, cam_v, 0, 4, 4, prb.MAX_SAMPLES + 1,
+                       1, 1, leaf_width=2)
+    bad = tab.clone()
+    bad[0, fp._C_MESH] = prb.M_LANES
+    w = torch.zeros((16, 3), device=cuda_device)
+    ls = torch.zeros((16, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="accumulator columns"):
+        bvp.bvh_prb_replay(nodes, bad, em, cam_v, 0, w, ls, 4, 4, 1, 1, 1,
+                           leaf_width=2)

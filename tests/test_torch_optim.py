@@ -133,10 +133,12 @@ def test_use_prb_true_outside_gate_raises(cornell):
 
 
 def test_unported_routes_raise(cornell, monkeypatch):
+    """The routes past the fused-train gate, which raised before the BVH
+    PRB and the refit were ported, now train as the JAX package does."""
     _, js, jrtc, target = cornell
     # past the fused-train gate (T_pad > 16384), one emitter: diffuse fits
-    # train on the bounce pipeline in both packages; JAX trains the other
-    # materials with the BVH PRB, which is not ported
+    # train on the bounce pipeline in both packages, fits that include the
+    # emitted colour on the BVH PRB (kernels 9a/9b)
     big_j = jsubdivide(js, levels=5)
     assert not jp.fused_train_supported(big_j, S)
     assert jpw.wavefront_train_supported(big_j)
@@ -144,24 +146,46 @@ def test_unported_routes_raise(cornell, monkeypatch):
     assert not prb.fused_train_supported(big, S)
     ps = _port_ps(big, jrtc, backend="bvh-kernel")
     cfg = dict(steps=1, samples=S, max_depth=D, light_samples=LS)
-    from orion_tpu_torch.ops import bounce_prb
+    from orion_tpu.ops import pallas_bvh_prb as jbp
+    from orion_tpu_torch.ops import bounce_prb, bvh_prb
 
     assert bounce_prb.wavefront_train_supported(big)
-    made = []
-    monkeypatch.setattr(
-        bounce_prb, "make_bounce_train_step",
-        lambda *a, **k: made.append(k) or (lambda params, seed: (
+    assert bvh_prb.bvh_train_supported(big, S) == \
+        jbp.bvh_train_supported(big_j, S) is True
+
+    def spy(made):
+        return lambda *a, **k: made.append(k) or (lambda params, seed: (
             torch.zeros(()), {n: torch.zeros_like(v)
-                              for n, v in params.items()})))
+                              for n, v in params.items()}))
+
+    made, made_bvh = [], []
+    monkeypatch.setattr(bounce_prb, "make_bounce_train_step", spy(made))
+    monkeypatch.setattr(bvh_prb, "make_bvh_train_step", spy(made_bvh))
     res = optim.fit(ps, target, params=("mat_diffuse",), **cfg)
     assert len(made) == 1 and made[0]["dynamic_params"] is True
     assert made[0]["samples"] == S and res.losses == [0.0]
-    with pytest.raises(NotImplementedError, match="BVH PRB"):
-        optim.fit(ps, target, params=("mat_diffuse", "mat_emissive"), **cfg)
-    with pytest.raises(NotImplementedError, match="make_refit_loss"):
-        optim.fit(ps, target, params=("tri_v0",), **cfg)
-    with pytest.raises(NotImplementedError, match="make_refit_loss"):
-        optim.make_refit_loss(ps)
+    res = optim.fit(ps, target, params=("mat_diffuse", "mat_emissive"),
+                    **cfg)
+    assert len(made) == 1 and len(made_bvh) == 1
+    assert made_bvh[0]["dynamic_params"] is True and res.losses == [0.0]
+    # geometry on a BVH backend: the refit branch, ahead of every trainer
+    refits = []
+
+    class Plan:
+        def refit(self, v0, e1, e2, device):
+            refits.append(device)
+            return None, None
+
+    monkeypatch.setattr(optim, "make_refit_loss", lambda ps_, **k: (
+        lambda params, gen, target, nodes, tri: (params["tri_v0"] ** 2).sum(),
+        Plan()))
+    res = optim.fit(ps, target, params=("tri_v0", "mat_diffuse"), **cfg)
+    assert refits == [big.device] and len(made) == 1 and len(made_bvh) == 1
+    assert res.losses[0] > 0
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="refittable"):
+        optim.make_refit_loss(ps, samples=S, max_depth=D, light_samples=LS,
+                              mode=None)
 
 
 def test_geometry_params_on_brute_take_wavefront_autograd(cornell):

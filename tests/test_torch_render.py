@@ -9,7 +9,10 @@ packages agree to rtol 1e-4 / atol 1e-5 (float32 op order).
 """
 
 import ast
+import contextlib
 import dataclasses
+import io
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -157,15 +160,23 @@ def test_cli_unported_routes_fail(tmp_path, case):
            else write_textured(tmp_path) if case == "textured"
            else write_cornell(tmp_path, xres=8, yres=8))
     if case == "whitted":
-        # nine point lights leave the fused-Whitted gate (<= 8): the JAX
-        # package would take a BVH Whitted megakernel, which is not ported
+        # nine point lights leave every Whitted megakernel gate (1..8
+        # lights: the fused, the BVH and the deferred BVH kernel's); the
+        # JAX package then renders the Whitted wavefront, and so does the
+        # port
         rtc.write_text(rtc.read_text() + "L 0 1.5 0 255 255 255 1.0\n" * 8)
     argv = [str(rtc), "-o", str(tmp_path / "o.ppm"), "--device", "cpu"]
-    if case == "textured":
+    if case in ("textured", "whitted"):
         # a textured path scene leaves the fused gate and, since the
         # bounce pipeline is ported, renders through it
-        assert cli.main(argv) == 0
+        argv += ["--stats"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert cli.main(argv) == 0
         assert (tmp_path / "o.ppm").stat().st_size > 24 * 24 * 3
+        backend = json.loads(err.getvalue().splitlines()[-1])["backend"]
+        assert backend == ("bounce-torch" if case == "textured"
+                           else "brute-kernel")
         return
     extra = {"checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt")],
              "textured": [],
@@ -222,7 +233,10 @@ def test_port_never_imports_jax():
             "orion_tpu_torch/ops/bvh_intersect.py",
             "orion_tpu_torch/ops/bvh_path.py",
             "orion_tpu_torch/ops/bounce.py",
-            "orion_tpu_torch/ops/bounce_prb.py"} <= names
+            "orion_tpu_torch/ops/bounce_prb.py",
+            "orion_tpu_torch/ops/bvh_whitted.py",
+            "orion_tpu_torch/ops/bvh_prb.py",
+            "orion_tpu_torch/accel/refit.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -235,7 +249,9 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.ops.bvh_traverse, "
             "orion_tpu_torch.ops.bvh_intersect, orion_tpu_torch.ops.bvh_path, "
             "orion_tpu_torch.ops.reorder, orion_tpu_torch.ops.bounce, "
-            "orion_tpu_torch.ops.bounce_prb, chip_smoke; "
+            "orion_tpu_torch.ops.bounce_prb, orion_tpu_torch.ops.bvh_whitted, "
+            "orion_tpu_torch.ops.bvh_prb, orion_tpu_torch.accel.refit, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
