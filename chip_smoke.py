@@ -99,6 +99,27 @@ Phases (any failure raises and the script exits non-zero):
      3-step optim.fit of tri_v0 over the refitted tree (`--backend bvh`
      tree, 128x128, 1 spp, depth 2): walk launches, finite losses, refit
      milliseconds a step.
+ 13. the binned dense sweep (kernel 10) and the grouped-pointer walk
+     (kernel 11): (a) at 64x64, 4 spp, depth 4 on Cornell, levels-2 and
+     levels-5, the binned renderer's sweeps on kernel 10 against the same
+     sweeps on plain rounds (every bounce's recorded rays), the vis
+     kernel's draw-only mode against its plain version, the image against
+     bounce_reference_render, the binned trainer's gradients against the
+     plain rounds'; G8 against kernel 5's plain walk of the leaf-128 tree
+     on random rays and phase 3's recorded sweeps (the three scenes);
+     (b) make_big_path_renderer(order=("binned",)) on the levels-5 box at
+     1920x1080, 4 spp, depth 8: backend binned-kernel, kernel-10 launches,
+     rounds a sweep, kernel 10's summed CUDA-event time a render and its
+     bound, the render's time in turns with the bounce pipeline's and the
+     two images held together; kernel 10 per launch over the recorded
+     rounds of a 256x256 render, against its plain version on each round,
+     timed by CUDA-graph replay; (c) one binned train step at 1920x1080, 4
+     spp, depth 8 (red wall x 0.6), and a 3-step SGD fit of the red wall's
+     albedo at 256x256 whose loss and error fall; (d) the 256x256, 16 spp,
+     depth 4 wavefront over G8 (launches; the image against kernel 5's on
+     the same leaf-128 tree), and G8 and kernel 5 timed per launch on that
+     tree by CUDA-graph replay of phase 3's recorded sweeps and of the
+     1080p render's depth-1 bounce wavefront.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
@@ -153,7 +174,10 @@ TILE_LANES, N_TILES = 1024, 48     # phase 9's tiles through pix_base
 # kernel vs plain gradients: max |difference| <= this x the largest entry
 GRAD_TOL = 1e-3
 # backend name of each big-path candidate on a CUDA scene
-BIG_BACKENDS = {"bounce": "bounce-kernel", "walk": "bvh-path-kernel"}
+BIG_BACKENDS = {"bounce": "bounce-kernel", "walk": "bvh-path-kernel",
+                "binned": "binned-kernel"}
+# plain gradient steps of phase 13's binned fit of the red wall's albedo
+BINNED_FIT_LR = 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -559,6 +583,66 @@ def shade_agree(name: str, k, p, rows: int = 13) -> float:
     return err
 
 
+def binned_round_agree(name: str, st, key, sweep) -> float:
+    """Hold kernel 10 against its plain version on one round's inputs (st
+    [8, n], key [n] sorted) over `sweep`'s bins and table: winner rows
+    equal on >= 99.9% of lanes, t within rel 1e-5 where they are (the
+    kernel's Woop test is written without FMA contraction: both should be
+    bit for bit). Returns the largest absolute t difference there."""
+    from orion_tpu_torch.ops import binned as bn
+
+    k = bn.binned_round(st, key, sweep.row0, sweep.nb, sweep.tab)
+    p = bn.binned_round_plain(st, key, sweep.row0, sweep.nb, sweep.tab)
+    same = k[1] == p[1]
+    frac = float(same.float().mean())
+    real = same & (p[1] < bn.NO_ROW)
+    dt = (k[0] - p[0]).abs()[real]
+    rel = float((dt / p[0][real].abs()).max()) if dt.numel() else 0.0
+    print(f"[binned round {name}] {key.numel()} lanes, rows equal "
+          f"{frac:.6f}, bit for bit {bool((k == p).all())}, max rel t "
+          f"{rel:.3g}, winners {int(real.sum())}")
+    check(frac >= 0.999, f"binned round {name}: rows equal on {frac}")
+    check(rel <= 1e-5, f"binned round {name}: t rel {rel}")
+    return float(dt.max()) if dt.numel() else 0.0
+
+
+def draws_agree(name: str, data, st, hd, seed: int, depth: int,
+                light_samples: int) -> None:
+    """Hold the vis kernel's draw-only mode against its plain version on
+    one bounce's state: every site's need flag equal on >= 99.9% of lanes
+    (a geometry term of zero may round either way), and the shadow origin
+    and directions within 1e-4 + 1e-3*|ref| on >= 99.9% of the lanes that
+    need the site (the kernel contracts the light point's multiply-adds)."""
+    import torch
+
+    from orion_tpu_torch.ops import bounce as bo
+
+    k = bo.bounce_vis(data, st, hd, seed, depth, draws=True,
+                      light_samples=light_samples)
+    p = bo.bounce_vis_plain(data, st, hd, seed, depth, draws=True,
+                            light_samples=light_samples)
+    S = (p.shape[0] - 3) // 4
+    need_k = k[6::4][:S] > 0
+    need_p = p[6::4][:S] > 0
+    same = float((need_k == need_p).float().mean())
+    close = []
+    for s in range(S):
+        rows = list(range(3)) + [3 + 4 * s + c for c in range(3)]
+        ok = ((k[rows] - p[rows]).abs()
+              <= 1e-4 + 1e-3 * p[rows].abs()).all(dim=0)
+        sel = need_p[s] & need_k[s]
+        close.append(float(ok[sel].float().mean()) if bool(sel.any())
+                     else 1.0)
+    print(f"[draws {name}] {p.shape[1]} lanes x {S} sites, need flags "
+          f"equal {same:.6f}, rays close {min(close):.6f}, needed "
+          f"{int(need_p.sum())}")
+    check(torch_isfinite(k), f"draws {name}: non-finite")
+    check(same >= 0.999 and min(close) >= 0.999,
+          f"draws {name}: flags {same}, rays {close}")
+    check(bool(torch.equal(k[:, hd[4] == 0], torch.zeros_like(
+        k[:, hd[4] == 0]))), f"draws {name}: a missed lane drew")
+
+
 def torch_isfinite(x) -> bool:
     import torch
 
@@ -744,7 +828,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda_build.build(["fused_path", "brute_intersect", "prb",
                               "whitted", "bvh_intersect", "bvh_path",
-                              "bounce", "bvh_whitted"])
+                              "bounce", "bvh_whitted", "binned", "bvh_g8"])
     print(f"[1] built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -937,6 +1021,9 @@ def main() -> int:
         big_whitted = _phase_big_whitted(tmp, dev, card, slice5_errs)
         bvh_train = _phase_bvh_train(tmp, dev, card, slice5_errs)
         walk["launches"] += _phase_refit(tmp, dev)
+        binned = _phase_binned(
+            tmp, dev, card, lv5, big_rtc, walk_sweeps,
+            _phase_binned_checks(dev, cornell, lv2, lv5, cam64, walk_sweeps))
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -989,6 +1076,12 @@ def main() -> int:
         {"name": "bvh_prb_replay", "route": "cuda",
          "source": "orion_tpu_torch/csrc/prb.cu",
          "replaces": "orion_tpu/ops/pallas_bvh_prb.py:151", **bvh_train["9b"]},
+        {"name": "binned_round", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/binned.cu",
+         "replaces": "orion_tpu/ops/pallas_binned.py:124", **binned["10"]},
+        {"name": "bvh_g8", "route": "cuda",
+         "source": "orion_tpu_torch/csrc/bvh_g8.cu",
+         "replaces": "orion_tpu/ops/pallas_bvh_g8.py:63", **binned["11"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2370,6 +2463,365 @@ def _phase_refit(tmp: Path, dev) -> int:
     check(launches > 0, "the vertex fit never launched the walk kernel")
     check(np.isfinite(res.losses).all() and moved > 0, "vertex fit")
     return launches
+
+
+def g8_mask_agree(name: str, kernel, plain) -> None:
+    """Any-hit masks of G8 against kernel 5's plain walk: equal on >=
+    99.99% of rays. A G8 lane also tests the leaves its warp opened, so a
+    hit that its own slab test misses at a box face (a ray grazing the box
+    of a triangle's own edge) may count there; t is 1.0 on a hit."""
+    import torch
+
+    (t_k, r_k), (_, r_p) = kernel, plain
+    same = float(((r_k >= 0) == (r_p >= 0)).float().mean())
+    print(f"[g8 any-hit {name}] {r_p.numel()} rays, masks equal "
+          f"{same:.6f}, hits {int((r_p >= 0).sum())}")
+    check(same >= 0.9999, f"g8 any-hit {name}: masks equal on {same}")
+    check(bool((t_k[r_k >= 0] == 1.0).all())
+          and bool(torch.isinf(t_k[r_k < 0]).all()), f"g8 any-hit {name}: t")
+
+
+def _rows_as_ids(t, row):
+    """A binned sweep's (t, float row with the NO_ROW sentinel) as brute
+    sweep results (t, id with -1 on a miss)."""
+    import torch
+
+    from orion_tpu_torch.ops import binned as bn
+
+    hit = row < bn.NO_ROW
+    return t, torch.where(hit, row.to(torch.int64),
+                          torch.full_like(row, -1, dtype=torch.int64))
+
+
+def _phase_binned_checks(dev, cornell, lv2, lv5, cam64, sweeps) -> dict:
+    """Phase 13 (a): kernels 10 and 11 against their plain versions at
+    64x64, 4 spp, depth 4, 2 light samples on Cornell, levels-2 and
+    levels-5: the binned renderer's sweeps (kernel rounds against plain
+    rounds on each bounce's recorded rays), the vis kernel's draws, the
+    image against bounce_reference_render, the trainer's gradients against
+    the plain rounds'; G8 against kernel 5's plain walk of the same
+    leaf-128 tree on random rays and phase 3's recorded wavefront sweeps
+    (the same box at every level). Returns {"10": max t error, "11": max
+    t error}."""
+    import torch
+
+    from orion_tpu_torch.accel.bvh import build_scene_bvh
+    from orion_tpu_torch.ops import binned as bn
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import prb_wavefront as pw
+
+    cfg = dict(samples=4, max_depth=4, light_samples=2)
+    errs = {"10": 0.0, "11": 0.0}
+    for sname, sc in (("cornell", cornell), ("levels-2", lv2),
+                      (f"levels-{BIG_LEVELS}", lv5)):
+        fn = bn.make_binned_path_renderer(sc, cam64, **cfg)
+        rec = []
+        img = fn(1234, record=lambda depth, n, st, hd, kd, vis: rec.append(
+            (depth, st[:, :n].clone(), hd)))
+        torch.cuda.synchronize()
+        plain = bn.BinnedSweep(fn.sweep.bins, fn.sweep.tab,
+                               round_fn=bn.binned_round_plain)
+        for depth, st, hd in rec:
+            tag = f"{sname} 64x64 depth {depth}"
+            o, d, alive = (st[0], st[1], st[2]), (st[3], st[4], st[5]), \
+                st[9] > 0.0
+            errs["10"] = max(errs["10"], brute_agree(
+                f"binned sweep {tag}", _rows_as_ids(*fn.sweep.closest(
+                    o, d, alive)), _rows_as_ids(*plain.closest(o, d,
+                                                                 alive))))
+            draws_agree(tag, fn.ctx["data"], st, hd, 1234, depth, 2)
+        c = fn.sweep.counts
+        print(f"[13] (a) binned {sname} 64x64: {c['sweeps']} sweeps, "
+              f"{c['rounds']} rounds, {c['lanes']} round lanes, "
+              f"{int(c['tests'])} Woop tests")
+        ref = bo.bounce_reference_render(sc, cam64, 1234, **cfg)
+        fused_agree(f"binned vs reference {sname} 64x64", img.reshape(-1, 3),
+                    ref.reshape(-1, 3))
+        target = ref * 0.8
+        got = [pw.make_binned_train_step(sc, cam64, target, round_fn=r,
+                                         **cfg)(1234)
+               for r in (None, bn.binned_round_plain)]
+        for pname in ("mat_diffuse", "mat_emissive"):
+            grad_agree(f"binned train {pname} {sname} 64x64",
+                       got[0][1][pname], got[1][1][pname])
+
+    for sname, sc in (("cornell", cornell), ("levels-2", lv2),
+                      (f"levels-{BIG_LEVELS}", lv5)):
+        bvh, _ = build_scene_bvh(sc, leaf_size=g8.LEAF_WIDTH)
+        nodes, tri = bx._bvh_device_layout(bvh, dev)
+        rays = [("random", *random_rays(1 << 18, 2, dev))]
+        rays += [(f"wavefront sweep {i}", *c) for i, c in enumerate(sweeps)]
+        for rname, o, d, alive in rays:
+            for any_hit in (False, True):
+                k = g8.bvh_g8(nodes, tri, o, d, alive, any_hit=any_hit)
+                torch.cuda.synchronize()
+                p = bx.bvh_walk_plain(nodes, tri, o, d, alive,
+                                      leaf_width=g8.LEAF_WIDTH,
+                                      any_hit=any_hit)
+                name = f"{sname} leaf 128 {rname}"
+                if any_hit:
+                    g8_mask_agree(name, k, p)
+                else:
+                    errs["11"] = max(errs["11"], brute_agree(
+                        f"g8 {name}", (k[0], k[1].long()),
+                        (p[0], p[1].long())))
+    return errs
+
+
+def _round_bound(rounds, sweep):
+    """(flops, bytes) of kernel 10 over recorded rounds [(st, key)]: the
+    real rows' Woop tests, each lane's 8 floats and key in and 2 floats
+    out, the bins and the table read once a launch."""
+    flops = nbytes = 0
+    for st, key in rounds:
+        flops += int(sweep.real_rows[key.long()].sum()) * WOOP_TEST_FLOPS
+        nbytes += key.numel() * (ROUND_LANE_BYTES) + (
+            sweep.tab.numel() + 2 * sweep.row0.numel()) * 4
+    return flops, nbytes
+
+
+ROUND_LANE_BYTES = 8 * 4 + 4 + 2 * 4
+
+
+def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
+                  errs: dict) -> dict:
+    """Phase 13 (b)-(d): the binned renderer and trainer at full width, and
+    G8 against kernel 5 on one leaf-128 tree. Returns the two kernels'
+    records."""
+    import torch
+
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.accel.bvh import build_scene_bvh
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import binned as bn
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import prb_wavefront as pw
+    from orion_tpu_torch.render import render
+
+    W, H, S, D, LS = (TRAIN["xres"], TRAIN["yres"], TRAIN["samples"],
+                      TRAIN["depth"], TRAIN["light_samples"])
+    cfg = dict(samples=S, max_depth=D, light_samples=LS)
+    rtc = parse_rtc(big_rtc)
+    cam = camera_from_rtc(_resized(rtc, TRAIN), device=dev)
+    rays = W * H * S
+
+    # (b) the render ---------------------------------------------------------
+    t0 = time.perf_counter()
+    fn, name = engine.make_big_path_renderer(lv5, cam, order=("binned",),
+                                             **cfg)
+    torch.cuda.synchronize()
+    sweep = fn.sweep
+    print(f"[13] (b) binned set-up (tree, bins, table): "
+          f"{time.perf_counter() - t0:.3f} s, backend {name}, "
+          f"{sweep.k} bins over {sweep.tab.shape[0]} bundled rows "
+          f"(bundles a bin {np.bincount(sweep.bins.n_bundles[:-1])})")
+    check(name == "binned-kernel", f"binned backend {name}")
+    fn(1)                                   # warm-up
+    bn.KERNEL.launches = bo.VIS_KERNEL.launches = 0
+    for key in ("sweeps", "rounds", "lanes"):
+        sweep.counts[key] = 0
+    sweep.counts["tests"].zero_()
+    sweep.timings = []
+    rec1 = []
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    stages = []
+    img = fn(0, timings=stages,
+             record=lambda depth, n, st, hd, kd, vis: rec1.append(
+                 st[:, :n].clone()) if depth == 1 else None)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    stage = _stage_ms(stages)
+    per = {k: sum(ms for (nm, _), (_, ms) in stage.items() if nm == k)
+           for k in ("walk", "vis", "shade", "sort", "primaries", "image")}
+    launches = bn.KERNEL.launches
+    c = dict(sweep.counts)
+    k10_ms = sum(a.elapsed_time(b) for a, b in sweep.timings)
+    sweep.timings = None
+    tests = int(c["tests"])
+    b_flops = tests * WOOP_TEST_FLOPS
+    b_bytes = c["lanes"] * ROUND_LANE_BYTES + launches * (
+        sweep.tab.numel() + 2 * sweep.row0.numel()) * 4
+    r_bound, r_by = bound_ms(b_flops, b_bytes)
+    print(f"[13] (b) binned render {TRAIN} on {lv5.num_triangles} triangles: "
+          f"kernel-10 launches {launches} in {c['sweeps']} sweeps "
+          f"({c['rounds'] / max(c['sweeps'], 1):.2f} rounds a sweep, "
+          f"{c['lanes']} round lanes, {tests} Woop tests), draw launches "
+          f"{bo.VIS_KERNEL.launches}; kernel 10 {k10_ms:.3f} ms a render "
+          f"(bound {r_bound:.4f} ms, {r_by}); peak memory of the render "
+          f"{peak:.2f} GiB")
+    print(f"[13] (b) that render's stages, summed over bounces (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+          + " (walk: the nearest sweeps; vis: the draws and the shadow "
+          "sweeps; kernel 10 runs inside both)")
+    check(launches > 0 and launches == c["rounds"],
+          "the binned render never launched kernel 10")
+    check(bo.VIS_KERNEL.launches > 0, "no draw launch")
+    check(img.shape == (H, W, 3) and torch_isfinite(img), "binned image")
+    fn_b, name_b = engine.make_big_path_renderer(lv5, cam, order=("bounce",),
+                                                 **cfg)
+    n1, _, _ = event_ms(lambda: fn(0), 1)
+    b_ms, b_times, img_b = event_ms(lambda: fn_b(0), 2)
+    n2, _, _ = event_ms(lambda: fn(0), 1)
+    n_times = [n1, n2]
+    n_ms = float(np.median(n_times))
+    print(f"[13] (b) on {card}, {rays} primary rays: binned {n_ms:.3f} ms "
+          f"(runs {', '.join(f'{x:.3f}' for x in n_times)}) = "
+          f"{rays / (n_ms * 1e-3):.4g} primary rays/s; bounce pipeline "
+          f"{b_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in b_times)}); "
+          f"image means {float(img.mean()):.6g} vs {float(img_b.mean()):.6g}")
+    fused_agree("binned vs bounce 1080p 4 spp", img.reshape(-1, 3),
+                img_b.reshape(-1, 3))
+    del img_b, fn_b
+
+    # kernel 10 per launch on the rounds of a 256x256 render (the same
+    # scene and shapes): against its plain version, and timed by CUDA-graph
+    # replay (eager launches from Python measure the host)
+    cam_q = camera_from_rtc(_resized(rtc, dict(xres=256, yres=256)),
+                            device=dev)
+    fn_q = bn.make_binned_path_renderer(lv5, cam_q, **cfg)
+    fn_q.sweep.record = []
+    fn_q(0)
+    rounds = fn_q.sweep.record
+    fn_q.sweep.record = None
+    for i, (st, key) in enumerate(rounds):
+        errs["10"] = max(errs["10"], binned_round_agree(
+            f"256x256 round {i}", st, key, fn_q.sweep))
+
+    def run(f):
+        return lambda: [f(st, key, fn_q.sweep.row0, fn_q.sweep.nb,
+                          fn_q.sweep.tab) for st, key in rounds]
+
+    passes = 5
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(passes):
+            run(bn.binned_round)()
+    k_ms, k_times, _ = event_ms(graph.replay, 11)
+    k_ms /= passes * len(rounds)
+    p_ms, _, _ = event_ms(run(bn.binned_round_plain), 1)
+    p_ms /= len(rounds)
+    q_flops, q_bytes = _round_bound(rounds, fn_q.sweep)
+    q_bound, q_by = bound_ms(q_flops / len(rounds), q_bytes / len(rounds))
+    print(f"[13] (b) kernel 10 per launch over the {len(rounds)} rounds of a "
+          f"256x256 render ({sum(k.numel() for _, k in rounds)} lanes): "
+          f"{k_ms:.5f} ms (median of 11 replays of a CUDA graph of "
+          f"{passes} passes; spread "
+          f"{(max(k_times) - min(k_times)) / float(np.median(k_times)):.4f})"
+          f", {p_ms:.3f} ms plain, bound {q_bound:.5f} ms ({q_by})")
+    del rounds, fn_q
+
+    # (c) the trainer --------------------------------------------------------
+    kd_true = lv5.mat_diffuse.clone()
+    red = int(torch.argmax(kd_true[:, 0] - kd_true[:, 1]))
+    kd_pert = kd_true.clone()
+    kd_pert[red] *= 0.6
+    step = pw.make_binned_train_step(lv5, cam, img, dynamic_params=True,
+                                     **cfg)
+    bn.KERNEL.launches = 0
+    t_ms, (loss, grads) = once_ms(lambda: step({"mat_diffuse": kd_pert}, 0))
+    print(f"[13] (c) binned train step {TRAIN}: {t_ms:.3f} ms = "
+          f"{rays / (t_ms * 1e-3):.4g} fwd+bwd primary rays/s on {card}; "
+          f"loss {float(loss):.6g}, kernel-10 launches {bn.KERNEL.launches}, "
+          f"largest |d kd| {float(grads['mat_diffuse'].abs().max()):.4g}")
+    check(bn.KERNEL.launches > 0 and torch_isfinite(grads["mat_diffuse"])
+          and float(grads["mat_diffuse"][red].abs().max()) > 0,
+          "binned train step")
+    del img, fn, step
+    # a 3-step SGD fit of the red wall's albedo at 256x256
+    target_q = bn.make_binned_path_renderer(lv5, cam_q, **cfg)(3)
+    step_q = pw.make_binned_train_step(lv5, cam_q, target_q,
+                                       dynamic_params=True, **cfg)
+    kd = kd_pert.clone().requires_grad_(True)
+    opt = torch.optim.SGD([kd], lr=BINNED_FIT_LR)
+    losses = []
+    for _ in range(3):
+        loss, g = step_q({"mat_diffuse": kd.detach()}, 3)
+        losses.append(float(loss))
+        kd.grad = g["mat_diffuse"]
+        opt.step()
+    err0 = float((kd_pert[red] - kd_true[red]).abs().sum())
+    err1 = float((kd.detach()[red] - kd_true[red]).abs().sum())
+    print(f"[13] (c) SGD fit 3 steps at 256x256 (lr {BINNED_FIT_LR}): losses "
+          f"{', '.join(f'{x:.6g}' for x in losses)}; red wall albedo error "
+          f"{err0:.5f} -> {err1:.5f}")
+    check(losses[-1] < losses[0] and err1 < err0, "binned fit")
+
+    # (d) G8 -----------------------------------------------------------------
+    bvh, _ = build_scene_bvh(lv5, leaf_size=g8.LEAF_WIDTH)
+    layout = bx._bvh_device_layout(bvh, dev)
+    cam_w = camera_from_rtc(_resized(rtc, SECOND), device=dev)
+    wcfg = dict(samples=SECOND["samples"], max_depth=SECOND["depth"],
+                light_samples=SECOND["light_samples"])
+    imgs = []
+    for make in (g8.make_bvh_intersect_g8, bx.make_bvh_intersect_kernel):
+        g8.KERNEL.launches = g8.ANY_HIT_KERNEL.launches = 0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        with torch.no_grad():
+            imgs.append(render(lv5, cam_w, gen, intersect=make(
+                bvh, lv5, layout=layout), **wcfg))
+        if make is g8.make_bvh_intersect_g8:
+            g8_launches = g8.KERNEL.launches + g8.ANY_HIT_KERNEL.launches
+    print(f"[13] (d) wavefront {SECOND} over G8: {g8_launches} launches")
+    check(g8_launches > 0, "the wavefront never launched G8")
+    fused_agree("G8 vs kernel 5 wavefront 256x256 leaf 128",
+                imgs[0].reshape(-1, 3), imgs[1].reshape(-1, 3))
+    st1 = rec1[0]
+    bounce1 = [(st1[0:3].t().contiguous(), st1[3:6].t().contiguous(),
+                st1[9] > 0.0)]
+    del rec1, st1
+    nodes, tri = layout
+    out = {}
+    for rname, rs in (("phase 10's wavefront sweeps", sweeps),
+                      ("the 1080p depth-1 bounce wavefront", bounce1)):
+        times = {}
+        for kname, f in (("G8", lambda o, d, a: g8.bvh_g8(
+                nodes, tri, o, d, a)), ("kernel 5", lambda o, d, a: bx.bvh_walk(
+                nodes, tri, o, d, a, leaf_width=g8.LEAF_WIDTH))):
+            passes = 3
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(passes):
+                    for o, d, a in rs:
+                        f(o, d, a)
+            ms, _, _ = event_ms(graph.replay, 5)
+            times[kname] = ms / (passes * len(rs))
+        n_r = sum(o.shape[0] for o, _, _ in rs)
+        print(f"[13] (d) {rname} ({len(rs)} launches, {n_r} rays), leaf "
+              f"128: G8 {times['G8']:.5f} ms a launch, kernel 5 "
+              f"{times['kernel 5']:.5f} ms a launch (G8 / kernel 5 "
+              f"{times['G8'] / times['kernel 5']:.3f})")
+        out[rname] = times
+    stats = {}
+    for o, d, a in sweeps:
+        bx.bvh_walk_plain(nodes, tri, o, d, a, leaf_width=g8.LEAF_WIDTH,
+                          stats=stats)
+    g_ms, _, _ = event_ms(lambda: [bx.bvh_walk_plain(
+        nodes, tri, o, d, a, leaf_width=g8.LEAF_WIDTH)
+        for o, d, a in sweeps], 1)
+    n_calls = len(sweeps)
+    n_rays = sum(o.shape[0] for o, _, _ in sweeps)
+    g_bound, g_by = bound_ms(
+        (stats["box_tests"] * SLAB_TEST_FLOPS
+         + stats["tests"] * WOOP_TEST_FLOPS) / n_calls,
+        (n_rays * 33 + n_calls * (nodes.numel() + tri.numel()) * 4) / n_calls)
+    g_plain = g_ms / n_calls
+    print(f"[13] (d) G8's plain version (kernel 5's plain walk, leaf 128) "
+          f"{g_plain:.3f} ms a launch over phase 10's sweeps, bound "
+          f"{g_bound:.5f} ms ({g_by})")
+    return {"10": {"launches": launches, "max_abs_err": errs["10"],
+                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": q_bound,
+                   "bound_by": q_by, "library_ms": None},
+            "11": {"launches": g8_launches, "max_abs_err": errs["11"],
+                   "ms": out["phase 10's wavefront sweeps"]["G8"],
+                   "plain_ms": g_plain, "bound_ms": g_bound,
+                   "bound_by": g_by, "library_ms": None}}
 
 
 if __name__ == "__main__":

@@ -95,8 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("--shard", "--normal-maps"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     p.add_argument("--checkpoint", default=None, help="not ported yet")
+    p.add_argument("--checkpoint-every", type=int, default=64,
+                   help="Samples per checkpoint flush (default %(default)s; "
+                        "read with --checkpoint)")
     p.add_argument("--stats", action="store_true",
                    help="Print a JSON render report to stderr")
+    # the reference launcher's thread count (launcher.cpp), accepted as the
+    # JAX package's CLI accepts it and ignored: no host threads to set
+    p.add_argument("--threads", "-t", type=int, default=0,
+                   help=argparse.SUPPRESS)
     return p
 
 
@@ -109,7 +116,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from orion_tpu_torch.engine import (NotPorted, make_big_path_renderer,
+    from orion_tpu_torch.engine import (make_big_path_renderer,
                                         make_whitted_megakernel, prepare,
                                         render_report)
     from orion_tpu_torch.io.image import save_image
@@ -166,9 +173,6 @@ def main(argv=None) -> int:
                     ps.scene, ps.camera, samples=args.samples,
                     max_depth=max_depth, light_samples=args.light_samples,
                     strategy=args.strategy, order_signs=ps.order_signs)
-            except NotPorted as e:
-                _fail(f"{e} (use --backend bvh or --backend brute for the "
-                      f"path wavefront)")
             except ValueError:
                 # outside every gate: the wavefront it is, as in JAX
                 if args.backend == "fused":

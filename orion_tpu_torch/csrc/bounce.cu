@@ -10,7 +10,9 @@
 //       three zero rows. The walk body is pallas_bvh_path.py's `lean`.
 //   bounce_vis_kernel   <- _make_vis_kernel   (:285): both light samples'
 //       visibility of one emitter in one dual-carry walk (`shadow_em2`),
-//       standalone -> [8, n], rows 0-1 the 0/1 visibility planes.
+//       standalone -> [8, n], rows 0-1 the 0/1 visibility planes; its
+//       draw-only mode (bounce_draw_kernel, the same launch entry) writes
+//       every site's shadow ray instead, for the binned renderer's sweep.
 //   bounce_shade_kernel <- _make_shade_kernel (:359): one bounce of the
 //       estimator over the walk's hit: depth-0 emission, fast-shadow NEE
 //       (its own shadow walks unless the visibility planes are given),
@@ -18,7 +20,7 @@
 //       bounce's sort key, written over the state's first n lanes in place;
 //       templated on whether it also dumps the 15 per-bounce planes the
 //       closed-form trainer reads ([16, n]) and on whether the visibility
-//       planes are given.
+//       planes (one per emitter and light sample) are given.
 //
 // State rows: 0-2 origin, 3-5 direction, 6-8 throughput, 9 alive, 10-12
 // accumulated radiance, 13 sort key, 14 pixel, 15 sample (the last three
@@ -273,6 +275,48 @@ bounce_vis_kernel(const BounceParams p, const float* __restrict__ st,
   for (int k = 2; k < 8; ++k) vis[k * p.n + i] = 0.0f;
 }
 
+// The draw-only mode of the vis kernel: the shade kernel's shadow rays of
+// every (emitter, light sample) site, walked by nobody here, for a sweep
+// that answers visibility elsewhere (the binned renderer, ops/binned.py).
+// out [3 + 4 * sites, n]: rows 0-2 the shadow origin, then per site its
+// direction (the sampled light point at t == 1) and its need flag; zeros
+// where the lane missed. The draws are light_draw's, the floats the shade
+// kernel computes for the same lane.
+__global__ void __launch_bounds__(kThreads)
+bounce_draw_kernel(const BounceParams p, const float* __restrict__ st,
+                   const float* __restrict__ hd, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const int n = p.n, sites = p.n_em * p.light_samples;
+  const Ray r = lane_ray(st, p.N, i);
+  const Frame f = hit_frame(p, hd, i, r);
+  if (!f.hit) {
+    for (int k = 0; k < 3 + 4 * sites; ++k) out[k * n + i] = 0.0f;
+    return;
+  }
+  const uint32_t upix = static_cast<uint32_t>(
+      static_cast<int>(st[14 * p.N + i]));
+  const uint32_t site_sd =
+      static_cast<uint32_t>(static_cast<int>(st[15 * p.N + i])) * 131071u +
+      static_cast<uint32_t>(p.depth);
+  out[i] = f.hx + kBias * f.gnx;
+  out[n + i] = f.hy + kBias * f.gny;
+  out[2 * n + i] = f.hz + kBias * f.gnz;
+  const float inv_ls = static_cast<float>(1.0 / p.light_samples);
+  for (int mi = 0; mi < p.n_em; ++mi) {
+    for (int ls = 0; ls < p.light_samples; ++ls) {
+      const int site = ls + p.light_samples * mi;
+      const LightDraw dl = light_draw(p.em + mi * kEmStride, site, upix,
+                                      site_sd, p.seed, inv_ls, f);
+      float* o = out + (3 + 4 * site) * n + i;
+      o[0] = dl.sdx;
+      o[n] = dl.sdy;
+      o[2 * n] = dl.sdz;
+      o[3 * n] = dl.need ? 1.0f : 0.0f;
+    }
+  }
+}
+
 __device__ __forceinline__ int spread_bits(int q, int shift) {
   int out = 0;
 #pragma unroll
@@ -352,9 +396,9 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
         const LightDraw d1 = light_draw(E, 2 * mi + 1, upix, site_sd, p.seed,
                                         inv_ls, f);
         bool v0 = false, v1 = false;
-        if (kVis) {
-          v0 = visp[i] > 0.0f;
-          v1 = visp[n + i] > 0.0f;
+        if (kVis) {   // one plane per site: ls + light_samples * mi
+          v0 = visp[(2 * mi) * n + i] > 0.0f;
+          v1 = visp[(2 * mi + 1) * n + i] > 0.0f;
         } else if (d0.need || d1.need) {
           Ray s1 = s0;
           s0.dx = d0.sdx; s0.dy = d0.sdy; s0.dz = d0.sdz;
@@ -373,8 +417,12 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
           const LightDraw dl = light_draw(E, ls + p.light_samples * mi, upix,
                                           site_sd, p.seed, inv_ls, f);
           if (!dl.need) continue;
-          s0.dx = dl.sdx; s0.dy = dl.sdy; s0.dz = dl.sdz;
-          if (!shadow_em(p.geo, s0, em_mesh)) continue;
+          if (kVis) {
+            if (!(visp[(ls + p.light_samples * mi) * n + i] > 0.0f)) continue;
+          } else {
+            s0.dx = dl.sdx; s0.dy = dl.sdy; s0.dz = dl.sdz;
+            if (!shadow_em(p.geo, s0, em_mesh)) continue;
+          }
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch)
             A[ch] = __fadd_rn(A[ch], __fmul_rn(ske[ch], dl.scale));
@@ -482,16 +530,28 @@ extern "C" int bounce_walk_launch(const float* nodes, const float* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
+// draws == 0: the standalone visibility planes of one emitter's two light
+// samples ([8, n]); draws != 0: the shadow rays of every site of n_em
+// emitters x light_samples ([3 + 4 * sites, n]).
 extern "C" int bounce_vis_launch(const float* nodes, const float* tab,
                                  const float* em, const float* st,
                                  const float* hd, float* vis, int M,
-                                 int leaf_width, int copies, int B_pad, int N,
-                                 int n, int seed, int depth, void* stream) {
+                                 int leaf_width, int copies, int B_pad,
+                                 int n_em, int N, int n, int seed, int depth,
+                                 int light_samples, int draws, void* stream) {
   if (n > 0) {
-    const BounceParams p = make_params(nodes, tab, em, M, leaf_width, copies,
-                                       B_pad, 1, N, n, seed, depth, 0, 2);
-    bounce_vis_kernel<<<grid_of(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p, st, hd, vis);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (draws) {
+      const BounceParams p = make_params(nodes, tab, em, M, leaf_width,
+                                         copies, B_pad, n_em, N, n, seed,
+                                         depth, 0, light_samples);
+      bounce_draw_kernel<<<grid_of(n), kThreads, 0, s>>>(p, st, hd, vis);
+    } else {
+      const BounceParams p = make_params(nodes, tab, em, M, leaf_width,
+                                         copies, B_pad, 1, N, n, seed, depth,
+                                         0, 2);
+      bounce_vis_kernel<<<grid_of(n), kThreads, 0, s>>>(p, st, hd, vis);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,9 +36,9 @@
 // direction, best t, best row, pointer) in registers. The walk is
 // fused_common.cuh's walk_tree, the one the megakernels' tree walks use;
 // a node row is read as two float4 through the read-only cache, a Woop row
-// here as four. The Woop
-// test is written with explicit round-to-nearest multiplies and adds (as
-// brute_intersect.cu) and the slab test has no multiply-add to contract, so
+// here as four. The Woop test is fused_common.cuh's woop_t_rn, written with
+// explicit round-to-nearest multiplies and adds (as brute_intersect.cu),
+// and the slab test has no multiply-add to contract, so
 // (t, row) equal the plain PyTorch walk's bit for bit.
 
 #include "fused_common.cuh"
@@ -46,35 +46,7 @@
 namespace {
 
 using orion::kBig;
-using orion::kMtEps;
 using orion::kThreads;
-
-__device__ __forceinline__ float dot3(float a, float b, float c, float x,
-                                      float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)),
-                   __fmul_rn(c, z));
-}
-
-__device__ __forceinline__ float woop_t(const float4* row, float ox, float oy,
-                                        float oz, float dx, float dy,
-                                        float dz) {
-  const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
-               e = __ldg(row + 3);
-  // a = w0..3, b = w4..7, c = w8..11, e.x = w12
-  const float ou = __fadd_rn(dot3(a.x, a.y, a.z, ox, oy, oz), c.y);
-  const float ov = __fadd_rn(dot3(a.w, b.x, b.y, ox, oy, oz), c.z);
-  const float ow = __fadd_rn(dot3(b.z, b.w, c.x, ox, oy, oz), c.w);
-  const float du = dot3(a.x, a.y, a.z, dx, dy, dz);
-  const float dv = dot3(a.w, b.x, b.y, dx, dy, dz);
-  const float dw = dot3(b.z, b.w, c.x, dx, dy, dz);
-  const float t = __fdiv_rn(-ow, dw);
-  const float u = __fadd_rn(ou, __fmul_rn(t, du));
-  const float v = __fadd_rn(ov, __fmul_rn(t, dv));
-  const bool ok = (__fmul_rn(fabsf(dw), e.x) > kMtEps) && (u >= 0.0f) &&
-                  (u <= 1.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) &&
-                  (t >= 0.0f);
-  return ok ? t : kBig;
-}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
@@ -95,7 +67,8 @@ bvh_intersect_kernel(const float* __restrict__ orig,
         nodes, 0, M, ox, oy, oz, dx, dy, dz, t_best, row_best,
         [&](int start, float& tb, int& rb) {
           for (int k = start; k < start + W; ++k) {
-            const float t = woop_t(tri + 4 * k, ox, oy, oz, dx, dy, dz);
+            const float t =
+                orion::woop_t_rn<true>(tri + 4 * k, ox, oy, oz, dx, dy, dz);
             if (t < tb) {  // strict: smallest row, earliest leaf win a tie
               tb = t;
               rb = k;

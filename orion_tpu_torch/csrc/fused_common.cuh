@@ -119,6 +119,43 @@ __device__ __forceinline__ float woop(const float* w, const Ray& r,
   return ok ? t : kBig;
 }
 
+// The same Woop test written with explicit round-to-nearest multiplies and
+// adds, in ops/woop.py's op order, so that t equals the plain PyTorch
+// version's bit for bit (no FMA contraction; `/` rounds to nearest): the
+// wavefront walks (bvh_intersect.cu, bvh_g8.cu) and the binned round
+// (binned.cu). `row` is a 16-float row (the 13 Woop floats first) as four
+// float4, in global memory (kGlobal, read through the read-only cache) or
+// in shared memory.
+__device__ __forceinline__ float dot3_rn(float a, float b, float c, float x,
+                                         float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)),
+                   __fmul_rn(c, z));
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ float woop_t_rn(const float4* row, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz) {
+  const float4 a = kGlobal ? __ldg(row) : row[0];
+  const float4 b = kGlobal ? __ldg(row + 1) : row[1];
+  const float4 c = kGlobal ? __ldg(row + 2) : row[2];
+  const float4 e = kGlobal ? __ldg(row + 3) : row[3];
+  // a = w0..3, b = w4..7, c = w8..11, e.x = w12
+  const float ou = __fadd_rn(dot3_rn(a.x, a.y, a.z, ox, oy, oz), c.y);
+  const float ov = __fadd_rn(dot3_rn(a.w, b.x, b.y, ox, oy, oz), c.z);
+  const float ow = __fadd_rn(dot3_rn(b.z, b.w, c.x, ox, oy, oz), c.w);
+  const float du = dot3_rn(a.x, a.y, a.z, dx, dy, dz);
+  const float dv = dot3_rn(a.w, b.x, b.y, dx, dy, dz);
+  const float dw = dot3_rn(b.z, b.w, c.x, dx, dy, dz);
+  const float t = __fdiv_rn(-ow, dw);
+  const float u = __fadd_rn(ou, __fmul_rn(t, du));
+  const float v = __fadd_rn(ov, __fmul_rn(t, dv));
+  const bool ok = (__fmul_rn(fabsf(dw), e.x) > kMtEps) && (u >= 0.0f) &&
+                  (u <= 1.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) &&
+                  (t >= 0.0f);
+  return ok ? t : kBig;
+}
+
 template <bool kGlobal>
 __device__ __forceinline__ void sweep_rows(const float* geo, int stride,
                                            int lo, int hi, const Ray& r,

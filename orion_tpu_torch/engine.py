@@ -124,14 +124,11 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
 # 1080p), its time follows the host (66.5-70.6 ms over its own runs), and
 # at 256x256, 16 spp, depth 4 it is the slower in some calls (7.0 / 9.5 /
 # 7.4 / 12.5 / 8.1 / 7.9 ms against 7.7 / 7.7 / 7.7 / 7.8 / 7.8 / 7.8 ms).
-# PERF.md has the runs. The JAX package also has "binned".
+# PERF.md has the runs. "binned" (ops/binned.py: the binned dense sweep
+# under the bounce pipeline's estimator) is reached by name, as in the JAX
+# package, which measured it slower on its TPU.
 BIG_PATH_ORDER = ("bounce", "walk")
-
-
-class NotPorted(ValueError):
-    """The JAX package would run a kernel here that has no CUDA
-    counterpart yet. A ValueError, as a request for an unknown candidate
-    is, but callers must not answer it by taking another route."""
+BIG_PATH_CANDIDATES = ("bounce", "walk", "binned")
 
 
 def make_big_path_renderer(scene: Scene, camera, *, samples: int,
@@ -147,10 +144,9 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
     raises ValueError (outside its gate) falls through to the next, and
     ValueError is raised when none fits, as in the JAX package, where the
     caller then takes the wavefront. Backend names: "bvh-path-kernel";
-    "bounce-kernel" on a CUDA scene, "bounce-torch" (the kernels' plain
-    versions) on a CPU scene. Asking for the candidate that is not ported
-    ("binned") raises NotPorted (a ValueError) naming it: callers do not
-    fall through to another route on that.
+    "bounce-kernel" and "binned-kernel" on a CUDA scene, "bounce-torch" and
+    "binned-torch" (the kernels' plain versions) on a CPU scene. "binned"
+    rejects textured scenes and tables of 2^22 rows or more.
     """
     from orion_tpu_torch.ops.bvh_path import (bounce_textured_supported,
                                               bvh_path_supported,
@@ -162,11 +158,9 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
                          "(textures / emitters)")
     order = tuple(order or (("bounce",) if textured else BIG_PATH_ORDER))
     for cand in order:
-        if cand == "binned":
-            raise NotPorted(f"big-path candidate {cand!r} (the binned "
-                            f"renderer) is not ported")
-        if cand not in ("walk", "bounce"):
+        if cand not in BIG_PATH_CANDIDATES:
             raise ValueError(f"unknown big-path candidate {cand!r}")
+    tail = "kernel" if scene.device.type == "cuda" else "torch"
     errs = []
     for cand in order:
         try:
@@ -177,8 +171,15 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
                 fn = make_bounce_path_renderer(
                     scene, camera, samples=samples, max_depth=max_depth,
                     light_samples=light_samples, strategy=strategy)
-                return fn, ("bounce-kernel" if scene.device.type == "cuda"
-                            else "bounce-torch")
+                return fn, f"bounce-{tail}"
+            if cand == "binned":
+                from orion_tpu_torch.ops.binned import \
+                    make_binned_path_renderer
+
+                fn = make_binned_path_renderer(
+                    scene, camera, samples=samples, max_depth=max_depth,
+                    light_samples=light_samples, strategy=strategy)
+                return fn, f"binned-{tail}"
             fn = make_bvh_path_renderer(scene, camera, samples=samples,
                                         max_depth=max_depth,
                                         light_samples=light_samples,

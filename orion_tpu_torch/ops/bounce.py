@@ -17,7 +17,10 @@ here every lane (one sample of one pixel) is a column of ONE float32
   3. for a textured scene, the texel at the winner's uv (plain PyTorch, as
      in the JAX package) -> kd planes [3, n];
   4. optionally the VIS kernel: both light samples' visibility in one
-     dual-carry walk -> [8, n] (`split_vis`; one emitter, 2 light samples);
+     dual-carry walk -> [8, n] (`split_vis`; one emitter, 2 light samples),
+     or an injected visibility step (the binned renderer's, ops/binned.py,
+     which sweeps the shade step's own shadow rays, written by the vis
+     kernel's draw-only mode);
   5. the SHADE kernel: depth-0 emission, fast-shadow NEE (its own shadow
      walks unless step 4 ran), Russian roulette, cosine bounce,
      accumulation and the next key, over the state's prefix in place; with
@@ -82,7 +85,7 @@ _F = ctypes.c_float
 WALK_KERNEL = CudaKernel("bounce", "bounce_walk_launch",
                          [_P, _P, _P, _P] + [_I] * 5 + [_P])
 VIS_KERNEL = CudaKernel("bounce", "bounce_vis_launch",
-                        [_P] * 6 + [_I] * 8 + [_P])
+                        [_P] * 6 + [_I] * 11 + [_P])
 SHADE_KERNEL = CudaKernel("bounce", "bounce_shade_launch",
                           [_P] * 8 + [_F] * 6 + [_I] * 11 + [_P])
 
@@ -258,15 +261,32 @@ def _frame(data: BounceData, st, hitdata):
 
 
 def bounce_vis_plain(data: BounceData, st, hitdata, seed: int, depth: int,
-                     stats: dict | None = None) -> torch.Tensor:
+                     stats: dict | None = None, *, draws: bool = False,
+                     light_samples: int = 2) -> torch.Tensor:
     """[8, n]: rows 0-1 the 0/1 visibility of the first emitter's two light
-    samples (the draws, the gate and the dual walk of the shade step)."""
+    samples (the draws, the gate and the dual walk of the shade step).
+
+    draws=True walks nothing and returns the shade step's shadow rays of
+    every site (site = ls + light_samples * mi) instead: [3 + 4 S, n],
+    rows 0-2 the shadow origin, then for site s rows 3 + 4s .. 5 + 4s its
+    direction (the sampled light point at t == 1) and row 6 + 4s its need
+    flag (the lane hit and the site's geometry term is positive); zeros
+    where the lane missed."""
     n = hitdata.shape[1]
     f = _frame(data, st, hitdata)
-    _, shadow_vis2 = _shadow_fns(data, stats)
     seed_t = torch.full((n,), int(seed) & _M32, dtype=torch.int64,
                         device=st.device)
     site_sd = (f["samp"] * 131071 + depth) & _M32
+    if draws:
+        sites = _nee_plain(data.tab, data.em.cpu().numpy(), f["pix"], site_sd,
+                           seed_t, light_samples, f["hit"], f["h"], f["sn"],
+                           f["so"], legacy=False, draws_only=True)
+        rows = [*f["so"]]
+        for sd, need in sites:
+            rows += [*sd, need.to(torch.float32)]
+        out = torch.stack(rows)
+        return torch.where(f["hit"], out, torch.zeros_like(out))
+    _, shadow_vis2 = _shadow_fns(data, stats)
     v0, v1 = _nee_plain(data.tab, data.em[:1].cpu().numpy(), f["pix"],
                         site_sd, seed_t, 2, f["hit"], f["h"], f["sn"],
                         f["so"], legacy=False, shadow_vis2=shadow_vis2,
@@ -282,8 +302,10 @@ def bounce_shade_plain(data: BounceData, st, hitdata, seed: int, depth: int,
                        stats: dict | None = None, shadows=None):
     """One bounce of the estimator over the state's first n lanes:
     (new state prefix [16, n], aux [16, n] or None). `kd` [3, n] replaces
-    the table's diffuse columns (a textured scene's texels); `vis` [8, n]
-    replaces the shadow walks (bounce_vis's planes); `shadows`, a
+    the table's diffuse columns (a textured scene's texels); `vis` [R, n]
+    replaces the shadow walks: row ls + light_samples * mi is the 0/1
+    visibility of emitter mi's light sample ls (bounce_vis's planes, or a
+    binned sweep's); `shadows`, a
     (shadow_vis, shadow_vis2) pair of `_nee_plain`, replaces the walks
     over the tree (the reference render's brute sweep). aux rows: kd(3),
     A(3), contribution(3), em_scale, sum_scale, winner material, hit,
@@ -317,7 +339,7 @@ def bounce_shade_plain(data: BounceData, st, hitdata, seed: int, depth: int,
         data.tab, data.em.cpu().numpy(), f["pix"], site_sd, seed_t,
         light_samples, hit, f["h"], f["sn"], f["so"], legacy=False,
         shadow_vis=shadow_vis, shadow_vis2=shadow_vis2,
-        vis_planes=None if vis is None else (vis[0], vis[1]))
+        vis_planes=vis)
     rr = rr + kdr * A[0]
     rg = rg + kdg * A[1]
     rb = rb + kdb * A[2]
@@ -377,30 +399,46 @@ def bounce_walk(data: BounceData, st, n: int) -> torch.Tensor:
     return hd
 
 
-def _check_vis(name: str, data: BounceData, light_samples: int):
+def _check_vis(name: str, data: BounceData, light_samples: int, vis=None):
+    """Visibility planes hold one row per (emitter, light sample) site; the
+    standalone vis kernel (vis=None) answers one emitter's two samples."""
+    sites = data.em.shape[0] * light_samples
+    if vis is not None:
+        if vis.shape[0] < sites:
+            raise ValueError(f"{name}: {vis.shape[0]} visibility planes for "
+                             f"{sites} sites")
+        return
     if light_samples != 2 or data.em.shape[0] != 1:
         raise ValueError(f"{name}: the standalone visibility planes hold "
                          f"one emitter's two light samples, got "
                          f"{data.em.shape[0]} emitter(s) x {light_samples}")
 
 
-def bounce_vis(data: BounceData, st, hitdata, seed: int,
-               depth: int) -> torch.Tensor:
+def bounce_vis(data: BounceData, st, hitdata, seed: int, depth: int, *,
+               draws: bool = False, light_samples: int = 2) -> torch.Tensor:
     """[8, n] visibility planes (rows 0-1) of the single emitter's two
-    light samples: the vis kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    light samples, or with draws=True the shadow rays of every site
+    ([3 + 4 * n_em * light_samples, n], bounce_vis_plain's layout): the
+    vis kernel for CUDA tensors, the plain version for CPU tensors."""
     n = hitdata.shape[1] if hitdata.dim() == 2 else -1
     _check("bounce_vis", data, st, n, (("hitdata", hitdata, (HIT_ROWS, n)),))
-    _check_vis("bounce_vis", data, 2)
+    if draws:
+        if light_samples < 1:
+            raise ValueError(f"bounce_vis: {light_samples} light samples")
+    else:
+        _check_vis("bounce_vis", data, 2)
     if _device_kind("bounce_vis", st.device) == "cpu":
-        return bounce_vis_plain(data, st, hitdata, seed, depth)
-    vis = torch.empty((HIT_ROWS, n), dtype=torch.float32, device=st.device)
+        return bounce_vis_plain(data, st, hitdata, seed, depth, draws=draws,
+                                light_samples=light_samples)
+    rows = 3 + 4 * data.em.shape[0] * light_samples if draws else HIT_ROWS
+    out = torch.empty((rows, n), dtype=torch.float32, device=st.device)
     VIS_KERNEL.launch(data.nodes.data_ptr(), data.tab.data_ptr(),
                       data.em.data_ptr(), st.data_ptr(), hitdata.data_ptr(),
-                      vis.data_ptr(), *_tree_args(data), data.tab.shape[0],
-                      st.shape[1], n, _seed32(seed), int(depth),
-                      stream_ptr(st.device))
-    return vis
+                      out.data_ptr(), *_tree_args(data), data.tab.shape[0],
+                      data.em.shape[0], st.shape[1], n, _seed32(seed),
+                      int(depth), int(light_samples if draws else 2),
+                      int(draws), stream_ptr(st.device))
+    return out
 
 
 def bounce_shade(data: BounceData, st, hitdata, seed: int, depth: int,
@@ -414,8 +452,8 @@ def bounce_shade(data: BounceData, st, hitdata, seed: int, depth: int,
     if kd is not None:
         extra.append(("kd", kd, (3, n)))
     if vis is not None:
-        extra.append(("vis", vis, (HIT_ROWS, n)))
-        _check_vis("bounce_shade", data, light_samples)
+        extra.append(("vis", vis, (vis.shape[0], n)))
+        _check_vis("bounce_shade", data, light_samples, vis)
     _check("bounce_shade", data, st, n, extra)
     if light_samples < 1:
         raise ValueError(f"bounce_shade: {light_samples} light samples")
@@ -550,8 +588,11 @@ def build_forward_pipeline(scene: Scene, camera, *, samples: int,
     sort=False runs every bounce over all lanes, unsorted. sort_every=k
     sorts and recounts only every k-th bounce; the others keep the stale
     prefix, which still covers every live lane (lanes only die).
-    split_vis runs the standalone visibility kernel (one emitter, 2 light
-    samples; ignored otherwise). octant_trees / leaf_width default to one
+    split_vis runs a visibility step before each shade step, which then
+    walks no shadow ray: the standalone visibility kernel (one emitter, 2
+    light samples; ignored otherwise), or the visibility step of `steps`,
+    whose planes hold every (emitter, light sample) site (the binned
+    renderer's). octant_trees / leaf_width default to one
     tree copy of leaf width 2 on a CUDA scene (what one thread per ray
     wants) and to 8 copies of width 128 on a CPU scene (the JAX package's
     defaults). pix_count builds the pipeline for a tile of that many
@@ -598,15 +639,17 @@ def build_forward_pipeline(scene: Scene, camera, *, samples: int,
     data0 = BounceData(nodes=nodes, tab=tab0, em=em, leaf_width=leaf_width,
                        copies=copies, lo=tuple(float(x) for x in lo),
                        scale=tuple(float(x) for x in key_scales(lo, hi)))
-    split_vis = bool(split_vis) and light_samples == 2 and em.shape[0] == 1
+    walk, visible, shade_step = steps or (bounce_walk, bounce_vis,
+                                          bounce_shade)
+    split_vis = bool(split_vis)
+    if visible in (bounce_vis, bounce_vis_plain):
+        # the standalone vis kernel answers one emitter's two light samples
+        split_vis = split_vis and light_samples == 2 and em.shape[0] == 1
     resolve = _texel_resolver(scene, bvh) if textured else None
     cam = camera_vec(camera).to(dev)
 
     def stage(timings, name, depth, n, fn):
         return _timed(timings if on_card else None, name, depth, n, fn)
-
-    walk, visible, shade_step = steps or (bounce_walk, bounce_vis,
-                                          bounce_shade)
 
     def shade(data, st, hd, seed, depth, **kw):
         return shade_step(data, st, hd, seed, depth, max_depth,

@@ -58,6 +58,50 @@ def wavefront_train_supported(scene: Scene) -> bool:
             and scene.num_emissive == 1)
 
 
+def new_accumulator(dev):
+    """(acc [SPREAD * M_LANES, 8], ek [3]), float64 zeros: what
+    closed_form_adjoints adds into; acc.reshape(SPREAD, M_LANES, 8).sum(0)
+    is the per-material result."""
+    return (torch.zeros((SPREAD * M_LANES, 8), dtype=torch.float64,
+                        device=dev),
+            torch.zeros((3,), dtype=torch.float64, device=dev))
+
+
+def closed_form_adjoints(acc, ek, w, T, U, kd, A, em_scale, sum_scale,
+                         inv_p, contf, mesh):
+    """One bounce's closed-form material adjoints of n lanes, added into
+    (acc, ek) of new_accumulator; returns the next throughput T_{d+1} (3
+    planes). w, T: the lanes' cotangent and throughput (3 rows each), U
+    their remaining radiance AFTER this bounce (U_{d+1}); kd, A: 3 planes;
+    em_scale, sum_scale, inv_p, contf, mesh: planes. A lane's terms go to
+    its winner's material row in the private copy of its place mod
+    SPREAD: the few materials of a scene would otherwise serialise the
+    card's atomic adds on a handful of addresses."""
+    n = mesh.shape[0]
+    dev = mesh.device
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    p_cont = torch.maximum(torch.maximum(kd[0], kd[1]), kd[2])
+    ties = [(kd[c] == p_cont).to(torch.float32) for c in range(3)]
+    tie_n = ties[0] + ties[1] + ties[2]
+    wU = w[0] * U[0] + w[1] * U[1] + w[2] * U[2]
+    amax_term = -inv_p * wU / torch.clamp(tie_n, min=1.0)
+    g_kd, g_ke, t_new = [], [], []
+    for c in range(3):
+        wT = w[c] * T[c]
+        g_kd.append(wT * A[c]
+                    + torch.where(kd[c] > 0.0,
+                                  w[c] * U[c] / torch.clamp(kd[c], min=1e-30),
+                                  zero)
+                    + ties[c] * amax_term)
+        g_ke.append(wT * em_scale)
+        ek[c] += (wT * kd[c] * sum_scale).double().sum()
+        t_new.append(T[c] * kd[c] * inv_p * contf)
+    G = torch.stack(g_kd + g_ke + [zero, zero], dim=1).double()
+    spread = torch.arange(n, device=dev) % SPREAD * M_LANES
+    acc.index_add_(0, mesh.to(torch.int64) + spread, G)
+    return t_new
+
+
 def make_bounce_train_core(scene: Scene, camera, *, samples: int,
                            max_depth: int, light_samples: int = 2,
                            sort: bool = True, pix_count: int | None = None,
@@ -108,41 +152,15 @@ def make_bounce_train_core(scene: Scene, camera, *, samples: int,
         for aux, lane in dumps:
             U.index_add_(1, lane, aux[A_RAD:A_RAD + 3])
         T = torch.ones((3, N), dtype=torch.float32, device=dev)
-        # per-lane terms are scattered into SPREAD private copies of the
-        # accumulator (a lane's copy is its place in the dump mod SPREAD),
-        # summed at the end: the few materials of a scene would otherwise
-        # serialise the card's atomic adds on a handful of addresses
-        acc = torch.zeros((SPREAD * M_LANES, 8), dtype=torch.float64,
-                          device=dev)
-        ek = torch.zeros((3,), dtype=torch.float64, device=dev)
+        acc, ek = new_accumulator(dev)
         while dumps:
             a, lane = dumps.pop(0)
-            n = lane.shape[0]
-            zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-            w, Tl = w3[:, lane], T[:, lane]
-            kd = [a[A_KD + c] for c in range(3)]
-            inv_p, contf = a[A_INVP], a[A_CONT]
             Ul = U[:, lane] - a[A_RAD:A_RAD + 3]
-            p_cont = torch.maximum(torch.maximum(kd[0], kd[1]), kd[2])
-            ties = [(kd[c] == p_cont).to(torch.float32) for c in range(3)]
-            tie_n = ties[0] + ties[1] + ties[2]
-            wU = w[0] * Ul[0] + w[1] * Ul[1] + w[2] * Ul[2]
-            amax_term = -inv_p * wU / torch.clamp(tie_n, min=1.0)
-            g_kd, g_ke, t_new = [], [], []
-            for c in range(3):
-                wT = w[c] * Tl[c]
-                g_kd.append(wT * a[A_A + c]
-                            + torch.where(kd[c] > 0.0,
-                                          w[c] * Ul[c]
-                                          / torch.clamp(kd[c], min=1e-30),
-                                          zero)
-                            + ties[c] * amax_term)
-                g_ke.append(wT * a[A_EMS])
-                ek[c] += (wT * kd[c] * a[A_SUMS]).double().sum()
-                t_new.append(Tl[c] * kd[c] * inv_p * contf)
-            G = torch.stack(g_kd + g_ke + [zero, zero], dim=1).double()
-            spread = torch.arange(n, device=dev) % SPREAD * M_LANES
-            acc.index_add_(0, a[A_MESH].to(torch.int64) + spread, G)
+            t_new = closed_form_adjoints(
+                acc, ek, w3[:, lane], T[:, lane], Ul,
+                [a[A_KD + c] for c in range(3)],
+                [a[A_A + c] for c in range(3)], a[A_EMS], a[A_SUMS],
+                a[A_INVP], a[A_CONT], a[A_MESH])
             T[:, lane] = torch.stack(t_new)
             U[:, lane] = Ul
         return acc.reshape(SPREAD, M_LANES, 8).sum(dim=0), ek

@@ -151,9 +151,19 @@ def make_bvh_intersect_kernel(bvh: BVH, scene, *, any_hit: bool = False,
     dev = scene.device
     nodes, tri = layout if layout is not None else _bvh_device_layout(bvh,
                                                                       dev)
+    leaf_width = bvh.leaf_width
+    return rows_to_hits(bvh, scene, lambda orig, dirs, alive: bvh_walk(
+        nodes, tri, orig, dirs, alive, leaf_width=leaf_width,
+        any_hit=any_hit))
+
+
+def rows_to_hits(bvh: BVH, scene, walk):
+    """IntersectFn over `walk(orig, dirs, alive) -> (t, row)`, a walk of
+    the tree's bundled rows: maps rows to global scene triangle ids
+    (tri_orig), -1 and +inf on a miss and on a padding row."""
+    dev = scene.device
     tri_orig = torch.as_tensor(bvh.numpy("tri_orig"), device=dev)
     num_triangles = scene.num_triangles
-    leaf_width = bvh.leaf_width
     n_rows = tri_orig.shape[0]
 
     def intersect(scene, orig, dirs, *, alive=None) -> Hit:
@@ -162,10 +172,9 @@ def make_bvh_intersect_kernel(bvh: BVH, scene, *, any_hit: bool = False,
         if alive is None:
             alive = torch.ones((N,), dtype=torch.bool, device=orig.device)
         with torch.no_grad():
-            t, row = bvh_walk(nodes, tri, orig.detach().float().contiguous(),
-                              dirs.detach().float().contiguous(),
-                              alive.contiguous(), leaf_width=leaf_width,
-                              any_hit=any_hit)
+            t, row = walk(orig.detach().float().contiguous(),
+                          dirs.detach().float().contiguous(),
+                          alive.contiguous())
             safe = torch.clamp(row, min=0, max=n_rows - 1).long()
             tri_id = torch.where(row >= 0, tri_orig[safe],
                                  torch.full_like(row, -1))

@@ -326,7 +326,8 @@ def _cosine_bounce(sn, u1, u2):
 
 def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
                h, sn, so, *, legacy: bool, shadow_rows=None, shadow_vis=None,
-               shadow_vis2=None, vis_planes=None, vis_only: bool = False):
+               shadow_vis2=None, vis_planes=None, vis_only: bool = False,
+               draws_only: bool = False):
     """Next-event estimation of every lane at hit point `h` (shading
     normal `sn`, shadow origin `so`): (A, sum_scale), A the NEE radiance
     without the surface kd and sum_scale the sum of the samples' scales.
@@ -339,10 +340,15 @@ def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
     never walk, and `shadow_vis(so, sd, need, mesh) -> bool` asks whether
     the nearest hit below NEE_T_CAP lies on the sampled mesh. With two
     light samples `shadow_vis2(so, sd0, sd1, need0, need1, mesh)` answers
-    both in one walk, or `vis_planes` (two 0/1 planes computed earlier)
-    replaces the walk; vis_only=True returns the first emitter's pair of
-    visibility planes instead (float32 0/1). The PCG4D sites are the TPU
-    kernel's: (pixel, sample * 131071 + depth, 0x11 + 0x101 * site, seed).
+    both in one walk, or `vis_planes` (0/1 planes computed earlier, one
+    per site, indexed by site) replaces the walks; vis_only=True returns
+    the first emitter's pair of visibility planes instead (float32 0/1).
+    draws_only=True returns each site's shadow ray instead, a list of
+    (sd, need) in site order: the direction to the sampled light point
+    (unnormalized, the point at t == 1) and whether the lane asks for its
+    visibility. A site is ls + light_samples * mi; its PCG4D draws are the
+    TPU kernel's: (pixel, sample * 131071 + depth, 0x11 + 0x101 * site,
+    seed).
     """
     dev = tab.device
     n = pix.shape[0]
@@ -352,6 +358,7 @@ def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
     snx, sny, snz = sn
     A = [zero, zero, zero]
     sum_scale = zero
+    sites = []
     for mi in range(em_np.shape[0]):
         rec = em_np[mi]
         count = int(rec[1])
@@ -407,13 +414,15 @@ def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
                           geom * L[:, 9] / (1.0 + d2) * inv_ls))
         if legacy:
             continue
-        if light_samples == 2 and (shadow_vis2 is not None
-                                   or vis_planes is not None):
-            if vis_planes is not None:
-                vis2 = (vis_planes[0] > 0.0, vis_planes[1] > 0.0)
-            else:
-                vis2 = shadow_vis2(so, draws[0][0], draws[1][0], draws[0][1],
-                                   draws[1][1], rec[0])
+        if draws_only:
+            sites += [(sd, need) for sd, need, _ in draws]
+            continue
+        if vis_planes is not None:
+            vis2 = [vis_planes[ls + light_samples * mi] > 0.0
+                    for ls in range(light_samples)]
+        elif light_samples == 2 and shadow_vis2 is not None:
+            vis2 = shadow_vis2(so, draws[0][0], draws[1][0], draws[0][1],
+                               draws[1][1], rec[0])
             if vis_only:
                 return tuple(v.to(torch.float32) for v in vis2)
         else:
@@ -424,6 +433,8 @@ def _nee_plain(tab, em_np, pix, site_sd, seed_t, light_samples: int, gate,
             scale = torch.where(vis, full, zero)
             A = [A[k] + ske[k] * scale for k in range(3)]
             sum_scale = sum_scale + scale
+    if draws_only:
+        return sites
     return A, sum_scale
 
 

@@ -27,7 +27,7 @@ from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch import cli
 from orion_tpu_torch.accel.bvh import bvh_from_numpy
 from orion_tpu_torch.camera import camera_from_rtc
-from orion_tpu_torch.engine import NotPorted, make_big_path_renderer
+from orion_tpu_torch.engine import make_big_path_renderer
 from orion_tpu_torch.io.image import load_hdr
 from orion_tpu_torch.ops import bounce as bo
 from orion_tpu_torch.ops import bvh_path as bp
@@ -345,8 +345,10 @@ def test_wrappers_check_their_inputs(cornell):
         bo.bounce_shade(data, st, hd[:5], 1, 0, D, LS)
     with pytest.raises(ValueError, match="kd"):
         bo.bounce_shade(data, st, hd, 1, 0, D, LS, kd=torch.zeros(3, N - 1))
-    with pytest.raises(ValueError, match="two light samples"):
-        bo.bounce_shade(data, st, hd, 1, 0, D, 3, vis=torch.zeros(8, N))
+    # the given visibility planes hold one row per (emitter, light sample)
+    # site: fewer rows than sites are refused
+    with pytest.raises(ValueError, match="2 visibility planes for 3 sites"):
+        bo.bounce_shade(data, st, hd, 1, 0, D, 3, vis=torch.zeros(2, N))
     with pytest.raises(ValueError, match="copies"):
         bo.bounce_walk(dataclasses.replace(data, copies=3), st, N)
     with pytest.raises(ValueError, match="nodes"):
@@ -480,9 +482,14 @@ def test_textured_scene_routes_to_bounce(tmp_path, capsys, cornell):
     with pytest.raises(ValueError, match="no big-path megakernel fits"):
         make_big_path_renderer(tex, cornell.cam, samples=1, max_depth=1,
                                order=("walk",))
-    with pytest.raises(NotPorted, match="binned"):
+    # the binned renderer's gate is the untextured one, as in the JAX
+    # package; on the untextured box it renders on its plain versions
+    with pytest.raises(ValueError, match="no big-path megakernel fits"):
         make_big_path_renderer(tex, cornell.cam, samples=1, max_depth=1,
                                order=("binned",))
+    _, name = make_big_path_renderer(cornell.ts, cornell.cam, samples=1,
+                                     max_depth=1, order=("binned",))
+    assert name == "binned-torch"
 
 
 def test_walks_hold_the_tie_and_flag_rules():

@@ -25,7 +25,7 @@ from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch import cli, engine
 from orion_tpu_torch.accel.bvh import bvh_from_numpy
 from orion_tpu_torch.camera import camera_from_rtc
-from orion_tpu_torch.engine import (NotPorted, make_big_path_renderer,
+from orion_tpu_torch.engine import (make_big_path_renderer,
                                     prepare, render_prepared)
 from orion_tpu_torch.io.image import load_hdr
 from orion_tpu_torch.ops import bvh_path as bp
@@ -150,9 +150,16 @@ def test_make_big_path_renderer(lv2, tmp_path):
     assert img.mean() > 0
     np.testing.assert_allclose(fn_b(5).numpy(), img.numpy(), rtol=1e-4,
                                atol=1e-5)
-    with pytest.raises(NotPorted, match="binned"):
-        make_big_path_renderer(ts, cam, samples=1, max_depth=1,
-                               order=("bounce", "binned"))
+    # "binned" by name: second, the first candidate takes the scene; alone,
+    # the binned renderer on its plain versions
+    _, name = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
+                                     order=("bounce", "binned"))
+    assert name == "bounce-torch"
+    fn_n, name_n = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
+                                          light_samples=1, order=("binned",))
+    assert name_n == "binned-torch"
+    np.testing.assert_allclose(fn_n(5).numpy(), img.numpy(), rtol=1e-4,
+                               atol=1e-5)
     with pytest.raises(ValueError, match="unknown"):
         make_big_path_renderer(ts, cam, samples=1, max_depth=1,
                                order=("sweep",))
@@ -166,9 +173,8 @@ def test_make_big_path_renderer(lv2, tmp_path):
     # ValueError, on which callers take the wavefront as the JAX CLI does
     big_em = dataclasses.replace(
         ts, mesh_tri_count=torch.full_like(ts.mesh_tri_count, 64))
-    with pytest.raises(ValueError) as e:
+    with pytest.raises(ValueError, match="gate"):
         make_big_path_renderer(big_em, cam, samples=1, max_depth=1)
-    assert not isinstance(e.value, NotPorted)
 
 
 @pytest.fixture(scope="module")

@@ -29,19 +29,24 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (agreeing_lanes, bounce_kernels_agree, random_rays,
-                        two_emitter, write_cornell, write_cornell_whitted)
+from chip_smoke import (agreeing_lanes, binned_round_agree,
+                        bounce_kernels_agree, brute_agree, draws_agree,
+                        mask_agree, random_rays, two_emitter, write_cornell,
+                        write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
+from orion_tpu_torch.ops import binned as bn
 from orion_tpu_torch.ops import bounce as bo
 from orion_tpu_torch.ops import bounce_prb as bpr
 from orion_tpu_torch.ops import brute_intersect as bi
+from orion_tpu_torch.ops import bvh_g8 as g8
 from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.ops import bvh_path as bp
 from orion_tpu_torch.ops import bvh_prb as bvp
 from orion_tpu_torch.ops import bvh_whitted as bw
 from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
+from orion_tpu_torch.ops import prb_wavefront as pw
 from orion_tpu_torch.ops import whitted as wh
 from orion_tpu_torch.scene import load_scene, subdivide_scene
 
@@ -361,8 +366,8 @@ def test_bounce_wrappers_reject_bad_inputs(tmp_path, cuda_device):
     with pytest.raises(ValueError):
         bo.bounce_shade(data, st, hd, 0, 0, 1, 2,
                         kd=torch.zeros((3, N - 1), device=cuda_device))
-    with pytest.raises(ValueError, match="two light samples"):
-        bo.bounce_shade(data, st, hd, 0, 0, 1, 3, vis=hd)
+    with pytest.raises(ValueError, match="2 visibility planes for 3"):
+        bo.bounce_shade(data, st, hd, 0, 0, 1, 3, vis=hd[:2])
     with pytest.raises(ValueError):          # not contiguous
         bo.bounce_vis(data, st, hd.t().contiguous().t(), 0, 0)
     assert bo.bounce_walk(data, st, 0).shape == (8, 0)     # nothing to do
@@ -516,3 +521,107 @@ def test_bvh_whitted_and_prb_wrappers_reject_bad_inputs(tmp_path,
     with pytest.raises(ValueError, match="accumulator columns"):
         bvp.bvh_prb_replay(nodes, bad, em, cam_v, 0, w, ls, 4, 4, 1, 1, 1,
                            leaf_width=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "levels-3"])
+def test_binned_round_kernel_equals_plain(tmp_path, cuda_device, name):
+    """Kernel 10 on lanes sorted by bin (some keyed K, some holding a
+    hit): bit for bit its plain version; and one sweep of random rays on
+    the card equals the same sweep on the CPU (plain rounds)."""
+    sc, _ = _scene(tmp_path, cuda_device, name)
+    bins, tab, _ = bn.binned_device_data(sc)
+    sw = bn.BinnedSweep(bins, tab)
+    o, d, alive = random_rays(1 << 14, 4, cuda_device)
+    o3, d3 = tuple(o[:, c] for c in range(3)), tuple(d[:, c] for c in range(3))
+    before = bn.KERNEL.launches
+    t_k, row_k = sw.closest(o3, d3, alive)
+    torch.cuda.synchronize()
+    assert bn.KERNEL.launches - before == sw.counts["rounds"] > 0
+    cpu = bn.BinnedSweep(bins, tab.cpu())
+    t_p, row_p = cpu.closest(tuple(x.cpu() for x in o3),
+                             tuple(x.cpu() for x in d3), alive.cpu())
+    assert torch.equal(row_k.cpu(), row_p) and torch.equal(t_k.cpu(), t_p)
+    rng = np.random.default_rng(5)
+    n, K = 5000, bins.k
+    key = torch.as_tensor(np.sort(np.where(rng.uniform(size=n) < 0.9,
+                                           rng.integers(0, K, n), K)),
+                          dtype=torch.int32, device=cuda_device)
+    st = torch.zeros((8, n), device=cuda_device)
+    st[0:3], st[3:6] = o[:n].t(), d[:n].t()
+    st[6] = torch.where(key < K, bn.BIG, -bn.BIG)
+    st[7] = bn.NO_ROW
+    st[6, ::7], st[7, ::7] = 0.8, 3.0
+    binned_round_agree(name, st, key, sw)
+
+
+@pytest.mark.gpu
+def test_binned_render_and_draws_on_card(tmp_path, cuda_device):
+    """The binned renderer on the card: kernel 10 and the vis kernel's
+    draw-only mode launched, the draws equal their plain version's, the
+    image within the fused tolerance of the bounce pipeline's reference
+    render and of the same renderer's plain run on the CPU."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    cfg = dict(samples=4, max_depth=3, light_samples=2)
+    before = (bn.KERNEL.launches, bo.VIS_KERNEL.launches)
+    fn = bn.make_binned_path_renderer(sc, cam, **cfg)
+    rec = []
+    img = fn(11, record=lambda depth, n, st, hd, kd, vis: rec.append(
+        (depth, st[:, :n].clone(), hd, vis)))
+    torch.cuda.synchronize()
+    assert bn.KERNEL.launches > before[0]
+    assert bo.VIS_KERNEL.launches - before[1] == len(rec) >= 2
+    data = fn.ctx["data"]
+    for depth, st, hd, vis in rec:
+        assert vis.shape == (2, hd.shape[1])
+        draws_agree(f"levels-3 depth {depth}", data, st, hd, 11, depth, 2)
+    ref = bo.bounce_reference_render(sc, cam, 11, **cfg)
+    _images_agree(img.reshape(-1, 3), ref.reshape(-1, 3))
+    sc_cpu, cam_cpu = _scene(tmp_path / "cpu", "cpu", "levels-3")
+    plain = bn.make_binned_path_renderer(sc_cpu, cam_cpu, **cfg)(11)
+    _images_agree(img.reshape(-1, 3).cpu(), plain.reshape(-1, 3))
+
+
+@pytest.mark.gpu
+def test_binned_train_step_on_card_matches_plain(tmp_path, cuda_device):
+    """The binned trainer on the card (kernel 10 in every sweep) against
+    the same step on the CPU (plain rounds): GRAD_TOL of the largest
+    entry, both tables dynamic."""
+    target = np.full((24, 32, 3), 0.1, np.float32)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        sc, cam = _scene(tmp_path / str(dev), dev, "levels-2")
+        step = pw.make_binned_train_step(sc, cam, target, samples=2,
+                                         max_depth=3, dynamic_params=True)
+        out.append(step({"mat_diffuse": sc.mat_diffuse * 0.9,
+                         "mat_emissive": sc.mat_emissive}, 7))
+    (loss_k, g_k), (loss_p, g_p) = out
+    assert float(loss_k) == pytest.approx(float(loss_p), rel=1e-3)
+    for k in g_p:
+        assert ((g_k[k].cpu() - g_p[k]).abs().max()
+                <= 1e-3 * g_p[k].abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_g8_kernel_matches_plain(tmp_path, cuda_device, any_hit):
+    """G8 against kernel 5's plain walk on the same leaf-128 tree: winners
+    on >= 99.9% of rays (a lane also tests the leaves its group opened),
+    masks equal for any hit; one launch a call."""
+    sc, _ = _scene(tmp_path, cuda_device, "levels-3")
+    bvh, _ = build_scene_bvh(sc, leaf_size=128)
+    assert bvh.leaf_width == 128
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    o, d, alive = random_rays(1 << 16, 3, cuda_device)
+    kernel = g8.ANY_HIT_KERNEL if any_hit else g8.KERNEL
+    before = kernel.launches
+    k = g8.bvh_g8(nodes, tri, o, d, alive, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=128,
+                          any_hit=any_hit)
+    assert (k[1][~alive] == -1).all()
+    if any_hit:
+        mask_agree("g8", k, p)
+    else:
+        brute_agree("g8", (k[0], k[1].long()), (p[0], p[1].long()))

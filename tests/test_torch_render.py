@@ -153,6 +153,24 @@ def test_cli_routes(tmp_path, capsys, backend):
     assert ps.scene.device.type == "cpu"
 
 
+@pytest.mark.parametrize("flags", [["-t", "8"], ["--threads", "8"],
+                                   ["--checkpoint-every", "4"]])
+def test_cli_accepts_launcher_flags(tmp_path, capsys, flags):
+    """The reference launcher's -t/--threads (ignored) and the JAX CLI's
+    --checkpoint-every parse and leave the render as it is; --checkpoint
+    itself still fails by name (test_cli_unported_routes_fail)."""
+    args = cli.build_parser().parse_args(["s.rtc", *flags])
+    assert args.threads == (8 if flags[0] != "--checkpoint-every" else 0)
+    assert args.checkpoint_every == (4 if flags[0] == "--checkpoint-every"
+                                     else 64)
+    rtc = write_cornell(tmp_path, xres=8, yres=6, depth=1)
+    out = tmp_path / "out.hdr"
+    assert cli.main([str(rtc), "-o", str(out), "-p", "1", "--device", "cpu",
+                     *flags]) == 0
+    assert "fused-kernel" in capsys.readouterr().out
+    assert load_hdr(out).shape == (6, 8, 3)
+
+
 @pytest.mark.parametrize("case", ["whitted", "checkpoint", "textured",
                                   "shard", "normal-maps", "fused-gate"])
 def test_cli_unported_routes_fail(tmp_path, case):
