@@ -1546,9 +1546,12 @@ def _phase_bounce(tmp: Path, dev, card: str, lv5, errs3: list) -> dict:
     del img_s, fn_s
 
     # against kernel 8 on the same seed, and both candidates' times in
-    # turns (bounce, walk, walk, bounce)
-    fn_w, name_w = engine.make_big_path_renderer(lv5, cam, order=("walk",),
-                                                 **cfg)
+    # turns (bounce, walk, walk, bounce); kernel 8's tree flattened for
+    # the camera's octant, as the CLI's `prepare` orders it, so that the
+    # default route below renders this image bit for bit
+    fn_w, name_w = engine.make_big_path_renderer(
+        lv5, cam, order=("walk",), order_signs=engine.octant_signs(cam.front),
+        **cfg)
     check(name_w == "bvh-path-kernel", f"walk backend {name_w}")
     b1, b1_times, _ = event_ms(lambda: fn_b(0), 2)
     w_ms, w_times, img_w = event_ms(lambda: fn_w(0), 4)

@@ -9,12 +9,13 @@
 //
 // The lane loop (`path_lane`) is the estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body, one thread per pixel
-// lane. Its three modes:
-//   kRender    : fast-shadow NEE, radiance / spp out (fused_path.cu);
+// lane, for the training kernels. Its two modes:
 //   kForwardLs : legacy NEE, radiance / spp out plus each sample's radiance
 //                L_s (prb.cu, the training forward);
 //   kReplay    : legacy NEE, re-traces the same paths and accumulates the
 //                closed-form material adjoints (prb.cu, the replay).
+// The render kernels (fused_path.cu, bvh_path.cu) run render_lane.cuh's
+// persistent lane loop over the same NEE (`nee`, both forms).
 // The forward and the replay must compute every bounce's contribution
 // bit for bit alike, or the replay's remaining radiance U = L_s - sum of
 // contributions drifts. Both are instantiations of this one source, and
@@ -46,7 +47,7 @@ constexpr float kNeeTCap = 1.05f;
 constexpr int C_N0 = 13, C_N1 = 16, C_N2 = 19, C_KD = 22, C_KE = 25,
               C_AREA = 28, C_MESH = 29;
 
-enum Mode { kRender = 0, kForwardLs = 1, kReplay = 2 };
+enum Mode { kForwardLs = 1, kReplay = 2 };
 
 // a triangle table and its chunk AABBs
 struct Geo {
@@ -510,7 +511,7 @@ __device__ __forceinline__ void path_lane(const P& p,
   int samp = 0, depth = 0;
   primary(cam, p.seed, p.W, p.H, pix, 0, r);
   float T[3] = {1.f, 1.f, 1.f};
-  float acc[3] = {0.f, 0.f, 0.f};   // radiance sum (render, forward)
+  float acc[3] = {0.f, 0.f, 0.f};   // radiance sum (forward)
   float Ls[3] = {0.f, 0.f, 0.f};    // this sample's radiance (forward)
   float U[3] = {0.f, 0.f, 0.f};     // remaining radiance (replay)
   float w[3] = {0.f, 0.f, 0.f};     // the lane's adjoint (replay)
@@ -561,12 +562,7 @@ __device__ __forceinline__ void path_lane(const P& p,
       float sum_scale = 0.f;
       nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
                    sny, snz, A, sum_scale);
-      if (kMode == kRender) {
-        float rr = ke[0] * em_scale, rg = ke[1] * em_scale,
-              rb = ke[2] * em_scale;
-        rr += kd[0] * A[0]; rg += kd[1] * A[1]; rb += kd[2] * A[2];
-        acc[0] += T[0] * rr; acc[1] += T[1] * rg; acc[2] += T[2] * rb;
-      } else {
+      {
         float c[3];
         bounce_contrib(T, ke, em_scale, kd, A, c);
 #pragma unroll

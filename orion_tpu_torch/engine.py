@@ -112,22 +112,21 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
 
 
 # Megakernel candidates for path scenes past the fused brute gate, in the
-# order they are tried: "bounce" is the sorted-wavefront pipeline
-# (ops/bounce.py, three kernels, a sort and a host sync per bounce over a
-# wavefront in device memory), "walk" the BVH path megakernel
-# (ops/bvh_path.py, one launch for the image, no state). The faster at
-# chip_smoke.py phase 11's shapes goes first: on an NVIDIA H100 80GB HBM3
-# at 700 W, the 34,818-triangle box at 1920x1080, 16 spp, depth 8, in
-# seven calls, bounce took 68.0 / 66.9 / 67.9 / 66.9 / 69.4 / 67.2 / 69.2
-# ms against walk's 70.3 / 70.2 / 70.1 / 70.3 / 70.0 / 70.4 / 70.0 ms:
-# ahead in every call, by 1-5%. The price: the pipeline holds 64 bytes a lane (2.1 GB at that
-# 1080p), its time follows the host (66.5-70.6 ms over its own runs), and
-# at 256x256, 16 spp, depth 4 it is the slower in some calls (7.0 / 9.5 /
-# 7.4 / 12.5 / 8.1 / 7.9 ms against 7.7 / 7.7 / 7.7 / 7.8 / 7.8 / 7.8 ms).
-# PERF.md has the runs. "binned" (ops/binned.py: the binned dense sweep
-# under the bounce pipeline's estimator) is reached by name, as in the JAX
-# package, which measured it slower on its TPU.
-BIG_PATH_ORDER = ("bounce", "walk")
+# order they are tried: "walk" the BVH path megakernel (ops/bvh_path.py,
+# one launch for the image, no state), "bounce" the sorted-wavefront
+# pipeline (ops/bounce.py, three kernels, a sort and a host sync per
+# bounce over a wavefront in device memory). The faster at chip_smoke.py
+# phase 11's shapes goes first: on an NVIDIA H100 80GB HBM3 at 700 W, the
+# 34,818-triangle box at 1920x1080, 16 spp, depth 8, timed in turns in two
+# calls, walk took 64.040 / 62.381 ms against bounce's 67.601 / 66.218 ms
+# (PERF.md: the redesigned kernel 8; before it bounce was ahead by
+# 1-5%). At 256x256, 16 spp, depth 4 walk took 7.758 / 7.855 ms and the
+# pipeline, whose small renders follow the host, 9.969 / 5.913 ms. The
+# pipeline also holds 64 bytes a lane (2.1 GB at that 1080p). "binned"
+# (ops/binned.py: the binned dense sweep under the bounce pipeline's
+# estimator) is reached by name, as in the JAX package, which measured it
+# slower on its TPU.
+BIG_PATH_ORDER = ("walk", "bounce")
 BIG_PATH_CANDIDATES = ("bounce", "walk", "binned")
 
 

@@ -6,8 +6,9 @@ mode beyond the brute sweep's gate. The whole regenerative estimator of
 ops/fused_path.py, with the legacy NEE (the shadow walk carries the
 winner's normal and emitted color, as the JAX kernel builds it), but every
 sweep is a skip-pointer walk over leaf bundles of a [B_pad, 32] table in
-bundled order. The kernel is `csrc/bvh_path.cu`, the lane loop of
-`csrc/fused_common.cuh` instantiated over a tree; `bvh_path_plain` is
+bundled order. The kernel is `csrc/bvh_path.cu`, the persistent lane loop
+of `csrc/render_lane.cuh` over `csrc/fused_common.cuh`'s skip-pointer walk
+of the tree; `bvh_path_plain` is
 `fused_path._regen_steps` with the walk of ops/bvh_traverse.py in place of
 the sweep.
 
@@ -54,7 +55,7 @@ _COLS = 32            # table row width == fused_path's column map
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("bvh_path", "bvh_path_launch",
-                    [_P, _P, _P, _P, _P] + [_I] * 12 + [_P])
+                    [_P] * 6 + [_I] * 12 + [_P])
 
 
 def _b_pad(B: int) -> int:
@@ -397,12 +398,13 @@ def bvh_path(nodes, tab, em, cam, seed: int, W: int, H: int, samples: int,
     _check_tree("bvh_path", nodes, tab, em, cam, copies, W, H, pix_base,
                 n_lanes)
     out = torch.empty((n_lanes, 3), dtype=torch.float32, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # as int32 bits
     KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
-                  em.data_ptr(), out.data_ptr(), nodes.shape[0] // copies,
-                  int(leaf_width), copies, em.shape[0], W, H, samples,
-                  max_depth, light_samples, seed32, pix_base, n_lanes,
-                  stream_ptr(tab.device))
+                  em.data_ptr(), out.data_ptr(), nxt.data_ptr(),
+                  nodes.shape[0] // copies, int(leaf_width), copies,
+                  em.shape[0], W, H, samples, max_depth, light_samples,
+                  seed32, pix_base, n_lanes, stream_ptr(tab.device))
     return out
 
 

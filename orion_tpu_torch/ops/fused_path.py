@@ -4,8 +4,9 @@ Replaces `orion_tpu.ops.pallas_fused` (the Pallas `_make_kernel`): the
 whole path tracer — PCG4D-jittered primary rays, Woop nearest-hit sweeps,
 depth-0 emission, fast-shadow next-event estimation over <= 8 emissive
 meshes of <= 8 triangles, Russian roulette, cosine bounce and regeneration
-onto the next sample — in one launch, one thread per pixel lane. The
-kernel is `csrc/fused_path.cu`; `fused_path_plain` computes the same
+onto the next sample — in one launch, persistent threads that each render
+one pixel's samples and then take the next pixel. The kernel is
+`csrc/fused_path.cu`; `fused_path_plain` computes the same
 estimator batched over all lanes in PyTorch, run as a fixed
 samples * (max_depth + 1) steps (a lane past its last sample idles).
 
@@ -65,8 +66,7 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("fused_path", "fused_path_launch",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _P])
+                    [_P] * 7 + [_I] * 9 + [_P])
 
 
 def _fused_t_pad(T: int) -> int:
@@ -726,12 +726,13 @@ def fused_path(tab, clo, chi, em, cam, seed: int, W: int, H: int,
         raise ValueError(f"fused_path: {em.shape[0]} emitters, need 1.."
                          f"{FUSED_MAX_EMITTERS}")
     out = torch.empty((W * H, 3), dtype=torch.float32, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # as int32 bits
     KERNEL.launch(cam.data_ptr(), tab.data_ptr(), clo.data_ptr(),
                   chi.data_ptr(), em.data_ptr(), out.data_ptr(),
-                  tab.shape[0], clo.shape[0], em.shape[0], W, H, samples,
-                  max_depth,
-                  light_samples, seed32, stream_ptr(tab.device))
+                  nxt.data_ptr(), tab.shape[0], clo.shape[0], em.shape[0],
+                  W, H, samples, max_depth, light_samples, seed32,
+                  stream_ptr(tab.device))
     return out
 
 

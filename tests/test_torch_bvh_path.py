@@ -136,15 +136,15 @@ def test_make_big_path_renderer(lv2, tmp_path):
     _, js, jrtc = lv2
     ts = to_torch(js)
     cam = camera_from_rtc(jrtc, device="cpu")
-    assert engine.BIG_PATH_ORDER == ("bounce", "walk")
-    fn_b, name_b = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
-                                          light_samples=1)
-    assert name_b == "bounce-torch"
-    # the BVH path renderer on request: the same estimator up to the light
-    # normal's rounding
+    assert engine.BIG_PATH_ORDER == ("walk", "bounce")
     fn, name = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
-                                      light_samples=1, order=("walk",))
+                                      light_samples=1)
     assert name == "bvh-path-kernel"
+    # the bounce pipeline on request: the same estimator up to the light
+    # normal's rounding
+    fn_b, name_b = make_big_path_renderer(ts, cam, samples=1, max_depth=1,
+                                          light_samples=1, order=("bounce",))
+    assert name_b == "bounce-torch"
     img = fn(5)
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
     assert img.mean() > 0
@@ -186,9 +186,10 @@ def lv5(tmp_path_factory):
 @pytest.mark.parametrize("route", ["default", "fused", "bvh", "regen"])
 def test_cli_big_scene_routes(lv5, tmp_path, capsys, route):
     """The levels-5 box (34,818 triangles, past the fused gate) through
-    the CLI on the CPU: the first big-path candidate (the bounce pipeline)
-    by default and for --backend fused, the wavefront over the tree for
-    --backend bvh, the regenerative wavefront for --regen."""
+    the CLI on the CPU: the first big-path candidate (the BVH path
+    kernel's plain version) by default and for --backend fused, the
+    wavefront over the tree for --backend bvh, the regenerative wavefront
+    for --regen."""
     out = tmp_path / "o.hdr"
     extra = {"default": [], "fused": ["--backend", "fused"],
              "bvh": ["--backend", "bvh", "--strategy", "median"],
@@ -196,7 +197,7 @@ def test_cli_big_scene_routes(lv5, tmp_path, capsys, route):
     assert cli.main([str(lv5), "-o", str(out), "-p", "1", "-l", "1",
                      "--device", "cpu", "--stats"] + extra) == 0
     cap = capsys.readouterr()
-    name = "bvh-torch" if route in ("bvh", "regen") else "bounce-torch"
+    name = "bvh-torch" if route in ("bvh", "regen") else "bvh-path-kernel"
     assert f'"backend": "{name}"' in cap.err
     assert '"triangles": 34818' in cap.err
     assert '"bvh_nodes": 0' not in cap.err

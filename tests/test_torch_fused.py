@@ -158,3 +158,66 @@ def test_renderer_seed_and_gate(cornell, tmp_path):
     with pytest.raises(ValueError):
         fp.make_fused_path_renderer(to_torch(js_tex), cam, samples=1,
                                     max_depth=1)
+
+
+def _numerator_sweep(w, o, d, cap):
+    """The render kernel's row test (csrc/fused_path.cu `test_row`) in
+    float32 NumPy, op by op: with D = |dw| and the numerators n = t D,
+    u D, v D sign-corrected, a row hits when D w12 > eps, u D >= 0,
+    v D >= 0, u D + v D <= D and n >= 0, and replaces the best (n_b, D_b)
+    iff n D_b < n_b D, rows in order; t = n_b / D_b. (t [N], row [N])."""
+    f = np.float32
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    ou = w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 9]
+    ov = w[:, 3] * ox + w[:, 4] * oy + w[:, 5] * oz + w[:, 10]
+    ow = w[:, 6] * ox + w[:, 7] * oy + w[:, 8] * oz + w[:, 11]
+    du = w[:, 0] * dx + w[:, 1] * dy + w[:, 2] * dz
+    dv = w[:, 3] * dx + w[:, 4] * dy + w[:, 5] * dz
+    dw = w[:, 6] * dx + w[:, 7] * dy + w[:, 8] * dz
+    neg = np.signbit(dw)
+    n = np.where(neg, ow, -ow)
+    un = np.where(neg, -(ou * dw - ow * du), ou * dw - ow * du)
+    vn = np.where(neg, -(ov * dw - ow * dv), ov * dw - ow * dv)
+    D = np.abs(dw)
+    ok = ((D * w[:, 12] > f(1e-6)) & (un >= 0) & (vn >= 0)
+          & (un + vn <= D) & (n >= 0))
+    bn = np.full(o.shape[0], cap, f)
+    bd = np.ones(o.shape[0], f)
+    row = np.full(o.shape[0], -1, np.int64)
+    for k in range(w.shape[0]):
+        with np.errstate(over="ignore"):          # cap * D may be inf
+            take = ok[:, k] & (n[:, k] * bd < bn * D[:, k])
+        bn = np.where(take, n[:, k], bn)
+        bd = np.where(take, D[:, k], bd)
+        row = np.where(take, k, row)
+    return np.where(row >= 0, bn / bd, f(cap)), row
+
+
+@pytest.mark.parametrize("cap", [float(fp.BIG), fp.NEE_T_CAP])
+@pytest.mark.parametrize("name", ["cornell", "levels-2"])
+def test_division_free_row_test_keeps_the_winners(cornell, name, cap):
+    """The render kernel tests a row without dividing: over the scene's
+    table and random rays from inside the box, the rule picks the Woop
+    sweep's winner (min t, ties to the min row: `nearest_rows`) by id or
+    by t (rel 1e-6) on >= 99.9% of rays, by id on >= 99% (the products
+    n D_b and n_b D round where the quotients do not, so two coplanar
+    faces whose t differ in the last place, box bottoms on the floor, can
+    swap: 5 rays in 4,096), and where the ids agree t = n_b / D_b is that
+    row's t bit for bit."""
+    from chip_smoke import random_rays
+    from orion_tpu_torch.ops.woop import nearest_rows
+
+    ts = to_torch(_variant(cornell[0], name))
+    woop = torch.as_tensor(fp.pack_fused_tri_table(ts))[:, :13]
+    o, d, _ = random_rays(4096, 3, "cpu")
+    d = d * 0.4                           # segments that end in the box
+    t_ref, row_ref = nearest_rows(woop, o, d, cap=cap)
+    t, row = _numerator_sweep(woop.numpy(), o.numpy(), d.numpy(), cap)
+    same = row == row_ref.numpy()
+    near = np.abs(t - t_ref.numpy()) <= 1e-6 * np.abs(t_ref.numpy())
+    assert (same | (near & (row >= 0))).mean() >= 0.999
+    assert same.mean() >= 0.99, same.mean()
+    hit = same & (row >= 0)
+    assert hit.mean() > 0.3
+    assert np.array_equal(t[hit], t_ref.numpy()[hit])

@@ -89,6 +89,8 @@ def test_fused_kernel_matches_plain(tmp_path, cuda_device, name):
     k = fp.fused_path(*args, 99, *cfg)
     torch.cuda.synchronize()
     assert fp.KERNEL.launches == before + 1
+    # a pixel's sum does not depend on the thread that renders it
+    assert torch.equal(fp.fused_path(*args, 99, *cfg), k)
     p = fp.fused_path_plain(*args, 99, *cfg)
     k, p = k.cpu().numpy(), p.cpu().numpy()
     assert np.isfinite(k).all() and p.mean() > 0
@@ -231,7 +233,7 @@ def test_bvh_walk_kernel_one_leaf_and_flat_box(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("leaf,octants", [(2, 1), (8, 8)])
+@pytest.mark.parametrize("leaf,octants", [(2, 1), (8, 8), (128, 1)])
 def test_bvh_path_kernel_matches_plain(tmp_path, cuda_device, leaf, octants):
     sc, cam = _scene(tmp_path, cuda_device, "levels-3")
     cam = camera_from_rtc(
@@ -244,6 +246,7 @@ def test_bvh_path_kernel_matches_plain(tmp_path, cuda_device, leaf, octants):
     k = fn(99)
     torch.cuda.synchronize()
     assert bp.KERNEL.launches == before + 1
+    assert torch.equal(fn(99), k)
     dd = fn.data
     p = bp.bvh_path_plain(dd["nodes"], dd["tab"], dd["em"], dd["cam"], 99,
                           64, 64, 4, 4, 2, leaf_width=leaf, copies=octants)
@@ -275,6 +278,34 @@ def test_bvh_wrappers_reject_bad_inputs(tmp_path, cuda_device):
     with pytest.raises(ValueError):
         bp.bvh_path(dd["nodes"], dd["tab"], *args, leaf_width=2,
                     pix_base=32 * 24 - 2, n_lanes=5)
+
+
+@pytest.mark.gpu
+def test_path_kernels_persistent_lanes(tmp_path, cuda_device):
+    """More pixels than the card holds threads: every thread of kernels 1
+    and 8 renders several pixels, each taken from the lane counter. The
+    images match the plain versions, two launches are bit-identical, and
+    kernel 8's tiles render the whole image's pixels."""
+    W, H, S, D = 480, 480, 1, 2
+    sc, rtc = load_scene(write_cornell(tmp_path, xres=W, yres=H),
+                         device=cuda_device)
+    cam = camera_from_rtc(rtc, device=cuda_device)
+    args = fp.fused_args(sc, cam)
+    k = fp.fused_path(*args, 5, W, H, S, D, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(fp.fused_path(*args, 5, W, H, S, D, 2), k)
+    _images_agree(k, fp.fused_path_plain(*args, 5, W, H, S, D, 2))
+    fn = bp.make_bvh_path_renderer(subdivide_scene(sc, levels=3), cam,
+                                   samples=S, max_depth=D, light_samples=2)
+    k8 = fn(5).reshape(-1, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(fn(5).reshape(-1, 3), k8)
+    dd = fn.data
+    _images_agree(k8, bp.bvh_path_plain(dd["nodes"], dd["tab"], dd["em"],
+                                        dd["cam"], 5, W, H, S, D, 2,
+                                        leaf_width=dd["leaf_width"]))
+    for base, n in ((0, 1000), (W * H // 3, 150_000), (W * H - 77, 77)):
+        assert torch.equal(fn(5, pix_base=base, n_lanes=n), k8[base:base + n])
 
 
 @pytest.mark.gpu

@@ -1,16 +1,21 @@
-"""Compare the fused path kernel of two checkouts on one card in one call.
+"""Compare the two path megakernels of two checkouts on one card in one call.
 
     git archive <old commit> | tar -x -C _archive/old
     python3 tools/fused_ab.py _archive/old .
 
-Times the kernel at the render main path's shapes (Cornell box, 1920x1080,
-16 spp, depth 8, 2 light samples, seed 0) by CUDA events: one warm-up
-launch, then 7 timed launches, median. The checkouts run in the order
-old, new, new, old, so a drift of the card's clock shows as a gap between
-the two runs of one version. Each run is a process of its own that
-imports `orion_tpu_torch` and `chip_smoke.write_cornell` from its checkout
-and builds the kernel there. The image mean is printed with each run: two
-versions that compute the same image print the same mean.
+Times kernel 1 (the fused path kernel) at the render main path's shapes
+(Cornell box, 1920x1080, 16 spp, depth 8, 2 light samples, seed 0) and
+kernel 8 (the BVH path kernel) at chip_smoke.py phase 9's (the
+34,818-triangle box at the same shapes, through
+`make_bvh_path_renderer`), then both at phase 11's small image (256x256,
+16 spp, depth 4), by CUDA events: one warm-up launch, then 7 timed
+launches, median. The checkouts run in the order old, new, new,
+old, so a drift of the card's clock shows as a gap between the two runs
+of one version. Each run is a process of its own that imports
+`orion_tpu_torch` and `chip_smoke.write_cornell` from its checkout and
+builds the kernels there. The image mean is printed with each run: two
+versions that compute the same image print the same mean, two that
+differ only in rounding print means a few ulps apart.
 """
 
 from __future__ import annotations
@@ -22,15 +27,37 @@ import tempfile
 from pathlib import Path
 
 RES, SAMPLES, DEPTH, LIGHT_SAMPLES = (1920, 1080), 16, 8, 2
+SMALL_RES, SMALL_DEPTH = (256, 256), 4
 REPS = 7
+
+
+def _timed(label: str, what: str, fn, res=RES, depth=DEPTH) -> None:
+    import torch
+
+    img = fn()                                   # builds, loads, warms up
+    times = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        img = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    W, H = res
+    print(f"{label}: {what} {W}x{H} {SAMPLES}spp depth {depth}: median "
+          f"{statistics.median(times):.3f} ms, runs "
+          f"{', '.join(f'{t:.3f}' for t in times)}, mean "
+          f"{float(img.mean()):.9g}", flush=True)
 
 
 def _time_one(root: str, label: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from chip_smoke import write_cornell
+    from chip_smoke import BIG_LEVELS, write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import fused_path as fp
     from orion_tpu_torch.scene import load_scene
 
@@ -39,28 +66,33 @@ def _time_one(root: str, label: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         scene, rtc = load_scene(write_cornell(tmp, xres=W, yres=H,
                                               depth=DEPTH), device=dev)
+        big, _ = load_scene(write_cornell(Path(tmp) / "big", xres=W,
+                                          yres=H, depth=DEPTH,
+                                          levels=BIG_LEVELS), device=dev)
     cam = camera_from_rtc(rtc, device=dev)
-    lo, hi = fp.fused_chunk_bounds(scene)
-    args = (torch.as_tensor(fp.pack_fused_tri_table(scene), device=dev),
-            torch.as_tensor(lo, device=dev).contiguous(),
-            torch.as_tensor(hi, device=dev).contiguous(),
-            torch.as_tensor(fp.pack_emitters(scene), device=dev),
-            fp.camera_vec(cam).to(dev))
+    args = fp.fused_args(scene, cam)
     cfg = (W, H, SAMPLES, DEPTH, LIGHT_SAMPLES)
-    img = fp.fused_path(*args, 0, *cfg)          # builds, loads, warms up
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        img = fp.fused_path(*args, 0, *cfg)
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    print(f"{label}: fused {W}x{H} {SAMPLES}spp depth {DEPTH}: median "
-          f"{statistics.median(times):.3f} ms, runs "
-          f"{', '.join(f'{t:.3f}' for t in times)}, mean "
-          f"{float(img.mean()):.6g}", flush=True)
+    _timed(label, "fused", lambda: fp.fused_path(*args, 0, *cfg))
+    fn = bp.make_bvh_path_renderer(big, cam, samples=SAMPLES,
+                                   max_depth=DEPTH,
+                                   light_samples=LIGHT_SAMPLES)
+    _timed(label, f"bvh path ({big.num_triangles} triangles)",
+           lambda: fn(0))
+    # the small image, where a thread renders one pixel at most
+    w, h = SMALL_RES
+    with tempfile.TemporaryDirectory() as tmp:
+        _, rtc_s = load_scene(write_cornell(tmp, xres=w, yres=h,
+                                            depth=SMALL_DEPTH), device=dev)
+    cam_s = camera_from_rtc(rtc_s, device=dev)
+    args_s = fp.fused_args(scene, cam_s)
+    cfg_s = (w, h, SAMPLES, SMALL_DEPTH, LIGHT_SAMPLES)
+    _timed(label, "fused", lambda: fp.fused_path(*args_s, 0, *cfg_s),
+           SMALL_RES, SMALL_DEPTH)
+    fn_s = bp.make_bvh_path_renderer(big, cam_s, samples=SAMPLES,
+                                     max_depth=SMALL_DEPTH,
+                                     light_samples=LIGHT_SAMPLES)
+    _timed(label, f"bvh path ({big.num_triangles} triangles)",
+           lambda: fn_s(0), SMALL_RES, SMALL_DEPTH)
 
 
 def main(argv) -> int:
