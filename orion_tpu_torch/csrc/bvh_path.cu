@@ -8,8 +8,8 @@
 // bundled [B_pad, 32] table.
 //
 // Per pixel, in sample order: the persistent lane loop of render_lane.cuh
-// (`render_lanes<true>`) instantiated over a `Tree` geometry, so the PCG4D
-// streams, the NEE, the Russian roulette and the bounce are the fused and
+// (`render_lanes<true, kRender>`) instantiated over a `Tree` geometry, so
+// the PCG4D streams, the NEE, the Russian roulette and the bounce are the fused and
 // training kernels' own code. Every nearest hit (the path vertex; each NEE
 // sample's shadow segment, capped at NEE_T_CAP) is one walk
 // (fused_common.cuh's walk_tree, shared by every tree kernel): slab test
@@ -52,7 +52,8 @@ using TreeParams = PathParamsT<Tree>;
 __global__ void __launch_bounds__(kThreads, kPathBlocks)
 bvh_path_kernel(const TreeParams p, int n_lanes, int* next) {
   ORION_PC(LaneCounters pc; pc.t_start = pc.t_done = clock64();)
-  render_lanes<true>(p, nullptr, n_lanes, next ORION_PC(, pc));
+  render_lanes<true, kRender>(p, nullptr, n_lanes, next, nullptr,
+                              nullptr ORION_PC(, pc));
   ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)
 }
 

@@ -9,17 +9,19 @@
 //
 // The lane loop (`path_lane`) is the estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body, one thread per pixel
-// lane, for the training kernels. Its two modes:
+// lane, for the training kernels over a swept table (prb.cu's 3a/3b). Its
+// two modes:
 //   kForwardLs : legacy NEE, radiance / spp out plus each sample's radiance
 //                L_s (prb.cu, the training forward);
 //   kReplay    : legacy NEE, re-traces the same paths and accumulates the
 //                closed-form material adjoints (prb.cu, the replay).
-// The render kernels (fused_path.cu, bvh_path.cu) run render_lane.cuh's
-// persistent lane loop over the same NEE (`nee`, both forms).
+// The render kernels (fused_path.cu, bvh_path.cu) and the training pair
+// over a tree (prb.cu's 9a/9b) run render_lane.cuh's persistent lane loop
+// over the same NEE (`nee`, both forms) and `bounce_contrib`.
 // The forward and the replay must compute every bounce's contribution
 // bit for bit alike, or the replay's remaining radiance U = L_s - sum of
-// contributions drifts. Both are instantiations of this one source, and
-// the contribution, the running sums and U are computed with
+// contributions drifts. Each pair is two instantiations of one loop
+// (`path_lane` here, `render_lanes` for 9a/9b), and the contribution, the running sums and U are computed with
 // __fmul_rn/__fadd_rn/__fsub_rn, which the compiler never contracts into
 // an FMA, so no context-dependent contraction can make them differ.
 
@@ -47,7 +49,7 @@ constexpr float kNeeTCap = 1.05f;
 constexpr int C_N0 = 13, C_N1 = 16, C_N2 = 19, C_KD = 22, C_KE = 25,
               C_AREA = 28, C_MESH = 29;
 
-enum Mode { kForwardLs = 1, kReplay = 2 };
+enum Mode { kRender = 0, kForwardLs = 1, kReplay = 2 };
 
 // a triangle table and its chunk AABBs
 struct Geo {

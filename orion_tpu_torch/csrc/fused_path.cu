@@ -141,8 +141,9 @@ fused_path_kernel(const PathParamsT<RGeo> p, int* next) {
   extern __shared__ float4 srows[];  // resident tables only: 1 + 4 T_pad
   ORION_PC(LaneCounters pc; pc.t_start = pc.t_done = clock64();)
   stage_rows(p.geo, srows);
-  render_lanes<false>(p, reinterpret_cast<const float*>(srows), p.W * p.H,
-                      next ORION_PC(, pc));
+  render_lanes<false, kRender>(p, reinterpret_cast<const float*>(srows),
+                               p.W * p.H, next, nullptr,
+                               nullptr ORION_PC(, pc));
   ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)
 }
 

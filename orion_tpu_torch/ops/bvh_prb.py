@@ -7,8 +7,10 @@ forward and the replay of ops/prb.py (legacy NEE; per-sample radiance
 recorded by the forward; closed-form adjoints summed in double by the
 replay) with every sweep replaced by the skip-pointer walk of the BVH
 path kernel (ops/bvh_path.py) over a bundled [B_pad, 32] table. The
-kernels (9a, 9b) are `csrc/prb.cu`'s two templates instantiated over a
-`Tree`; the plain versions are `fused_path.fused_fwd_ls_plain` and
+kernels (9a, 9b) are `csrc/prb.cu`'s two instantiations of the BVH path
+kernel's persistent lane loop (`csrc/render_lane.cuh`): each launch is
+handed a zeroed int32 pixel counter, as ops/bvh_path.py hands kernel 8
+one. The plain versions are `fused_path.fused_fwd_ls_plain` and
 `prb.prb_replay_plain` with the walk of ops/bvh_traverse.py. The forward
 and the replay take the same `nodes` and `tab` tensors and walk them with
 the same code, so the replay's remaining radiance cancels to zero.
@@ -48,9 +50,9 @@ _COLS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 FWD_KERNEL = CudaKernel("prb", "bvh_prb_fwd_ls_launch",
-                        [_P] * 6 + [_I] * 10 + [_P])
+                        [_P] * 7 + [_I] * 10 + [_P])
 REPLAY_KERNEL = CudaKernel("prb", "bvh_prb_replay_launch",
-                           [_P] * 7 + [_I] * 11 + [_P])
+                           [_P] * 8 + [_I] * 11 + [_P])
 
 
 def bvh_train_supported(scene: Scene, samples: int = 1) -> bool:
@@ -143,11 +145,13 @@ def bvh_fwd_ls(nodes, tab, em, cam, seed: int, W: int, H: int, samples: int,
     img = torch.empty((n, 3), dtype=torch.float32, device=tab.device)
     planes = torch.empty((3 * samples, n), dtype=torch.float32,
                          device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     FWD_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
                       em.data_ptr(), img.data_ptr(), planes.data_ptr(),
-                      nodes.shape[0] // copies, int(leaf_width), copies,
-                      em.shape[0], W, H, samples, max_depth, light_samples,
-                      _seed32(seed), stream_ptr(tab.device))
+                      nxt.data_ptr(), nodes.shape[0] // copies,
+                      int(leaf_width), copies, em.shape[0], W, H, samples,
+                      max_depth, light_samples, _seed32(seed),
+                      stream_ptr(tab.device))
     return img, planes.t()
 
 
@@ -172,9 +176,11 @@ def bvh_prb_replay(nodes, tab, em, cam, seed: int, w, ls, W: int, H: int,
            (("w", w, (n, 3)), ("ls", planes, (3 * samples, n))))
     em_mesh = _emitter_column("bvh_prb_replay", tab, em)
     out = torch.zeros((6, M_LANES), dtype=torch.float64, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     REPLAY_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
                          em.data_ptr(), w.data_ptr(), planes.data_ptr(),
-                         out.data_ptr(), nodes.shape[0] // copies,
+                         out.data_ptr(), nxt.data_ptr(),
+                         nodes.shape[0] // copies,
                          int(leaf_width), copies, em.shape[0], W, H, samples,
                          max_depth, light_samples, _seed32(seed), em_mesh,
                          stream_ptr(tab.device))

@@ -25,6 +25,8 @@ and the BVH PRB pair (9a/9b) are held to the fused kernel's and the
 replay's tolerances.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -48,9 +50,11 @@ from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops import prb_wavefront as pw
 from orion_tpu_torch.ops import whitted as wh
-from orion_tpu_torch.scene import load_scene, subdivide_scene
+from orion_tpu_torch.scene import (load_scene, scene_from_numpy,
+                                   scene_to_numpy, subdivide_scene)
 
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
+from torch_port_util import regroup_meshes
 
 
 def _scene(tmp_path, device, name):
@@ -510,6 +514,91 @@ def test_bvh_prb_kernels_match_plain(tmp_path, cuda_device, leaf, octants):
     assert float(loss_k) == pytest.approx(float(loss_p), rel=1e-3)
     for k in gp:
         assert (gk[k].cpu() - gp[k]).abs().max() <= 1e-3 * gp[k].abs().max()
+
+
+@pytest.mark.gpu
+def test_bvh_prb_forward_is_deterministic(tmp_path, cuda_device):
+    """More pixels than the card holds threads: every thread of 9a runs
+    several pixels, taken from the lane counter in an order that varies
+    from launch to launch, and two launches of one seed give the same
+    image and per-sample radiance bit for bit."""
+    W, H, S, D = 480, 480, 2, 3
+    sc, rtc = load_scene(write_cornell(tmp_path, xres=W, yres=H, levels=2),
+                         device=cuda_device)
+    nodes, _, update = bvp.make_bvh_tab_updater(sc)
+    args = (nodes, update(),
+            torch.as_tensor(fp.pack_emitters(sc), device=cuda_device),
+            fp.camera_vec(camera_from_rtc(rtc, device=cuda_device)).to(
+                cuda_device), 17)
+    img, ls = bvp.bvh_fwd_ls(*args, W, H, S, D, 2, leaf_width=2)
+    img2, ls2 = bvp.bvh_fwd_ls(*args, W, H, S, D, 2, leaf_width=2)
+    torch.cuda.synchronize()
+    assert img.mean() > 0
+    assert torch.equal(img, img2) and torch.equal(ls, ls2)
+
+
+@pytest.mark.gpu
+def test_bvh_prb_replay_sums_over_split_meshes(tmp_path, cuda_device):
+    """The replay's gradient on a box whose surfaces are one mesh of one
+    material equals its gradient on the same box cut into eight meshes of
+    that material, summed over the eight (d kd; and both rows of the
+    emitter's column), within 1e-4 of the largest entry: the warp's lanes
+    on one material are summed before one shared atomic, however many
+    materials a vertex's lanes hit. (The non-emitters' d ke rows scale
+    with each mesh's area, so they are not summed.)"""
+    W = H = 128
+    cfg = (W, H, 4, 4, 2)
+    sc, rtc = load_scene(write_cornell(tmp_path, xres=W, yres=H, levels=2),
+                         device="cpu")
+    cam_v = fp.camera_vec(camera_from_rtc(rtc, device=cuda_device)).to(
+        cuda_device)
+    runs = []
+    for groups in (1, 8):
+        s = scene_from_numpy(regroup_meshes(scene_to_numpy(sc), groups),
+                             cuda_device)
+        nodes, _, update = bvp.make_bvh_tab_updater(s)
+        args = (nodes, update(),
+                torch.as_tensor(fp.pack_emitters(s), device=cuda_device),
+                cam_v, 21)
+        runs.append((args, *bvp.bvh_fwd_ls(*args, *cfg, leaf_width=2)))
+    (a1, img1, ls1), (a8, img8, ls8) = runs
+    assert torch.equal(img1, img8) and torch.equal(ls1, ls8)
+    w = ((img1 - 0.05) * (2.0 / (W * H * 3 * 4))).contiguous()
+    g1 = bvp.bvh_prb_replay(*a1, w, ls1, *cfg, leaf_width=2)
+    g8 = bvp.bvh_prb_replay(*a8, w, ls8, *cfg, leaf_width=2)
+    torch.cuda.synchronize()
+    scale = float(g1.abs().max())
+    assert scale > 0
+    assert (g1[0:3, 0] - g8[0:3, :8].sum(dim=1)).abs().max() <= 1e-4 * scale
+    assert (g1[:, 1] - g8[:, 8]).abs().max() <= 1e-4 * scale
+
+
+# sha256 (first 16 hex digits) of the float32 bytes of kernel 1's image of
+# the Cornell box and kernel 8's of the levels-3 box at 64x64, 4 spp,
+# depth 4, 2 light samples, seed 11, as the two kernels rendered them
+# before the training pair joined their lane loop (`_path_kernel_digests`
+# on that tree)
+PATH_KERNEL_DIGESTS = {"fused": "116502e401bfecec", "bvh": "3fe94d7434a21f70"}
+
+
+def _path_kernel_digests(tmp_path, device) -> dict:
+    sc, rtc = load_scene(write_cornell(tmp_path, xres=64, yres=64),
+                         device=device)
+    cam = camera_from_rtc(rtc, device=device)
+    fused = fp.fused_path(*fp.fused_args(sc, cam), 11, 64, 64, 4, 4, 2)
+    bvh = bp.make_bvh_path_renderer(subdivide_scene(sc, levels=3), cam,
+                                    samples=4, max_depth=4,
+                                    light_samples=2)(11)
+    return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+            for k, v in (("fused", fused), ("bvh", bvh))}
+
+
+@pytest.mark.gpu
+def test_path_kernels_render_as_before(tmp_path, cuda_device):
+    """Kernels 1 and 8 share their lane loop with 9a/9b; the training
+    modes are compile-time branches that the render kernels drop, so
+    their images are the ones they rendered before, bit for bit."""
+    assert _path_kernel_digests(tmp_path, cuda_device) == PATH_KERNEL_DIGESTS
 
 
 @pytest.mark.gpu

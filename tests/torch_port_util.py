@@ -42,6 +42,43 @@ def jax_bvh_fields(jb) -> dict:
     return out
 
 
+def regroup_meshes(fields: dict, groups: int) -> dict:
+    """The fields of a scene whose emitter is its last mesh (as
+    chip_smoke.write_cornell writes the box), with every other triangle
+    given the first mesh's material and cut, in its order, into `groups`
+    contiguous meshes: the same geometry and the same radiance, with
+    `groups` + 1 meshes and two materials. Areas are each new mesh's."""
+    f = dict(fields)
+    em = int(f["emissive_mesh_ids"][0])
+    M = int(f["num_meshes"])
+    if em != M - 1:
+        raise ValueError(f"emitter mesh {em} is not the last of {M}")
+    start = f["mesh_tri_start"]
+    n_em = int(f["mesh_tri_count"][em])
+    n = int(start[em])                         # triangles before the emitter
+    cuts = np.linspace(0, n, groups + 1).round().astype(np.int32)
+    f["mesh_tri_start"] = np.append(cuts[:-1], start[em]).astype(np.int32)
+    f["mesh_tri_count"] = np.append(np.diff(cuts), n_em).astype(np.int32)
+    mat = f["tri_mat"].copy()
+    for g in range(groups):
+        mat[cuts[g]:cuts[g + 1]] = g
+    mat[n:n + n_em] = groups
+    f["tri_mat"] = mat
+    area = 0.5 * np.linalg.norm(np.cross(f["tri_e1"][:n], f["tri_e2"][:n]),
+                                axis=1)
+    f["mesh_area"] = np.append(
+        [area[cuts[g]:cuts[g + 1]].sum() for g in range(groups)],
+        f["mesh_area"][em]).astype(np.float32)
+    rows = [0] * groups + [em]
+    for k in ("mat_ambient", "mat_diffuse", "mat_specular", "mat_emissive",
+              "mat_shininess", "mat_opacity", "mat_map_diffuse",
+              "mat_map_specular", "mat_map_bump"):
+        f[k] = f[k][rows].copy()
+    f["emissive_mesh_ids"] = np.array([groups], np.int32)
+    f["num_meshes"] = groups + 1
+    return f
+
+
 def write_textured(directory):
     """Floor with a checker map_Kd under an emissive quad (path mode)."""
     from orion_tpu_torch.io.image import save_image
