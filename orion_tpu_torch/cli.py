@@ -8,8 +8,8 @@ Routing (as in the JAX package, cli.py:74-143):
   - path-mode scenes inside the fused gate -> the path megakernel
     (ops/fused_path.py);
   - path-mode scenes past the fused gate -> engine.make_big_path_renderer:
-    the BVH path megakernel (ops/bvh_path.py, "bvh-path-kernel") or the
-    sorted-wavefront bounce pipeline (ops/bounce.py, "bounce-kernel"), in
+    the sorted-wavefront bounce pipeline (ops/bounce.py, "bounce-kernel")
+    or the BVH path megakernel (ops/bvh_path.py, "bvh-path-kernel"), in
     the order of engine.BIG_PATH_ORDER; a scene with a diffuse texture
     takes the bounce pipeline alone, the only route that resolves texels
     at every bounce; outside every gate

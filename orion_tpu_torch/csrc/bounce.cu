@@ -24,27 +24,94 @@
 //
 // State rows: 0-2 origin, 3-5 direction, 6-8 throughput, 9 alive, 10-12
 // accumulated radiance, 13 sort key, 14 pixel, 15 sample (the last three
-// integer-valued, exact in float32). One thread per lane; lanes past n are
-// never touched, so a dead suffix keeps its pixel and radiance.
+// integer-valued, exact in float32). Lanes past n are never touched, so a
+// dead suffix keeps its pixel and radiance.
 //
 // What differs from the TPU kernels: they walk one pointer per block of
 // 512-1024 lanes and receive the winner's 32 attribute columns through a
-// gather between walk and shade; a thread here walks alone (its own
-// octant's tree copy when there are eight) and reads its winner's 128-byte
-// table row itself. The estimator, its PCG4D sites and its tie rules are
-// the same: nearest hit = min t, ties to the smallest bundled row inside a
-// leaf and to the earlier leaf across leaves.
+// gather between walk and shade; here a thread walks one ray at a time
+// (its own octant's tree copy when there are eight) and reads its
+// winner's 128-byte table row itself. The estimator, its PCG4D sites and
+// its tie rules are the same: nearest hit = min t, ties to the smallest
+// bundled row inside a leaf and to the earlier leaf across leaves.
 //
 // What bounds them on the H100: the walks are chains of dependent L2 loads
 // (a slab test is 12 FP32 operations on a 32-byte node row, a Woop test 39
-// on 52 bytes of a table row); the shade kernel besides moves 2 x 64 bytes
-// of state and 32 bytes of hit data a lane.
+// on 52 bytes of a table row; the 34,818-triangle box's tree and table fit
+// in the 50 MB L2); the shade kernel besides moves 2 x 64 bytes of state
+// and 32 bytes of hit data a lane. What the walk and shade kernels do
+// about it (PERF.md): the walk is persistent and refills a warp's
+// lanes as their rays end (a warp ran as long as its longest ray: SIMT
+// 0.55 past depth 0); both are built for more resident warps (12 and 10
+// blocks of 128), which hide more of the walks' latency, and read a Woop
+// row as four float4. The walk reads its node rows from L2 near its rate
+// (~66 GB a 1080p 16 spp render of the 34,818-triangle box), so lane
+// utilisation moves it little. A shadow walk is still each lane's own: a
+// block-wide queue of them and persistent shade lanes were measured and
+// lost.
 
-#include "fused_common.cuh"
+#include "render_lane.cuh"
 
 namespace {
 
 using namespace orion;
+
+// Instrumented build (-DORION_BOUNCE_COUNTERS, made by
+// tools/bounce_probe.py, never by ops/cuda_build.py): the walk and shade
+// kernels add their work and clock64() cycles to `g_bounce_counters`,
+// read and cleared by bounce_counters_read / bounce_counters_reset
+// (extern "C", below). The walk: rays, node steps and Woop tests summed
+// over rays, the warp iterations of the node loop and their active lanes
+// (SIMT efficiency). The shade: a thread's cycles in the frame and light
+// draws, in the shadow walk and in all; the shadow walk's rays, warp
+// entries and their active lanes, loop iterations and their active lanes,
+// node steps and Woop tests.
+#ifdef ORION_BOUNCE_COUNTERS
+enum BounceCounter {
+  kBcWalkRays,        // lanes that walked (alive)
+  kBcWalkSteps,       // node rows visited, summed over rays
+  kBcWalkTests,       // Woop tests, summed over rays
+  kBcWalkIters,       // warp iterations of the walk's node loop
+  kBcWalkIterLanes,   // active lanes summed over those iterations
+  kBcWalkWarps,       // warps that walked
+  kBcShadeLanes,      // lanes shaded
+  kBcShadeCycles,     // a thread's cycles from start to end, summed
+  kBcDrawCycles,      // in the frame and light draws
+  kBcShadowCycles,    // in the shadow walk
+  kBcShadowRays,      // ray pairs walked (need0 || need1)
+  kBcShadowEntries,   // warp entries into the shadow walk
+  kBcShadowEntryLanes,  // active lanes summed over those entries
+  kBcShadowIters,     // warp iterations of the shadow walk's loop
+  kBcShadowIterLanes, // active lanes summed over those iterations
+  kBcShadowSteps,     // node rows visited by the pairs
+  kBcShadowTests,     // Woop tests of both rays
+  kBcShadeWarps,      // warps that shaded
+  kBcCount
+};
+__device__ unsigned long long g_bounce_counters[kBcCount];
+
+__device__ __forceinline__ void bc_add(int k, unsigned long long v) {
+  atomicAdd(g_bounce_counters + k, v);
+}
+
+// the lowest active lane counts one warp event and its active lanes
+__device__ __forceinline__ void bc_vote(int k_events, int k_lanes) {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == __ffs(m) - 1) {
+    bc_add(k_events, 1ull);
+    bc_add(k_lanes, __popc(m));
+  }
+}
+
+// one warp event, counted by the lowest active lane
+__device__ __forceinline__ void bc_warp_once(int k) {
+  if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) bc_add(k, 1ull);
+}
+
+#define ORION_BC(...) __VA_ARGS__
+#else
+#define ORION_BC(...)
+#endif
 
 constexpr int kMortonBits = 6;
 constexpr int kDeadKey = 1 << (3 * kMortonBits + 3);
@@ -154,6 +221,37 @@ __device__ __forceinline__ bool slab_hit(const float4& n0, const float4& n1,
   return (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
 }
 
+// woop<true>'s test with its row read as four float4 (bytes 0-63 of the
+// 128-byte row, the same two sectors as its 13 floats): the same
+// arithmetic in the same order, so the same t, u and v. The walk and
+// shade kernels' (6a, 6c) leaves: 5-8% faster than 13 loads on the H100
+// (PERF.md); the vis kernel keeps woop<true>.
+__device__ __forceinline__ float woop4(const float* w, const Ray& r,
+                                       float* u_out = nullptr,
+                                       float* v_out = nullptr) {
+  const float4* q = reinterpret_cast<const float4*>(w);
+  const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+  const float w0 = a.x, w1 = a.y, w2 = a.z, w3 = a.w, w4 = b.x, w5 = b.y,
+              w6 = b.z, w7 = b.w, w8 = c.x, w9 = c.y, w10 = c.z, w11 = c.w,
+              w12 = __ldg(q + 3).x;
+  const float ou = w0 * r.ox + w1 * r.oy + w2 * r.oz + w9;
+  const float ov = w3 * r.ox + w4 * r.oy + w5 * r.oz + w10;
+  const float ow = w6 * r.ox + w7 * r.oy + w8 * r.oz + w11;
+  const float du = w0 * r.dx + w1 * r.dy + w2 * r.dz;
+  const float dv = w3 * r.dx + w4 * r.dy + w5 * r.dz;
+  const float dw = w6 * r.dx + w7 * r.dy + w8 * r.dz;
+  const float t = -ow / dw;
+  const float u = ou + t * du;
+  const float v = ov + t * dv;
+  const bool ok = (fabsf(dw) * w12 > kMtEps) && (u >= 0.0f) && (u <= 1.0f) &&
+                  (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f);
+  if (u_out) {
+    *u_out = ok ? u : 0.0f;
+    *v_out = ok ? v : 0.0f;
+  }
+  return ok ? t : kBig;
+}
+
 // Does the nearest hit below kNeeTCap lie on `mesh`? The lean single walk
 // (`shadow_em`): the nearest-hit walk, then the winner's mesh column.
 __device__ __forceinline__ bool shadow_em(const Tree& g, const Ray& r,
@@ -170,6 +268,7 @@ __device__ __forceinline__ bool shadow_em(const Tree& g, const Ray& r,
 // the leaf holds no emitter rows: an improving hit there clears the flag
 // without reading the row's mesh. With eight tree copies r0's octant's
 // copy serves both rays.
+template <bool kF4 = false>
 __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
                                            const Ray& r1, bool need0,
                                            bool need1, float mesh, bool& vis0,
@@ -183,7 +282,11 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
     ptr = g.M * ((r0.dx >= 0.0f ? 1 : 0) + (r0.dy >= 0.0f ? 2 : 0) +
                  (r0.dz >= 0.0f ? 4 : 0));
   const int end = ptr + g.M;
+  ORION_BC(bc_vote(kBcShadowEntries, kBcShadowEntryLanes);
+           bc_add(kBcShadowRays, 1ull);
+           unsigned steps = 0, tests = 0;)
   while (ptr < end) {
+    ORION_BC(bc_vote(kBcShadowIters, kBcShadowIterLanes); ++steps;)
     const float4 n0 = __ldg(g.nodes + 2 * ptr);
     const float4 n1 = __ldg(g.nodes + 2 * ptr + 1);
     const bool hit = slab_hit(n0, n1, r0, ix0, iy0, iz0, tb0) ||
@@ -194,15 +297,16 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
       const bool no_em = (start & 1) != 0;
       for (int k = lo; k < lo + g.leaf_width; ++k) {
         const float* w = g.tab + k * kCols;
+        ORION_BC(tests += (need0 ? 1u : 0u) + (need1 ? 1u : 0u);)
         if (need0) {
-          const float t = woop<true>(w, r0);
+          const float t = kF4 ? woop4(w, r0) : woop<true>(w, r0);
           if (t < tb0) {   // strict: the smallest row, the earlier leaf
             tb0 = t;
             em0 = !no_em && __ldg(w + C_MESH) == mesh;
           }
         }
         if (need1) {
-          const float t = woop<true>(w, r1);
+          const float t = kF4 ? woop4(w, r1) : woop<true>(w, r1);
           if (t < tb1) {
             tb1 = t;
             em1 = !no_em && __ldg(w + C_MESH) == mesh;
@@ -212,35 +316,126 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
     }
     ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
   }
+  ORION_BC(bc_add(kBcShadowSteps, steps); bc_add(kBcShadowTests, tests);)
   vis0 = need0 && em0;
   vis1 = need1 && em1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-bounce_walk_kernel(const Tree g, const float* __restrict__ st,
-                   float* __restrict__ hd, int N, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t = kBig, u = 0.0f, v = 0.0f, row = 0.0f, hitf = 0.0f;
-  if (st[9 * N + i] > 0.0f) {
-    const Ray r = lane_ray(st, N, i);
-    float tt;
-    const int rw = nearest<kCols>(g, nullptr, r, kBig, tt);
-    if (rw >= 0) {
-      woop<true>(g.tab + rw * kCols, r, &u, &v);
-      t = tt;
-      row = static_cast<float>(rw);
-      hitf = 1.0f;
-    }
-  }
-  hd[i] = t;
-  hd[n + i] = u;
-  hd[2 * n + i] = v;
-  hd[3 * n + i] = row;
-  hd[4 * n + i] = hitf;
+// Resident blocks an SM that the walk kernel (6a) is built for
+// (__launch_bounds__), and the active lanes below which a warp refills.
+// Both measured on the H100 (PERF.md); the probe's builds
+// (tools/bounce_probe.py --sweep) set them with -D, the port's never does.
+#ifndef ORION_WALK_BLOCKS
+#define ORION_WALK_BLOCKS 12
+#endif
+#ifndef ORION_WALK_REFILL
+#define ORION_WALK_REFILL 16
+#endif
+// The node steps a walking lane takes between two refill votes, each leaf
+// the ray hits tested where it is met (the tight loop of walk_tree).
+#ifndef ORION_WALK_STEPS
+#define ORION_WALK_STEPS 32
+#endif
+constexpr int kWalkBlocks = ORION_WALK_BLOCKS;
+constexpr int kWalkRefill = ORION_WALK_REFILL;
+constexpr int kWalkSteps = ORION_WALK_STEPS;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// one lane's hitdata column: t, u, v, winner row, hit flag, three zeros
+__device__ __forceinline__ void write_hit(float* hd, int n, int i, float t,
+                                          float u, float v, int row) {
+  const bool hit = row >= 0;
+  hd[i] = hit ? t : kBig;
+  hd[n + i] = hit ? u : 0.0f;
+  hd[2 * n + i] = hit ? v : 0.0f;
+  hd[3 * n + i] = hit ? static_cast<float>(row) : 0.0f;
+  hd[4 * n + i] = hit ? 1.0f : 0.0f;
   hd[5 * n + i] = 0.0f;
   hd[6 * n + i] = 0.0f;
   hd[7 * n + i] = 0.0f;
+}
+
+// Kernel 6a: a persistent walk that refills its lanes (after Aila &
+// Laine, HPG 2009) over the live prefix. The grid is as many blocks as
+// stay resident; a thread walks one ray at a time and, when it is done,
+// writes the ray's hitdata and goes idle. A warp refills when fewer than
+// kWalkRefill of its lanes still walk: every idle lane takes the next lane
+// of the prefix from the counter *next (zero at launch; take_lane: one
+// atomic a warp, consecutive lanes, so the sort's coherence reaches each
+// warp), and a lane that is not alive writes a miss at once. Between two
+// votes a walking lane visits up to kWalkSteps nodes and tests the rows
+// of each leaf it hits where it meets it (a vote every node cost more
+// than the lanes it filled, and a while-while inner loop, nodes until a
+// leaf, left lanes waiting at leaves of two rows: PERF.md). A ray's
+// operations are walk_tree's and sweep_rows', in the same order (slab
+// test against t_best, rows in leaf order, strict <), and the winner's u
+// and v are those of its winning test: the hitdata are the one-thread-a-
+// ray walk's, bit for bit. Every decision about the loop is a warp vote,
+// so the warp's lanes stay together until its last ray is written.
+__global__ void __launch_bounds__(kThreads, kWalkBlocks)
+bounce_walk_kernel(const Tree g, const float* __restrict__ st,
+                   float* __restrict__ hd, int N, int n, int* next) {
+  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float ix = 0.f, iy = 0.f, iz = 0.f, tb = kBig, ub = 0.f, vb = 0.f;
+  int ptr = 0, end = 0, row = -1, lane = 0;
+  bool walking = false, fetch = true;   // fetch: the counter may hold lanes
+  ORION_BC(unsigned steps = 0, tests = 0;)
+  do {
+    if (fetch && __popc(__ballot_sync(kFull, walking)) < kWalkRefill) {
+      if (!walking) {
+        lane = take_lane(next);
+        if (lane < n) {
+          if (st[9 * N + lane] > 0.0f) {
+            r = lane_ray(st, N, lane);
+            ix = 1.0f / r.dx; iy = 1.0f / r.dy; iz = 1.0f / r.dz;
+            ptr = g.first(r);
+            end = ptr + g.M;
+            tb = kBig;
+            row = -1;
+            walking = true;
+            ORION_BC(steps = tests = 0;)
+          } else {
+            write_hit(hd, n, lane, kBig, 0.f, 0.f, -1);
+          }
+        }
+      }
+      // consecutive lanes: once one lane ran past n, so will every take
+      fetch = __ballot_sync(kFull, !walking && lane >= n) == 0;
+    }
+    if (walking) {
+#pragma unroll 1
+      for (int s = 0; ptr < end && s < kWalkSteps; ++s) {
+        ORION_BC(bc_vote(kBcWalkIters, kBcWalkIterLanes); ++steps;)
+        const float4 n0 = __ldg(g.nodes + 2 * ptr);
+        const float4 n1 = __ldg(g.nodes + 2 * ptr + 1);
+        const bool hit = slab_hit(n0, n1, r, ix, iy, iz, tb);
+        const int start = __float_as_int(n1.w);
+        ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
+        if (hit && start >= 0) {
+          ORION_BC(tests += g.leaf_width;)
+          const int lo = start & ~1;
+          for (int k = lo; k < lo + g.leaf_width; ++k) {
+            float u, v;
+            const float* w = g.tab + k * kCols;
+            const float t = woop4(w, r, &u, &v);
+            if (t < tb) {   // strict: the smallest row, the earlier leaf
+              tb = t;
+              row = k;
+              ub = u;
+              vb = v;
+            }
+          }
+        }
+      }
+      if (ptr >= end) {
+        write_hit(hd, n, lane, tb, ub, vb, row);
+        walking = false;
+        ORION_BC(bc_add(kBcWalkRays, 1ull); bc_add(kBcWalkSteps, steps);
+                 bc_add(kBcWalkTests, tests);)
+      }
+    }
+  } while (fetch || __any_sync(kFull, walking));
+  ORION_BC(bc_warp_once(kBcWalkWarps);)
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -341,8 +536,20 @@ __device__ __forceinline__ float sort_key(const BounceParams& p, const Ray& r,
   return static_cast<float>((octant << (3 * kMortonBits)) | morton);
 }
 
+// The shade kernel (6c): the resident blocks an SM it is built for
+// (__launch_bounds__), measured on the H100 (PERF.md); the probe's
+// builds (tools/bounce_probe.py --sweep) set it with -D, the port's never
+// does.
+#ifndef ORION_SHADE_BLOCKS
+#define ORION_SHADE_BLOCKS 10
+#endif
+constexpr int kShadeBlocks = ORION_SHADE_BLOCKS;
+
+// Kernel 6c: a thread shades one lane: its frame, then fast-shadow NEE
+// (one walk for both light samples of an emitter, or the visibility planes
+// when given, kVis), the roulette, the bounce and the writes.
 template <bool kAux, bool kVis>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kShadeBlocks)
 bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
                     const float* __restrict__ hd,
                     const float* __restrict__ kdp,
@@ -350,8 +557,12 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const int N = p.N, n = p.n;
+  ORION_BC(const long long c_start = clock64(); long long c_draw = 0,
+           c_shadow = 0; bc_add(kBcShadeLanes, 1ull);
+           bc_warp_once(kBcShadeWarps);)
   Ray r = lane_ray(st, N, i);
   const Frame f = hit_frame(p, hd, i, r);
+  ORION_BC(c_draw += clock64() - c_start;)
   float T[3] = {st[6 * N + i], st[7 * N + i], st[8 * N + i]};
   float kd[3] = {0.f, 0.f, 0.f}, A[3] = {0.f, 0.f, 0.f};
   float rad[3] = {0.f, 0.f, 0.f};
@@ -391,10 +602,12 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
       const float ske[3] = {__ldg(E + 2), __ldg(E + 3), __ldg(E + 4)};
       if (p.light_samples == 2) {
         // both samples behind one walk
+        ORION_BC(const long long c1 = clock64();)
         const LightDraw d0 = light_draw(E, 2 * mi, upix, site_sd, p.seed,
                                         inv_ls, f);
         const LightDraw d1 = light_draw(E, 2 * mi + 1, upix, site_sd, p.seed,
                                         inv_ls, f);
+        ORION_BC(c_draw += clock64() - c1;)
         bool v0 = false, v1 = false;
         if (kVis) {   // one plane per site: ls + light_samples * mi
           v0 = visp[(2 * mi) * n + i] > 0.0f;
@@ -403,7 +616,9 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
           Ray s1 = s0;
           s0.dx = d0.sdx; s0.dy = d0.sdy; s0.dz = d0.sdz;
           s1.dx = d1.sdx; s1.dy = d1.sdy; s1.dz = d1.sdz;
-          shadow_em2(p.geo, s0, s1, d0.need, d1.need, em_mesh, v0, v1);
+          ORION_BC(const long long c2 = clock64();)
+          shadow_em2<true>(p.geo, s0, s1, d0.need, d1.need, em_mesh, v0, v1);
+          ORION_BC(c_shadow += clock64() - c2;)
         }
         const float sc0 = v0 ? d0.scale : 0.0f, sc1 = v1 ? d1.scale : 0.0f;
 #pragma unroll
@@ -442,7 +657,6 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
     if (cont) {
       const float sin_th = sqrtf(u1);
       const float cos_th = sqrtf(fmaxf(1.0f - u1, 0.0f));
-      const float psi = u2 * 6.28318548202514648f;  // float32(2 pi)
       float t1x = f.snz, t1y = 0.0f, t1z = -f.snx;
       if (t1x * t1x + t1z * t1z == 0.0f) {
         t1x = -f.sny;
@@ -452,8 +666,12 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
       const float btx = f.sny * t1z - f.snz * t1y;
       const float bty = f.snz * t1x - f.snx * t1z;
       const float btz = f.snx * t1y - f.sny * t1x;
-      const float ca = sin_th * cosf(psi);
-      const float cb = sin_th * sinf(psi);
+      // sin and cos of psi = 2 pi u2, argument reduced exactly (no slow
+      // path to call, so no stack frame for it)
+      float sin_psi, cos_psi;
+      sincospif(2.0f * u2, &sin_psi, &cos_psi);
+      const float ca = sin_th * cos_psi;
+      const float cb = sin_th * sin_psi;
       r.dx = ca * t1x + cb * btx + cos_th * f.snx;
       r.dy = ca * t1y + cb * bty + cos_th * f.sny;
       r.dz = ca * t1z + cb * btz + cos_th * f.snz;
@@ -488,6 +706,8 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
     aux[14 * n + i] = inv_p;
     aux[15 * n + i] = 0.0f;
   }
+  ORION_BC(bc_add(kBcShadeCycles, clock64() - c_start);
+           bc_add(kBcDrawCycles, c_draw); bc_add(kBcShadowCycles, c_shadow);)
 }
 
 BounceParams make_params(const float* nodes, const float* tab,
@@ -517,15 +737,17 @@ inline int grid_of(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
+// `next`: one int32, zero, the persistent lanes' counter
 extern "C" int bounce_walk_launch(const float* nodes, const float* tab,
-                                  const float* st, float* hd, int M,
-                                  int leaf_width, int copies, int N, int n,
-                                  void* stream) {
+                                  const float* st, float* hd, int* next,
+                                  int M, int leaf_width, int copies, int N,
+                                  int n, void* stream) {
   if (n > 0) {
     const Tree g{reinterpret_cast<const float4*>(nodes), tab, M, leaf_width,
                  copies};
-    bounce_walk_kernel<<<grid_of(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(g, st, hd, N, n);
+    bounce_walk_kernel<<<persistent_blocks(bounce_walk_kernel, 0, n),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        g, st, hd, N, n, next);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -589,3 +811,31 @@ extern "C" int bounce_shade_launch(const float* nodes, const float* tab,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// out = render_lane.cuh's kernel_info of the walk kernel (which 0), the
+// shade kernel <kAux, kVis> (which 1 + 2 kAux + kVis), the vis kernel (5)
+// or the draw kernel (6)
+extern "C" int bounce_info(int which, int* out) {
+  switch (which) {
+    case 0: return kernel_info(bounce_walk_kernel, 0, out);
+    case 1: return kernel_info(bounce_shade_kernel<false, false>, 0, out);
+    case 2: return kernel_info(bounce_shade_kernel<false, true>, 0, out);
+    case 3: return kernel_info(bounce_shade_kernel<true, false>, 0, out);
+    case 4: return kernel_info(bounce_shade_kernel<true, true>, 0, out);
+    case 5: return kernel_info(bounce_vis_kernel, 0, out);
+    case 6: return kernel_info(bounce_draw_kernel, 0, out);
+    default: return -1;
+  }
+}
+
+#ifdef ORION_BOUNCE_COUNTERS
+extern "C" int bounce_counters_read(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_bounce_counters,
+                                               sizeof(g_bounce_counters)));
+}
+extern "C" int bounce_counters_reset() {
+  const unsigned long long zero[kBcCount] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_bounce_counters, zero, sizeof(zero)));
+}
+#endif

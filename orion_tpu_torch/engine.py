@@ -112,21 +112,25 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
 
 
 # Megakernel candidates for path scenes past the fused brute gate, in the
-# order they are tried: "walk" the BVH path megakernel (ops/bvh_path.py,
-# one launch for the image, no state), "bounce" the sorted-wavefront
-# pipeline (ops/bounce.py, three kernels, a sort and a host sync per
-# bounce over a wavefront in device memory). The faster at chip_smoke.py
-# phase 11's shapes goes first: on an NVIDIA H100 80GB HBM3 at 700 W, the
-# 34,818-triangle box at 1920x1080, 16 spp, depth 8, timed in turns in two
-# calls, walk took 64.040 / 62.381 ms against bounce's 67.601 / 66.218 ms
-# (PERF.md: the redesigned kernel 8; before it bounce was ahead by
-# 1-5%). At 256x256, 16 spp, depth 4 walk took 7.758 / 7.855 ms and the
-# pipeline, whose small renders follow the host, 9.969 / 5.913 ms. The
-# pipeline also holds 64 bytes a lane (2.1 GB at that 1080p). "binned"
-# (ops/binned.py: the binned dense sweep under the bounce pipeline's
-# estimator) is reached by name, as in the JAX package, which measured it
-# slower on its TPU.
-BIG_PATH_ORDER = ("walk", "bounce")
+# order they are tried: "bounce" the sorted-wavefront pipeline
+# (ops/bounce.py, three kernels, a sort and a host sync per bounce over a
+# wavefront in device memory), "walk" the BVH path megakernel
+# (ops/bvh_path.py, one launch for the image, no state). The faster at
+# chip_smoke.py phase 11's shapes goes first, measured on an NVIDIA H100
+# 80GB HBM3 at 700 W on the 34,818-triangle box at 1920x1080, 16 spp,
+# depth 8, each in turns with the other inside one process
+# (tools/bounce_ab.py, PERF.md):
+#   - with the redesigned walk and shade kernels (6a, 6c) the pipeline
+#     took 62.103 / 61.973 ms against the walk's 62.799 / 62.682 in one
+#     call, and 59.898 / 59.822 against 62.386 / 62.486 in the next;
+#   - before them it took 65.4-68.4 ms against the walk's 62.3-63.0 ms,
+#     and from the walk's redesign (kernel 8, 64.0 ms) the walk went first.
+# At 256x256, 16 spp, depth 4 the pipeline's small renders follow the host
+# (chip_smoke.py phase 11 prints both). The pipeline holds 64 bytes a lane
+# (2.1 GB at that 1080p). "binned" (ops/binned.py: the binned dense sweep
+# under the bounce pipeline's estimator) is reached by name, as in the JAX
+# package, which measured it slower on its TPU.
+BIG_PATH_ORDER = ("bounce", "walk")
 BIG_PATH_CANDIDATES = ("bounce", "walk", "binned")
 
 

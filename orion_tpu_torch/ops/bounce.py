@@ -83,7 +83,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 WALK_KERNEL = CudaKernel("bounce", "bounce_walk_launch",
-                         [_P, _P, _P, _P] + [_I] * 5 + [_P])
+                         [_P] * 5 + [_I] * 5 + [_P])
 VIS_KERNEL = CudaKernel("bounce", "bounce_vis_launch",
                         [_P] * 6 + [_I] * 11 + [_P])
 SHADE_KERNEL = CudaKernel("bounce", "bounce_shade_launch",
@@ -393,9 +393,12 @@ def bounce_walk(data: BounceData, st, n: int) -> torch.Tensor:
     if _device_kind("bounce_walk", st.device) == "cpu":
         return bounce_walk_plain(data, st, n)
     hd = torch.empty((HIT_ROWS, n), dtype=torch.float32, device=st.device)
+    # the persistent walk's lane counter, zero at launch
+    nxt = torch.zeros((1,), dtype=torch.int32, device=st.device)
     WALK_KERNEL.launch(data.nodes.data_ptr(), data.tab.data_ptr(),
-                       st.data_ptr(), hd.data_ptr(), *_tree_args(data),
-                       st.shape[1], n, stream_ptr(st.device))
+                       st.data_ptr(), hd.data_ptr(), nxt.data_ptr(),
+                       *_tree_args(data), st.shape[1], n,
+                       stream_ptr(st.device))
     return hd
 
 

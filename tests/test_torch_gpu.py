@@ -19,7 +19,9 @@ kernel is held to the fused kernel's pixel tolerance. The three bounce
 kernels (walk, vis, shade) are held by chip_smoke.py's `walk_agree`,
 `vis_agree` and `shade_agree` on every bounce of one render: winners and
 visibility planes equal on >= 99.9% of lanes (a tie may break the other
-way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|. The BVH
+way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|; the
+persistent walk kernel gives the same hitdata from launch to launch. The
+BVH
 Whitted kernel (7a), the deferred kernel's records (7b, per record row)
 and the BVH PRB pair (9a/9b) are held to the fused kernel's and the
 replay's tolerances.
@@ -33,8 +35,8 @@ import torch
 
 from chip_smoke import (agreeing_lanes, binned_round_agree,
                         bounce_kernels_agree, brute_agree, draws_agree,
-                        mask_agree, random_rays, two_emitter, write_cornell,
-                        write_cornell_whitted)
+                        mask_agree, random_rays, shade_agree, two_emitter,
+                        walk_agree, write_cornell, write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import binned as bn
@@ -344,10 +346,97 @@ def test_bounce_kernels_match_plain(tmp_path, cuda_device, name, leaf,
     _images_agree(img.reshape(-1, 3), plain(99).reshape(-1, 3))
 
 
+def _ray_state(n: int, seed: int, device):
+    """A [16, n + 5] wavefront state of random_rays (~10% dead)."""
+    o, d, alive = random_rays(n + 5, seed, device)
+    st = torch.zeros((16, n + 5), dtype=torch.float32, device=device)
+    st[0:3], st[3:6], st[9] = o.t(), d.t(), alive.float()
+    return st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 127, 129, 4097])
+def test_bounce_walk_writes_every_lane(tmp_path, cuda_device, n):
+    """The persistent walk takes every lane of the live prefix from its
+    counter and writes its hitdata: no column is left unwritten (a NaN
+    filled buffer), dead lanes read as misses, rows 5-7 are zero; the
+    winners are the plain walk's; two launches give the same bits."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    data = bo.make_bounce_path_renderer(sc, cam, samples=1,
+                                        max_depth=1).ctx["data"]
+    st = _ray_state(n, 7 + n, cuda_device)
+    hd = torch.full((8, n), float("nan"), device=cuda_device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    bo.WALK_KERNEL.launch(data.nodes.data_ptr(), data.tab.data_ptr(),
+                          st.data_ptr(), hd.data_ptr(), nxt.data_ptr(),
+                          *bo._tree_args(data), st.shape[1], n,
+                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(hd).any())
+    assert int(nxt) >= n                    # the counter ran past the prefix
+    dead = st[9, :n] == 0
+    assert bool((hd[0][dead] == bo.BIG).all())
+    assert not bool(hd[1:5][:, dead].any()) and not bool(hd[5:].any())
+    walk_agree(f"refill n {n}", hd, bo.bounce_walk_plain(data, st, n))
+    assert torch.equal(bo.bounce_walk(data, st, n), hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_bounce_shade_instantiations_match_plain(tmp_path, cuda_device,
+                                                 with_aux, planes, textured):
+    """Each of the shade kernel's four instantiations (the aux dump; the
+    visibility planes given or its own shadow walks), with and without
+    texel kd planes, on the recorded state of every bounce."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    fn = bo.make_bounce_path_renderer(sc, cam, samples=4, max_depth=4,
+                                      light_samples=2)
+    data = fn.ctx["data"]
+    rec = []
+    fn(5, record=lambda depth, n, st, hd, kd, vis: rec.append(
+        (depth, n, st[:, :n].clone(), hd)))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(3)
+    assert len(rec) >= 3
+    for depth, n, st, hd in rec:
+        kd = (torch.as_tensor(rng.uniform(0.05, 0.95, (3, n)),
+                              dtype=torch.float32, device=cuda_device)
+              if textured else None)
+        vis = bo.bounce_vis(data, st, hd, 5, depth) if planes else None
+        st_k = st.clone()
+        aux_k = bo.bounce_shade(data, st_k, hd, 5, depth, 4, 2, kd=kd,
+                                vis=vis, with_aux=with_aux)
+        st_p, aux_p = bo.bounce_shade_plain(data, st, hd, 5, depth, 4, 2,
+                                            kd=kd, vis=vis,
+                                            with_aux=with_aux)
+        tag = f"aux {with_aux} planes {planes} kd {textured} depth {depth}"
+        shade_agree(tag, st_k, st_p)
+        if with_aux:
+            shade_agree(f"{tag} aux", aux_k, aux_p, rows=15)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("light_samples", [1, 3])
+def test_bounce_shade_single_samples_match_plain(tmp_path, cuda_device,
+                                         light_samples):
+    """Two emitters and one or three light samples: the shade kernel's
+    single-ray shadow walks (shadow_em), one per (emitter, light sample)
+    site, beside the paired walks of two samples."""
+    sc, cam = _scene(tmp_path, cuda_device, "two-emitter")
+    fn = bo.make_bounce_path_renderer(sc, cam, samples=2, max_depth=3,
+                                      light_samples=light_samples)
+    res = bounce_kernels_agree(f"two-emitter ls {light_samples}", fn, 13,
+                               with_aux=True)
+    assert len(res) >= 2
+
+
 @pytest.mark.gpu
 def test_bounce_renders_agree_on_card(tmp_path, cuda_device):
     """split_vis, the unsorted wavefront and tiles give the fused sorted
-    render; the BVH path kernel's image differs by rounding and ties."""
+    render; the BVH path kernel's and the binned renderer's images differ
+    by rounding and ties."""
     sc, cam = _scene(tmp_path, cuda_device, "levels-3")
     cfg = dict(samples=4, max_depth=4, light_samples=2)
     base = bo.make_bounce_path_renderer(sc, cam, **cfg)
@@ -366,6 +455,8 @@ def test_bounce_renders_agree_on_card(tmp_path, cuda_device):
                        img.reshape(-1, 3)[301:501])
     k8 = bp.make_bvh_path_renderer(sc, cam, **cfg)(5)
     _images_agree(img.reshape(-1, 3), k8.reshape(-1, 3))
+    binned = bn.make_binned_path_renderer(sc, cam, **cfg)(5)
+    _images_agree(binned.reshape(-1, 3), img.reshape(-1, 3))
 
 
 @pytest.mark.gpu

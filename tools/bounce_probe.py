@@ -1,64 +1,406 @@
-"""The bounce pipeline alone on the card: its checks and its full-width phase.
+"""The bounce pipeline's walk and shade kernels (6a, 6c) measured on the card.
 
-    python3 tools/bounce_probe.py [--checks]
+    python3 tools/bounce_probe.py [--sweep] [--no-train]
+    python3 tools/bounce_probe.py --phase11 [--checks]
 
-Builds `csrc/bounce.cu` and `csrc/bvh_path.cu` (printing ptxas's register
-and spill lines), writes the levels-5 subdivided Cornell box
-(`chip_smoke.write_cornell(levels=5)`, 34,818 triangles) and runs
-chip_smoke.py's phase 11 on it: the 1920x1080, 16 spp, depth 8 render
-through the bounce pipeline with per-bounce kernel and sort times, the same
-render on the BVH path kernel (both candidates of engine.BIG_PATH_ORDER
-timed in turns), each bounce kernel against its plain version on the
-recorded state of three bounces, the textured render through the CLI, and
-the closed-form train step and fit at 1920x1080, 4 spp. --checks first
-runs phase 3's 64x64 checks of the three kernels on Cornell and levels-2.
-The first line is the card's name and power limit.
+At chip_smoke.py phase 11's shapes (the levels-5 subdivided Cornell box,
+`write_cornell(levels=5)`, 34,818 triangles; 1920x1080, 16 spp, depth 8,
+2 light samples; seed 0) the probe prints:
+
+- the resources of every kernel of `csrc/bounce.cu` as the port builds it
+  (ops/cuda_build.NVCC_FLAGS): ptxas's registers, spill and stack lines,
+  and what the built kernel reports (`bounce_info`: cudaFuncGetAttributes
+  and the resident blocks of 128 threads an SM);
+- per bounce, the live lanes and the CUDA-event times of 6a and 6c
+  (the median over REPS renders after a warm-up) and their sums;
+- the counters of a second build made with -DORION_BOUNCE_COUNTERS
+  (never made by the port's build), read after every launch of one
+  render: for 6a the rays, node steps and Woop tests a ray and the node
+  loop's SIMT efficiency (active lanes per warp iteration / 32); for 6c
+  the split of a thread's clock64() cycles among the frame and light
+  draws, the shadow walk and the rest, the share of lanes whose two light
+  draws need a
+  shadow walk, the active lanes of a warp where it enters the walk, and
+  the shadow walk's SIMT efficiency, node steps and Woop tests a pair,
+  and the render's bounds of 6a, 6b and 6c summed over its bounces;
+- the closed-form bounce train step (`make_bounce_train_step`) at phase 11
+  (c)'s shapes (1920x1080, 4 spp, depth 8, red wall x 0.6, seed 3): its
+  CUDA-event time split into the forward with dumps, the adjoints and the
+  rest (--no-train skips it);
+- with --sweep, 6a's and 6c's summed times a render of builds that set
+  one of SWEEP's macros of `csrc/bounce.cu` to each of its values (the
+  resident blocks an SM each kernel is built for, the active lanes below
+  which a warp refills, the node steps between two refill votes), the
+  others at the source's values.
+
+--phase11 runs chip_smoke.py's phase 11 alone instead (--checks first runs
+phase 3's 64x64 checks of the three kernels). The card's name and power
+limit and its SM clock come first. The instrumented kernels are slower
+than the port's (clock64() and atomics): their counters give shares and
+ratios, their times are not the kernels'.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
+import statistics
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+SEED = 0
+TRAIN_SEED = 3
+REPS = 5
+SWEEP = {"ORION_WALK_BLOCKS": (10, 12),
+         "ORION_WALK_REFILL": (8, 16, 24),
+         "ORION_WALK_STEPS": (16, 32, 64),
+         "ORION_SHADE_BLOCKS": (8, 10, 12)}
+# bounce_info's kernels: (which, name, a string of the mangled name)
+KERNELS = ((0, "6a walk", "bounce_walk_kernel", ()),
+           (1, "6c shade <aux 0, vis 0>", "bounce_shade_kernel", ("Lb0ELb0E",)),
+           (2, "6c shade <aux 0, vis 1>", "bounce_shade_kernel", ("Lb0ELb1E",)),
+           (3, "6c shade <aux 1, vis 0>", "bounce_shade_kernel", ("Lb1ELb0E",)),
+           (4, "6c shade <aux 1, vis 1>", "bounce_shade_kernel", ("Lb1ELb1E",)),
+           (5, "6b vis", "bounce_vis_kernel", ()),
+           (6, "6b draw", "bounce_draw_kernel", ()))
+# g_bounce_counters, in csrc/bounce.cu's order
+COUNTERS = ("walk_rays", "walk_steps", "walk_tests", "walk_iters",
+            "walk_iter_lanes", "walk_warps", "shade_lanes", "shade_cycles",
+            "draw_cycles",
+            "shadow_cycles", "shadow_rays", "shadow_entries",
+            "shadow_entry_lanes", "shadow_iters", "shadow_iter_lanes",
+            "shadow_steps", "shadow_tests", "shade_warps")
+FWD_STAGES = ("primaries", "walk", "texels", "vis", "shade", "sort")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--checks", action="store_true",
-                    help="run the 64x64 kernel checks first")
-    args = ap.parse_args(argv)
+# ---------------------------------------------------------------------------
+# the host arithmetic (tests/test_torch_bounce_probe.py)
+# ---------------------------------------------------------------------------
+
+def _ratio(a, b) -> float:
+    return a / b if b else 0.0
+
+
+def walk_report(c: dict) -> dict:
+    """6a's counters as a ray's mean node steps and Woop tests and the
+    node loop's SIMT efficiency: active lanes summed over the warp's loop
+    iterations / (32 x iterations)."""
+    return dict(rays=c["walk_rays"],
+                steps=_ratio(c["walk_steps"], c["walk_rays"]),
+                tests=_ratio(c["walk_tests"], c["walk_rays"]),
+                simt=_ratio(c["walk_iter_lanes"], 32 * c["walk_iters"]))
+
+
+def shade_report(c: dict) -> dict:
+    """6c's counters as shares of a thread's cycles (frame and light draws,
+    shadow walk, the rest), the share of lanes with a shadow walk, the
+    active lanes of a warp's entry into the walk / 32, the walk loop's SIMT
+    efficiency, and a pair's node steps and Woop tests."""
+    cyc = c["shade_cycles"]
+    draw = _ratio(c["draw_cycles"], cyc)
+    shadow = _ratio(c["shadow_cycles"], cyc)
+    return dict(lanes=c["shade_lanes"], draw=draw, shadow=shadow,
+                rest=1.0 - draw - shadow if cyc else 0.0,
+                walked=_ratio(c["shadow_rays"], c["shade_lanes"]),
+                entry=_ratio(c["shadow_entry_lanes"],
+                             32 * c["shadow_entries"]),
+                simt=_ratio(c["shadow_iter_lanes"], 32 * c["shadow_iters"]),
+                steps=_ratio(c["shadow_steps"], c["shadow_rays"]),
+                tests=_ratio(c["shadow_tests"], c["shadow_rays"]))
+
+
+def add_counters(rows) -> dict:
+    """The sum of per-launch counter dicts."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for c in rows:
+        for k in COUNTERS:
+            out[k] += c[k]
+    return out
+
+
+def stage_medians(runs) -> dict:
+    """{(stage, depth): (lanes, median ms)} over runs of a pipeline's
+    timing records, each a list of (stage, depth, lanes, ms)."""
+    acc = {}
+    for run in runs:
+        for stage, depth, n, ms in run:
+            acc.setdefault((stage, depth), (n, []))[1].append(ms)
+    return {k: (n, statistics.median(v)) for k, (n, v) in acc.items()}
+
+
+def per_bounce_lines(stages: dict) -> list:
+    """A table of lanes, 6a and 6c ms per depth, then their sums."""
+    depths = sorted(d for (s, d) in stages if s == "walk")
+    lines = ["depth | lanes | 6a walk ms | 6c shade ms"]
+    tw = ts = 0.0
+    for d in depths:
+        n, w = stages[("walk", d)]
+        s = stages[("shade", d)][1]
+        tw, ts = tw + w, ts + s
+        lines.append(f"{d} | {n} | {w:.3f} | {s:.3f}")
+    lanes = sum(stages[("walk", d)][0] for d in depths)
+    lines.append(f"sum | {lanes} | {tw:.3f} | {ts:.3f}")
+    return lines
+
+
+def step_split(stages: dict, step_ms: float) -> dict:
+    """A train step's time as the forward with dumps (the pipeline's
+    stages), the adjoints and the rest (cotangent, table, realignment)."""
+    fwd = sum(ms for (s, _), (_, ms) in stages.items() if s in FWD_STAGES)
+    adj = sum(ms for (s, _), (_, ms) in stages.items() if s == "adjoints")
+    return dict(step=step_ms, forward=fwd, adjoints=adj,
+                rest=step_ms - fwd - adj)
+
+
+def render_bounds(walks, shades, lanes, tree_bytes: int) -> dict:
+    """The least time a render's launches of 6a, 6b and 6c could take, in
+    ms, summed over the bounces: per launch the larger of its bytes over
+    the card's memory rate and its operations over its FP32 rate
+    (chip_smoke.bound_ms). Bytes as chip_smoke.py phase 11 counts them for
+    depth 0 (state and hitdata rows a lane, the tree and the table once);
+    operations from the counters of the instrumented build: a node step
+    12 (one slab test; a pair's second is not counted) and a Woop test 39.
+    6b walks 6c's shadow pairs."""
+    from chip_smoke import SLAB_TEST_FLOPS, WOOP_TEST_FLOPS, bound_ms
+
+    out = dict(walk=0.0, vis=0.0, shade=0.0)
+    for w, sh, n in zip(walks, shades, lanes):
+        shadow = (sh["shadow_steps"] * SLAB_TEST_FLOPS
+                  + sh["shadow_tests"] * WOOP_TEST_FLOPS)
+        out["walk"] += bound_ms(w["walk_steps"] * SLAB_TEST_FLOPS
+                                + w["walk_tests"] * WOOP_TEST_FLOPS,
+                                n * (7 + 8) * 4 + tree_bytes)[0]
+        out["vis"] += bound_ms(shadow, n * (9 + 5 + 8) * 4 + tree_bytes)[0]
+        out["shade"] += bound_ms(shadow, n * (16 + 14 + 5) * 4
+                                 + tree_bytes)[0]
+    return out
+
+
+def _fmt(d: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in d.items())
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _builds(tmp: Path, sweep: bool) -> dict:
+    """{tag: (library path, nvcc's report)}: the port's flags, the
+    counters, and with `sweep` the launch-bound and refill variants; one
+    nvcc each, all together."""
+    from tools.path_probe import _nvcc
+
+    src = (ROOT / "orion_tpu_torch" / "csrc" / "bounce.cu").read_text()
+    jobs = {"port": (), "counters": ("-DORION_BOUNCE_COUNTERS",)}
+    if sweep:
+        for macro, values in SWEEP.items():
+            if macro in src:
+                jobs.update({f"{macro}={v}": (f"-D{macro}={v}",)
+                             for v in values})
+    out = {}
+
+    def one(item):
+        tag, defines = item
+        so = tmp / f"bounce_{tag.replace('=', '_')}.so"
+        return tag, so, _nvcc("bounce", so, defines)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for tag, so, log in pool.map(one, jobs.items()):
+            out[tag] = (so, log)
+    return out
+
+
+class _Swap:
+    """The pipeline's walk and shade kernels launched from another build
+    of bounce.cu (same launch counts); `after(kind)` runs after each
+    launch, once the card is done with it."""
+
+    def __init__(self, lib, after=None):
+        self.lib, self.after = lib, after
+
+    def __enter__(self):
+        import torch
+
+        from orion_tpu_torch.ops import bounce as bo
+
+        self.real = (bo.WALK_KERNEL._fn, bo.SHADE_KERNEL._fn)
+        for kind, k in (("walk", bo.WALK_KERNEL), ("shade", bo.SHADE_KERNEL)):
+            k._load()
+            fn = getattr(self.lib, k.symbol)
+            fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+            if self.after is None:
+                k._fn = fn
+                continue
+
+            def hooked(*args, fn=fn, kind=kind):
+                rc = fn(*args)
+                torch.cuda.synchronize()
+                self.after(kind)
+                return rc
+
+            k._fn = hooked
+        return self
+
+    def __exit__(self, *exc):
+        from orion_tpu_torch.ops import bounce as bo
+
+        bo.WALK_KERNEL._fn, bo.SHADE_KERNEL._fn = self.real
+
+
+def _render_stages(fn, reps: int = REPS) -> tuple:
+    """({(stage, depth): (lanes, median ms)}, [whole render ms]) over
+    `reps` renders of seed SEED after one warm-up."""
+    import torch
+
+    fn(SEED)
+    runs, whole = [], []
+    for _ in range(reps):
+        timings = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(SEED, timings=timings)
+        b.record()
+        torch.cuda.synchronize()
+        whole.append(a.elapsed_time(b))
+        runs.append([(s, d, n, x.elapsed_time(y))
+                     for s, d, n, x, y in timings])
+    return stage_medians(runs), whole
+
+
+def _resources(builds: dict) -> None:
+    from tools.path_probe import _ptxas_lines
+
+    so, log = builds["port"]
+    lib = ctypes.CDLL(str(so))
+    for which, name, kernel, also in KERNELS:
+        for line in _ptxas_lines(log, kernel, *also):
+            print(f"[{name}] ptxas: {line}")
+        out = (ctypes.c_int * 4)()
+        rc = lib.bounce_info(which, out)
+        print(f"[{name}] built kernel: {out[1]} registers, {out[2]} B local "
+              f"(spill and stack) a thread, {out[3]} B static shared; "
+              f"{out[0]} resident blocks of 128 threads an SM (rc {rc})")
+
+
+def _counters(fn, so: Path, lanes) -> None:
+    """One render on the instrumented build, its counters read after
+    every walk and shade launch; with the lanes of each bounce, the
+    render's bounds."""
+    lib = ctypes.CDLL(str(so))
+    if lib.bounce_counters_reset() != 0:
+        raise RuntimeError("bounce_counters_reset failed")
+    rows = {"walk": [], "shade": []}
+
+    def after(kind):
+        buf = (ctypes.c_ulonglong * len(COUNTERS))()
+        if lib.bounce_counters_read(buf) != 0:
+            raise RuntimeError("bounce_counters_read failed")
+        rows[kind].append(dict(zip(COUNTERS, buf)))
+        lib.bounce_counters_reset()
+
+    with _Swap(lib, after):
+        fn(SEED)
+    for d, (w, s) in enumerate(zip(rows["walk"], rows["shade"])):
+        print(f"[counters depth {d}] 6a: {_fmt(walk_report(w))}")
+        print(f"[counters depth {d}] 6c: {_fmt(shade_report(s))}")
+    print(f"[counters render] 6a: "
+          f"{_fmt(walk_report(add_counters(rows['walk'])))}")
+    print(f"[counters render] 6c: "
+          f"{_fmt(shade_report(add_counters(rows['shade'])))}")
+    print(f"[counters render] raw 6a {add_counters(rows['walk'])}")
+    print(f"[counters render] raw 6c {add_counters(rows['shade'])}")
+    data = fn.ctx["data"]
+    tree_bytes = (data.nodes.numel() + data.tab.numel()) * 4
+    b = render_bounds(rows["walk"], rows["shade"], lanes, tree_bytes)
+    b0 = render_bounds(rows["walk"][:1], rows["shade"][:1], lanes[:1],
+                       tree_bytes)
+    print(f"[bounds] a render: 6a {b['walk']:.4f} ms, 6b {b['vis']:.4f}, "
+          f"6c {b['shade']:.4f}; depth 0: 6a {b0['walk']:.4f}, 6b "
+          f"{b0['vis']:.4f}, 6c {b0['shade']:.4f}")
+
+
+def _sweep(fn, builds: dict) -> None:
+    from tools.path_probe import _ptxas_lines
+
+    for tag, (so, log) in builds.items():
+        if tag in ("port", "counters"):
+            continue
+        with _Swap(ctypes.CDLL(str(so))):
+            stages, whole = _render_stages(fn)
+        w = sum(ms for (s, _), (_, ms) in stages.items() if s == "walk")
+        sh = sum(ms for (s, _), (_, ms) in stages.items() if s == "shade")
+        regs = [f"{name}: {' / '.join(_ptxas_lines(log, kernel, *also)[1:])}"
+                for which, name, kernel, also in KERNELS[:2]]
+        print(f"[sweep {tag}] 6a {w:.3f} ms, 6c {sh:.3f} ms a render; "
+              f"depth 0 6a {stages[('walk', 0)][1]:.3f}, 6c "
+              f"{stages[('shade', 0)][1]:.3f} ms; render "
+              f"{statistics.median(whole):.3f} ms; ptxas {'; '.join(regs)}",
+              flush=True)
+
+
+def _train(tmp: Path, dev, lv5_rtc: Path) -> None:
+    import dataclasses
 
     import torch
 
+    from chip_smoke import TRAIN, event_ms
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import bounce_prb as bpr
+
+    tcfg = dict(samples=TRAIN["samples"], max_depth=TRAIN["depth"],
+                light_samples=TRAIN["light_samples"])
+    ps = engine.prepare(lv5_rtc, device=dev, xres=TRAIN["xres"],
+                        yres=TRAIN["yres"])
+    target = bo.make_bounce_path_renderer(ps.scene, ps.camera,
+                                          **tcfg)(TRAIN_SEED)
+    kd = ps.scene.mat_diffuse.clone()
+    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
+    kd[red] *= 0.6
+    pert = dataclasses.replace(ps.scene, mat_diffuse=kd)
+    step = bpr.make_bounce_train_step(pert, ps.camera, target,
+                                      dynamic_params=True, **tcfg)
+    params = {"mat_diffuse": kd}
+    ms, times, _ = event_ms(lambda: step(params, TRAIN_SEED), REPS)
+    runs = []
+    for _ in range(REPS):
+        timings = []
+        step(params, TRAIN_SEED, timings=timings)
+        torch.cuda.synchronize()
+        runs.append([(s, d, n, x.elapsed_time(y))
+                     for s, d, n, x, y in timings])
+    stages = stage_medians(runs)
+    print(f"[train step] {TRAIN}: {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.3f}' for t in times)}); "
+          f"{_fmt(step_split(stages, ms))}")
+    for line in per_bounce_lines(stages):
+        print(f"[train step] {line}")
+
+
+def _phase11(checks: bool, dev, card: str) -> int:
     import chip_smoke as cs
     from orion_tpu_torch.camera import camera_from_rtc
-    from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.scene import load_scene, subdivide_scene
 
-    if not torch.cuda.is_available():
-        print("error: no CUDA device", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card)
-    dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    built = cuda_build.build(["bounce", "bvh_path"])
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "warning" in line:
-                print(f"{name}: {line.strip()}")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         errs = [0.0, 0.0, 0.0]
-        if args.checks:
+        if checks:
             rtc = cs.write_cornell(tmp, xres=64, yres=64, depth=4)
             cornell, r = load_scene(rtc, device=dev)
             errs = cs._phase_bounce_checks(
@@ -71,6 +413,68 @@ def main(argv=None) -> int:
         records = cs._phase_bounce(tmp, dev, card, lv5, errs)
     for name, rec in records.items():
         print(name, rec)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="time builds for other launch bounds and refills")
+    ap.add_argument("--no-train", action="store_true",
+                    help="skip the train step")
+    ap.add_argument("--phase11", action="store_true",
+                    help="run chip_smoke.py's phase 11 alone instead")
+    ap.add_argument("--checks", action="store_true",
+                    help="with --phase11: the 64x64 kernel checks first")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: bounce_probe.py needs a CUDA device", file=sys.stderr)
+        return 1
+    card = _smi("name,power.limit")
+    print(card)
+    print(f"SM clock {_smi('clocks.sm')}, max {_smi('clocks.max.sm')}",
+          flush=True)
+    dev = torch.device("cuda", 0)
+    if args.phase11:
+        return _phase11(args.checks, dev, card)
+
+    import chip_smoke as cs
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.scene import load_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        builds = _builds(tmp, args.sweep)
+        _resources(builds)
+        rtc = cs.write_cornell(tmp / "big", xres=cs.MAIN["xres"],
+                               yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
+                               levels=cs.BIG_LEVELS)
+        lv5, _ = load_scene(rtc, device=dev)
+        cam = camera_from_rtc(cs._resized(parse_rtc(rtc), cs.MAIN),
+                              device=dev)
+        fn = bo.make_bounce_path_renderer(
+            lv5, cam, samples=cs.MAIN["samples"], max_depth=cs.MAIN["depth"],
+            light_samples=cs.MAIN["light_samples"])
+        stages, whole = _render_stages(fn)
+        print(f"[render] {cs.MAIN} on {lv5.num_triangles} triangles: "
+              f"{statistics.median(whole):.3f} ms (runs "
+              f"{', '.join(f'{t:.3f}' for t in whole)}); per bounce, the "
+              f"median of {REPS}:", flush=True)
+        for line in per_bounce_lines(stages):
+            print(f"[render] {line}")
+        lanes = [stages[("walk", d)][0] for d in range(cs.MAIN["depth"] + 1)
+                 if ("walk", d) in stages]
+        _counters(fn, builds["counters"][0], lanes)
+        if args.sweep:
+            _sweep(fn, builds)
+        del fn
+        if not args.no_train:
+            _train(tmp, dev, rtc)
     return 0
 
 

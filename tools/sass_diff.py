@@ -1,6 +1,6 @@
 """Compare the machine code of named kernels between two checkouts.
 
-    python3 tools/sass_diff.py OLD_CHECKOUT NEW_CHECKOUT
+    python3 tools/sass_diff.py OLD_CHECKOUT NEW_CHECKOUT [SOURCE:KERNEL[:ALSO]]...
 
 Builds the sources of KERNELS from each checkout's
 `orion_tpu_torch/csrc/` with the port's flags (`ops/cuda_build.py`'s
@@ -9,10 +9,13 @@ disassembles each library with `cuobjdump -sass`, and prints for each
 kernel its instruction count in both and whether the instructions are
 the same, encodings included, addresses aside (and, where they are not,
 the first lines that differ). A kernel whose shared
-headers changed around it but whose code did not prints "same": what a
-redesign of other kernels in those headers must leave alone (kernels 1
-and 8 and the table's training pair 3a/3b beside 9a/9b's lane loop).
-Exit code 1 if a kernel differs or is missing.
+headers or source changed around it but whose code did not prints
+"same": what a redesign of other kernels must leave alone (kernels 1 and
+8, the table's training pair 3a/3b and the tree's 9a/9b, the binned
+round 10, and beside the bounce pipeline's walk and shade its
+visibility and draw kernels 6b). More kernels may be named after the two
+checkouts, as `source:kernel` or `source:kernel:also`. Exit code 1 if a
+kernel differs or is missing.
 """
 
 from __future__ import annotations
@@ -30,7 +33,12 @@ sys.path.insert(0, str(ROOT))
 KERNELS = (("fused_path", "fused_path_kernel", ()),
            ("bvh_path", "bvh_path_kernel", ()),
            ("prb", "prb_fwd_ls_kernel", ("Geo",)),
-           ("prb", "prb_replay_kernel", ("Geo",)))
+           ("prb", "prb_replay_kernel", ("Geo",)),
+           ("prb", "bvh_prb_fwd_kernel", ()),
+           ("prb", "bvh_prb_replay_kernel", ()),
+           ("binned", "binned_round_kernel", ()),
+           ("bounce", "bounce_vis_kernel", ()),
+           ("bounce", "bounce_draw_kernel", ()))
 SHOW = 8        # differing lines printed for a kernel that differs
 
 
@@ -54,15 +62,25 @@ def pick(funcs: dict, kernel: str, also) -> list | None:
     return funcs[names[0]] if len(names) == 1 else None
 
 
+def parse_kernels(names) -> tuple:
+    """KERNELS and the kernels named as `source:kernel[:also]`."""
+    extra = []
+    for name in names:
+        src, kernel, *also = name.split(":")
+        extra.append((src, kernel, tuple(also)))
+    return KERNELS + tuple(extra)
+
+
 def main(argv) -> int:
-    if len(argv) != 2:
+    if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     from orion_tpu_torch.ops import cuda_build
 
+    kernels = parse_kernels(argv[2:])
     nvcc = cuda_build._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    sources = sorted({k[0] for k in KERNELS})
+    sources = sorted({k[0] for k in kernels})
     with tempfile.TemporaryDirectory() as tmp:
         procs, libs = [], {}
         for tag, root in (("old", argv[0]), ("new", argv[1])):
@@ -84,7 +102,7 @@ def main(argv) -> int:
             [cuobjdump, "-sass", str(so)], capture_output=True, text=True,
             check=True, timeout=300).stdout) for key, so in libs.items()}
     rc = 0
-    for src, kernel, also in KERNELS:
+    for src, kernel, also in kernels:
         old = pick(sass["old", src], kernel, also)
         new = pick(sass["new", src], kernel, also)
         if old is None or new is None:
