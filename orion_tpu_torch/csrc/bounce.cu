@@ -221,37 +221,6 @@ __device__ __forceinline__ bool slab_hit(const float4& n0, const float4& n1,
   return (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
 }
 
-// woop<true>'s test with its row read as four float4 (bytes 0-63 of the
-// 128-byte row, the same two sectors as its 13 floats): the same
-// arithmetic in the same order, so the same t, u and v. The walk and
-// shade kernels' (6a, 6c) leaves: 5-8% faster than 13 loads on the H100
-// (PERF.md); the vis kernel keeps woop<true>.
-__device__ __forceinline__ float woop4(const float* w, const Ray& r,
-                                       float* u_out = nullptr,
-                                       float* v_out = nullptr) {
-  const float4* q = reinterpret_cast<const float4*>(w);
-  const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
-  const float w0 = a.x, w1 = a.y, w2 = a.z, w3 = a.w, w4 = b.x, w5 = b.y,
-              w6 = b.z, w7 = b.w, w8 = c.x, w9 = c.y, w10 = c.z, w11 = c.w,
-              w12 = __ldg(q + 3).x;
-  const float ou = w0 * r.ox + w1 * r.oy + w2 * r.oz + w9;
-  const float ov = w3 * r.ox + w4 * r.oy + w5 * r.oz + w10;
-  const float ow = w6 * r.ox + w7 * r.oy + w8 * r.oz + w11;
-  const float du = w0 * r.dx + w1 * r.dy + w2 * r.dz;
-  const float dv = w3 * r.dx + w4 * r.dy + w5 * r.dz;
-  const float dw = w6 * r.dx + w7 * r.dy + w8 * r.dz;
-  const float t = -ow / dw;
-  const float u = ou + t * du;
-  const float v = ov + t * dv;
-  const bool ok = (fabsf(dw) * w12 > kMtEps) && (u >= 0.0f) && (u <= 1.0f) &&
-                  (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f);
-  if (u_out) {
-    *u_out = ok ? u : 0.0f;
-    *v_out = ok ? v : 0.0f;
-  }
-  return ok ? t : kBig;
-}
-
 // Does the nearest hit below kNeeTCap lie on `mesh`? The lean single walk
 // (`shadow_em`): the nearest-hit walk, then the winner's mesh column.
 __device__ __forceinline__ bool shadow_em(const Tree& g, const Ray& r,
@@ -267,7 +236,8 @@ __device__ __forceinline__ bool shadow_em(const Tree& g, const Ray& r,
 // answer starts at t = -kBig and never votes. Bit 0 of a leaf's start says
 // the leaf holds no emitter rows: an improving hit there clears the flag
 // without reading the row's mesh. With eight tree copies r0's octant's
-// copy serves both rays.
+// copy serves both rays. kF4 is woop's row load (the shade kernel's
+// float4 loads; the vis kernel keeps the scalar ones): the same answers.
 template <bool kF4 = false>
 __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
                                            const Ray& r1, bool need0,
@@ -299,14 +269,14 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
         const float* w = g.tab + k * kCols;
         ORION_BC(tests += (need0 ? 1u : 0u) + (need1 ? 1u : 0u);)
         if (need0) {
-          const float t = kF4 ? woop4(w, r0) : woop<true>(w, r0);
+          const float t = woop<true, kF4>(w, r0);
           if (t < tb0) {   // strict: the smallest row, the earlier leaf
             tb0 = t;
             em0 = !no_em && __ldg(w + C_MESH) == mesh;
           }
         }
         if (need1) {
-          const float t = kF4 ? woop4(w, r1) : woop<true>(w, r1);
+          const float t = woop<true, kF4>(w, r1);
           if (t < tb1) {
             tb1 = t;
             em1 = !no_em && __ldg(w + C_MESH) == mesh;
@@ -322,23 +292,14 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
 }
 
 // Resident blocks an SM that the walk kernel (6a) is built for
-// (__launch_bounds__), and the active lanes below which a warp refills.
-// Both measured on the H100 (PERF.md); the probe's builds
-// (tools/bounce_probe.py --sweep) set them with -D, the port's never does.
-#ifndef ORION_WALK_BLOCKS
-#define ORION_WALK_BLOCKS 12
-#endif
-#ifndef ORION_WALK_REFILL
-#define ORION_WALK_REFILL 16
-#endif
-// The node steps a walking lane takes between two refill votes, each leaf
-// the ray hits tested where it is met (the tight loop of walk_tree).
-#ifndef ORION_WALK_STEPS
-#define ORION_WALK_STEPS 32
-#endif
-constexpr int kWalkBlocks = ORION_WALK_BLOCKS;
-constexpr int kWalkRefill = ORION_WALK_REFILL;
-constexpr int kWalkSteps = ORION_WALK_STEPS;
+// (__launch_bounds__), the active lanes below which a warp refills, and
+// the node steps a walking lane takes between two refill votes, each leaf
+// the ray hits tested where it is met (the tight loop of walk_tree). All
+// three measured on the H100 (PERF.md; tools/bounce_probe.py --sweep
+// builds copies of this source with other values).
+constexpr int kWalkBlocks = 12;
+constexpr int kWalkRefill = 16;
+constexpr int kWalkSteps = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // one lane's hitdata column: t, u, v, winner row, hit flag, three zeros
@@ -417,7 +378,7 @@ bounce_walk_kernel(const Tree g, const float* __restrict__ st,
           for (int k = lo; k < lo + g.leaf_width; ++k) {
             float u, v;
             const float* w = g.tab + k * kCols;
-            const float t = woop4(w, r, &u, &v);
+            const float t = woop<true, true>(w, r, &u, &v);
             if (t < tb) {   // strict: the smallest row, the earlier leaf
               tb = t;
               row = k;
@@ -536,14 +497,9 @@ __device__ __forceinline__ float sort_key(const BounceParams& p, const Ray& r,
   return static_cast<float>((octant << (3 * kMortonBits)) | morton);
 }
 
-// The shade kernel (6c): the resident blocks an SM it is built for
-// (__launch_bounds__), measured on the H100 (PERF.md); the probe's
-// builds (tools/bounce_probe.py --sweep) set it with -D, the port's never
-// does.
-#ifndef ORION_SHADE_BLOCKS
-#define ORION_SHADE_BLOCKS 10
-#endif
-constexpr int kShadeBlocks = ORION_SHADE_BLOCKS;
+// The resident blocks an SM that the shade kernel (6c) is built for
+// (__launch_bounds__), measured on the H100 as kWalkBlocks was.
+constexpr int kShadeBlocks = 10;
 
 // Kernel 6c: a thread shades one lane: its frame, then fast-shadow NEE
 // (one walk for both light samples of an emitter, or the visibility planes

@@ -92,18 +92,34 @@ __device__ __forceinline__ float ld(const float* p) {
   return *p;
 }
 
-// Woop test of one row; returns the masked t, and (u, v) on request
-template <bool kGlobal>
+// Woop test of one row; returns the masked t, and (u, v) on request.
+// kF4 reads the row's 13 floats as four float4 (bytes 0-63 of a row that
+// starts on 16 bytes, the same two sectors): the same arithmetic in the
+// same order, so the same t, u and v (the bounce walk and shade kernels).
+template <bool kGlobal, bool kF4 = false>
 __device__ __forceinline__ float woop(const float* w, const Ray& r,
                                       float* u_out = nullptr,
                                       float* v_out = nullptr) {
-  const float w0 = ld<kGlobal>(w + 0), w1 = ld<kGlobal>(w + 1),
-              w2 = ld<kGlobal>(w + 2), w3 = ld<kGlobal>(w + 3),
-              w4 = ld<kGlobal>(w + 4), w5 = ld<kGlobal>(w + 5),
-              w6 = ld<kGlobal>(w + 6), w7 = ld<kGlobal>(w + 7),
-              w8 = ld<kGlobal>(w + 8), w9 = ld<kGlobal>(w + 9),
-              w10 = ld<kGlobal>(w + 10), w11 = ld<kGlobal>(w + 11),
-              w12 = ld<kGlobal>(w + 12);
+  // named scalars, not an array filled by an unrolled loop: the loop
+  // changed the machine code of the kernels that load the row as scalars
+  float w0, w1, w2, w3, w4, w5, w6, w7, w8, w9, w10, w11, w12;
+  if (kF4) {
+    const float4* q = reinterpret_cast<const float4*>(w);
+    const float4 a = kGlobal ? __ldg(q) : q[0];
+    const float4 b = kGlobal ? __ldg(q + 1) : q[1];
+    const float4 c = kGlobal ? __ldg(q + 2) : q[2];
+    w0 = a.x; w1 = a.y; w2 = a.z; w3 = a.w; w4 = b.x; w5 = b.y;
+    w6 = b.z; w7 = b.w; w8 = c.x; w9 = c.y; w10 = c.z; w11 = c.w;
+    w12 = (kGlobal ? __ldg(q + 3) : q[3]).x;
+  } else {
+    w0 = ld<kGlobal>(w + 0); w1 = ld<kGlobal>(w + 1);
+    w2 = ld<kGlobal>(w + 2); w3 = ld<kGlobal>(w + 3);
+    w4 = ld<kGlobal>(w + 4); w5 = ld<kGlobal>(w + 5);
+    w6 = ld<kGlobal>(w + 6); w7 = ld<kGlobal>(w + 7);
+    w8 = ld<kGlobal>(w + 8); w9 = ld<kGlobal>(w + 9);
+    w10 = ld<kGlobal>(w + 10); w11 = ld<kGlobal>(w + 11);
+    w12 = ld<kGlobal>(w + 12);
+  }
   const float ou = w0 * r.ox + w1 * r.oy + w2 * r.oz + w9;
   const float ov = w3 * r.ox + w4 * r.oy + w5 * r.oz + w10;
   const float ow = w6 * r.ox + w7 * r.oy + w8 * r.oz + w11;

@@ -119,17 +119,19 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
 # chip_smoke.py phase 11's shapes goes first, measured on an NVIDIA H100
 # 80GB HBM3 at 700 W on the 34,818-triangle box at 1920x1080, 16 spp,
 # depth 8, each in turns with the other inside one process
-# (tools/bounce_ab.py, PERF.md):
-#   - with the redesigned walk and shade kernels (6a, 6c) the pipeline
-#     took 62.103 / 61.973 ms against the walk's 62.799 / 62.682 in one
-#     call, and 59.898 / 59.822 against 62.386 / 62.486 in the next;
-#   - before them it took 65.4-68.4 ms against the walk's 62.3-63.0 ms,
-#     and from the walk's redesign (kernel 8, 64.0 ms) the walk went first.
-# At 256x256, 16 spp, depth 4 the pipeline's small renders follow the host
-# (chip_smoke.py phase 11 prints both). The pipeline holds 64 bytes a lane
-# (2.1 GB at that 1080p). "binned" (ops/binned.py: the binned dense sweep
-# under the bounce pipeline's estimator) is reached by name, as in the JAX
-# package, which measured it slower on its TPU.
+# (tools/bounce_ab.py on the landed kernels, PERF.md): the pipeline took
+# 61.621 / 60.378 ms against the walk's 62.961 / 62.202 in the same runs,
+# and 59.984 against 62.769 in chip_smoke.py's phase 11; at 256x256, 16
+# spp, depth 4, 5.604 against 7.873. Before the walk and shade kernels'
+# redesign (6a, 6c) it took 65.4-68.4 ms against the walk's 62.3-63.0,
+# and the walk went first. The pipeline holds a state of 64 bytes a lane
+# (2.1 GB at that 1080p; ~192 a lane at its peak): past
+# bounce.bounce_lanes_check (2^27 lanes, the state's int32 indexing, from
+# 1080p at 65 spp or 4K at 17 spp; or half the card's memory) it raises
+# ValueError and the walk, which holds no state, takes the render.
+# "binned" (ops/binned.py: the binned dense sweep under the bounce
+# pipeline's estimator) is reached by name, as in the JAX package, which
+# measured it slower on its TPU.
 BIG_PATH_ORDER = ("bounce", "walk")
 BIG_PATH_CANDIDATES = ("bounce", "walk", "binned")
 

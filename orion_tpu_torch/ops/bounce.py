@@ -78,6 +78,16 @@ AUX_ROWS = 16       # 15 replay planes + a zero row
 # aux plane rows (the with_aux dump)
 A_KD, A_A, A_RAD = 0, 3, 6
 A_EMS, A_SUMS, A_MESH, A_HIT, A_CONT, A_INVP = 9, 10, 11, 12, 13, 14
+# What a pipeline of N lanes may hold (bounce_lanes_check). The kernels
+# index the state's rows as row * N + lane in int32. At its peak, the
+# sort, a lane holds its state (64 bytes), the sorted copy (64), the key,
+# the permutation and the sort's buffers (~36): LANE_BYTES with room to
+# spare. A trainer's dumps add, at each depth a lane runs, its 16 planes
+# and an int64 lane id, and its adjoints three [3, N] planes.
+LANE_BYTES = 192
+DUMP_BYTES = AUX_ROWS * 4 + 8
+ADJOINT_BYTES = 36
+MEMORY_SHARE = 0.5   # of the card's memory
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -566,6 +576,40 @@ def _timed(timings, name: str, depth: int, n: int, fn):
     return out
 
 
+def bounce_lanes_supported(n_lanes: int, device, **kw) -> bool:
+    """Whether bounce_lanes_check passes."""
+    try:
+        bounce_lanes_check(n_lanes, device, **kw)
+    except ValueError:
+        return False
+    return True
+
+
+def bounce_lanes_check(n_lanes: int, device, *, with_aux: bool = False,
+                       max_depth: int = 0,
+                       total_bytes: int | None = None) -> None:
+    """Raise ValueError for a pipeline of `n_lanes` lanes that its int32
+    indexing or the card's memory cannot hold: ST_ROWS * n_lanes >= 2^31,
+    or its bytes (LANE_BYTES a lane; with_aux, a trainer's, adds
+    DUMP_BYTES for each of max_depth + 1 depths and ADJOINT_BYTES) over
+    MEMORY_SHARE of `total_bytes` (default: the CUDA device's memory; no
+    memory limit on the CPU)."""
+    if ST_ROWS * n_lanes >= 1 << 31:
+        raise ValueError(f"{n_lanes} lanes: the state's int32 indexing "
+                         f"holds fewer than 2^31 / {ST_ROWS}")
+    dev = torch.device(device)
+    if total_bytes is None and dev.type == "cuda":
+        total_bytes = torch.cuda.get_device_properties(dev).total_memory
+    if total_bytes is None:
+        return
+    per_lane = LANE_BYTES + (
+        (max_depth + 1) * DUMP_BYTES + ADJOINT_BYTES if with_aux else 0)
+    if n_lanes * per_lane > MEMORY_SHARE * total_bytes:
+        raise ValueError(f"{n_lanes} lanes of {per_lane} bytes: more than "
+                         f"{MEMORY_SHARE:g} of the card's {total_bytes} "
+                         f"bytes")
+
+
 def build_forward_pipeline(scene: Scene, camera, *, samples: int,
                            max_depth: int, light_samples: int = 2,
                            sort: bool = True, sort_every: int = 1,
@@ -608,6 +652,8 @@ def build_forward_pipeline(scene: Scene, camera, *, samples: int,
     replaces the three wrappers (bounce_walk, bounce_vis, bounce_shade) by
     functions of their signatures: a check on the card passes PLAIN_STEPS
     to hold the kernels' pipeline against; no entry point passes it.
+    Raises ValueError outside the scene gates and past bounce_lanes_check
+    for pix_count * samples lanes.
     """
     if textured is None:
         textured = bool((scene.numpy("mat_map_diffuse") >= 0).any())
@@ -627,6 +673,7 @@ def build_forward_pipeline(scene: Scene, camera, *, samples: int,
     pix_count = n_pix if pix_count is None else pix_count
     N = pix_count * samples
     dev = scene.device
+    bounce_lanes_check(N, dev, with_aux=with_aux, max_depth=max_depth)
     on_card = dev.type == "cuda"
     if leaf_width is None:
         leaf_width = GPU_LEAF_WIDTH if on_card else LEAF_WIDTH
@@ -754,7 +801,9 @@ def make_bounce_path_renderer(scene: Scene, camera, *, samples: int,
     the scene's device (walk, shade and optionally vis kernel per bounce;
     their plain versions on the CPU). `options` are
     build_forward_pipeline's. Same gate as the BVH path kernel, plus
-    diffuse textures. `fn.pipeline` / `fn.ctx` expose the pipeline."""
+    diffuse textures; ValueError past bounce_lanes_check (too many lanes
+    for the kernels' int32 indexing or the card's memory). `fn.pipeline`
+    / `fn.ctx` expose the pipeline."""
     pipeline, ctx = build_forward_pipeline(
         scene, camera, samples=samples, max_depth=max_depth,
         light_samples=light_samples, **options)

@@ -178,12 +178,17 @@ def _prb_loss_and_grad(ps, target, params, *, samples, max_depth,
                                      dynamic_params=True)
     # past the fused gate: the closed-form trainer over the bounce
     # pipeline for diffuse-only fits (its fast-shadow NEE reads ke from the
-    # emitter records, so mat_emissive fits go to the BVH PRB, as in JAX)
+    # emitter records, so mat_emissive fits go to the BVH PRB, as in JAX),
+    # unless its wavefront is more than the card holds
+    from orion_tpu_torch.ops.bounce import bounce_lanes_supported
     from orion_tpu_torch.ops.bounce_prb import (make_bounce_train_step,
                                                 wavefront_train_supported)
 
     one_emitter = wavefront_train_supported(scene)
-    if set(params) <= {"mat_diffuse"} and one_emitter:
+    lanes = ps.camera.xres * ps.camera.yres * samples
+    if (set(params) <= {"mat_diffuse"} and one_emitter
+            and bounce_lanes_supported(lanes, scene.device, with_aux=True,
+                                       max_depth=max_depth)):
         return make_bounce_train_step(scene, ps.camera, target,
                                       samples=samples, max_depth=max_depth,
                                       light_samples=light_samples,

@@ -368,6 +368,55 @@ def test_wrappers_check_their_inputs(cornell):
     assert aux.shape == (16, N) and not aux[15].any()
 
 
+GATE_CARD = 80 * 10**9       # an 80 GB card's memory, in bytes
+
+
+@pytest.mark.parametrize("lanes,kw,fits", [
+    # the state's int32 indexing: 16 rows of at most 2^27 - 1 lanes
+    ((1 << 27) - 1, {}, True),
+    (1 << 27, {}, False),
+    (3840 * 2160 * 16, {}, True),          # 4K, 16 spp
+    (3840 * 2160 * 32, {}, False),         # 4K, 32 spp
+    (1920 * 1080 * 65, {}, False),         # 1080p, 65 spp
+    # the card's memory: half of 80 GB at LANE_BYTES a render's lane
+    (1920 * 1080 * 64, dict(total_bytes=GATE_CARD), True),
+    (1920 * 1080 * 16, dict(total_bytes=8 * 10**9), False),
+    # a trainer's dumps and adjoints: 1080p 4 spp depth 8 fits, 32 spp not
+    (1920 * 1080 * 4, dict(total_bytes=GATE_CARD, with_aux=True,
+                           max_depth=8), True),
+    (1920 * 1080 * 32, dict(total_bytes=GATE_CARD, with_aux=True,
+                            max_depth=8), False),
+])
+def test_bounce_lanes_check(lanes, kw, fits):
+    """The pipeline's gate on its lane count: below 2^27 lanes (the
+    kernels index 16 state rows as row * N + lane in int32) and within
+    MEMORY_SHARE of the card's bytes; on a CPU device with no card size
+    given, the index limit alone."""
+    assert bo.bounce_lanes_supported(lanes, "cpu", **kw) is fits
+    if not fits:
+        with pytest.raises(ValueError, match="int32|card's"):
+            bo.bounce_lanes_check(lanes, "cpu", **kw)
+    per_lane = bo.LANE_BYTES + (
+        (kw.get("max_depth", 0) + 1) * bo.DUMP_BYTES + bo.ADJOINT_BYTES
+        if kw.get("with_aux") else 0)
+    if "total_bytes" in kw:
+        assert fits == (lanes * per_lane <= bo.MEMORY_SHARE
+                        * kw["total_bytes"] and lanes < 1 << 27)
+
+
+def test_pipeline_past_the_lane_gate_raises(cornell):
+    """build_forward_pipeline refuses a wavefront past the gate before it
+    builds anything; the renderer raises ValueError, on which
+    engine.make_big_path_renderer takes the next candidate."""
+    cam = dataclasses.replace(cornell.cam, xres=3840, yres=2160)
+    with pytest.raises(ValueError, match="int32"):
+        bo.make_bounce_path_renderer(cornell.ts, cam, samples=32,
+                                     max_depth=1)
+    with pytest.raises(ValueError, match="int32"):
+        bo.build_forward_pipeline(cornell.ts, cam, samples=1, max_depth=8,
+                                  pix_count=1 << 27)
+
+
 # ---------------------------------------------------------------------------
 # textured scenes
 # ---------------------------------------------------------------------------

@@ -222,3 +222,26 @@ def test_fit_past_the_fused_gate_takes_the_bounce_route(cornell, monkeypatch):
     err1 = float((res.params["mat_diffuse"][red]
                   - big.mat_diffuse[red]).abs().sum())
     assert err1 < err0
+
+
+@pytest.mark.parametrize("res,samples,route", [
+    ((1920, 1080), 4, "bounce"),
+    ((3840, 2160), 32, "bvh"),       # 265 M lanes: past the lane gate
+])
+def test_fit_route_follows_the_lane_gate(cornell, monkeypatch, res,
+                                         samples, route):
+    """Past the fused gate a diffuse-only fit takes the bounce trainer
+    while its wavefront passes bounce.bounce_lanes_check, and the BVH
+    PRB pair (no wavefront) past it."""
+    from orion_tpu_torch.ops import bvh_prb as bvp
+
+    monkeypatch.setattr(prb, "fused_train_supported", lambda *a: False)
+    monkeypatch.setattr(bpr, "make_bounce_train_step",
+                        lambda *a, **k: "bounce")
+    monkeypatch.setattr(bvp, "make_bvh_train_step", lambda *a, **k: "bvh")
+    cam = dataclasses.replace(cornell.cam, xres=res[0], yres=res[1])
+    ps = types.SimpleNamespace(scene=cornell.ts, camera=cam)
+    got = optim._prb_loss_and_grad(
+        ps, None, ("mat_diffuse",), samples=samples, max_depth=8,
+        light_samples=2, mode=None, loss_fn=None)
+    assert got == route

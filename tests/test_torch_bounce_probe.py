@@ -1,12 +1,13 @@
 """tools/bounce_probe.py's host arithmetic on the CPU (the probe itself needs
-a card), tools/bounce_ab.py's hitdata comparison and tools/sass_diff.py's
-kernel list: the numbers that PERF.md takes from them are these
-formulas."""
+a card), tools/bounce_ab.py's hitdata comparison, tools/sass_diff.py's
+kernel list and what the A/B tools share (tools/ab_turns.py): the numbers
+that PERF.md takes from them are these formulas."""
 
 import pytest
 import torch
 
-from tools import bounce_ab, bounce_probe, sass_diff
+from tools import ab_turns, bounce_ab, bounce_probe, sass_diff
+from orion_tpu_torch.ops import cuda_build
 
 
 def _counters(**kw):
@@ -143,3 +144,74 @@ def test_sass_diff_keeps_every_untouched_kernel():
     more = sass_diff.parse_kernels(["bounce:bounce_shade_kernel:Lb0ELb0E"])
     assert more[-1] == ("bounce", "bounce_shade_kernel", ("Lb0ELb0E",))
     assert more[:-1] == sass_diff.KERNELS
+
+
+@pytest.mark.parametrize("name", sorted(bounce_probe.SWEEP))
+def test_sweep_rewrites_one_constant(name):
+    """--sweep builds copies of csrc/bounce.cu with one constexpr set to
+    each of its values; the source defines each exactly once, and the copy
+    differs from it in that line alone."""
+    src = (cuda_build.CSRC / "bounce.cu").read_text()
+    for v in bounce_probe.SWEEP[name]:
+        out = bounce_probe.with_constant(src, name, v)
+        diff = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
+                if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        assert len(diff) <= 1
+        assert f"constexpr int {name} = {v};" in out
+    with pytest.raises(ValueError, match="0 definitions"):
+        bounce_probe.with_constant(src, "kNoSuchConstant", 1)
+
+
+def test_ab_main_runs_in_turns(monkeypatch, capsys):
+    """OLD NEW runs `--one` in the order old, new, new, old, each in a
+    process of its own; the first run of each version gets the directory
+    that keep() reads afterwards; `--one` calls the tool's own timing;
+    anything else prints the usage."""
+    calls, kept = [], []
+    monkeypatch.setattr(ab_turns, "card", lambda *a: "card, 700.00 W")
+    monkeypatch.setattr(ab_turns.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd[1:]))
+    assert ab_turns.ab_main(["A", "B"], "doc", "tool.py", None,
+                            keep=kept.append) == 0
+    assert [c[:4] for c in calls] == [["tool.py", "--one", "A", "old-1"],
+                                      ["tool.py", "--one", "B", "new-1"],
+                                      ["tool.py", "--one", "B", "new-2"],
+                                      ["tool.py", "--one", "A", "old-2"]]
+    assert [len(c) for c in calls] == [5, 5, 4, 4]
+    assert calls[0][4] == calls[1][4] == str(kept[0])
+    assert capsys.readouterr().out.splitlines()[0] == "card, 700.00 W"
+    seen = []
+    assert ab_turns.ab_main(["--one", "A", "old-1"], "doc", "tool.py",
+                            lambda *a: seen.append(a)) == 0
+    assert seen == [("A", "old-1")]
+    assert ab_turns.ab_main(["A"], "usage", "tool.py", None) == 2
+    assert "usage" in capsys.readouterr().err
+
+
+def test_red_wall_scales_the_reddest_albedo(tmp_path):
+    """The train problem's perturbation: the reddest mesh's albedo x 0.6,
+    the other meshes and the scene's own table untouched."""
+    from chip_smoke import write_cornell
+    from orion_tpu_torch.scene import load_scene
+
+    sc, _ = load_scene(write_cornell(tmp_path, xres=8, yres=8),
+                       device="cpu")
+    kd, pert = ab_turns.red_wall(sc)
+    red = int(torch.argmax(sc.mat_diffuse[:, 0] - sc.mat_diffuse[:, 1]))
+    assert sc.mat_diffuse[red, 0] > sc.mat_diffuse[red, 1]
+    assert torch.equal(kd[red], sc.mat_diffuse[red] * 0.6)
+    others = torch.arange(kd.shape[0]) != red
+    assert torch.equal(kd[others], sc.mat_diffuse[others])
+    assert pert.mat_diffuse is kd and pert.tri_v0 is sc.tri_v0
+
+
+def test_ab_tools_share_the_driver():
+    """The A/B tools' main() is ab_turns.ab_main: no copy of the turn
+    order or the nvidia-smi query is left in them."""
+    from pathlib import Path
+
+    for tool in ("bounce_ab", "prb_ab", "fused_ab"):
+        text = (Path(ab_turns.__file__).parent / f"{tool}.py").read_text()
+        assert "ab_main(" in text and "nvidia-smi" not in text
+        assert '"old-1"' not in text

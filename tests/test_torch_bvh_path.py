@@ -178,6 +178,26 @@ def test_make_big_path_renderer(lv2, tmp_path):
         make_big_path_renderer(big_em, cam, samples=1, max_depth=1)
 
 
+@pytest.mark.parametrize("res,spp,name", [
+    ((3840, 2160), 32, "bvh-path-kernel"),
+    ((1920, 1080), 65, "bvh-path-kernel"),
+    ((3840, 2160), 16, "bounce-torch"),
+])
+def test_big_path_lane_gate_routes(lv2, res, spp, name):
+    """Past the bounce pipeline's lane gate (2^27 lanes: 4K at 32 spp,
+    1080p at 65) the first candidate raises ValueError and the BVH path
+    kernel, which holds no wavefront, takes the render; 4K at 16 spp
+    stays on the pipeline."""
+    _, js, jrtc = lv2
+    ts = to_torch(js)
+    cam = dataclasses.replace(camera_from_rtc(jrtc, device="cpu"),
+                              xres=res[0], yres=res[1])
+    assert engine.BIG_PATH_ORDER[0] == "bounce"
+    _, got = make_big_path_renderer(ts, cam, samples=spp, max_depth=1,
+                                    light_samples=1)
+    assert got == name
+
+
 @pytest.fixture(scope="module")
 def lv5(tmp_path_factory):
     return write_cornell(tmp_path_factory.mktemp("lv5"), xres=8, yres=6,

@@ -27,7 +27,9 @@ and the BVH PRB pair (9a/9b) are held to the fused kernel's and the
 replay's tolerances.
 """
 
+import ctypes
 import hashlib
+import subprocess
 
 import numpy as np
 import pytest
@@ -48,6 +50,7 @@ from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.ops import bvh_path as bp
 from orion_tpu_torch.ops import bvh_prb as bvp
 from orion_tpu_torch.ops import bvh_whitted as bw
+from orion_tpu_torch.ops import cuda_build
 from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops import prb_wavefront as pw
@@ -379,6 +382,72 @@ def test_bounce_walk_writes_every_lane(tmp_path, cuda_device, n):
     assert not bool(hd[1:5][:, dead].any()) and not bool(hd[5:].any())
     walk_agree(f"refill n {n}", hd, bo.bounce_walk_plain(data, st, n))
     assert torch.equal(bo.bounce_walk(data, st, n), hd)
+
+
+# Both row loads of fused_common.cuh's Woop test on the same (ray, row)
+# pairs: woop<true> (13 scalar loads; kernels 1, 8, 3a, 3b, 9a, 9b, 6b)
+# and woop<true, true> (four float4 loads; the bounce walk and shade).
+WOOP_PAIR_CU = r"""
+#include "fused_common.cuh"
+using namespace orion;
+
+__global__ void woop_pair_kernel(const float* tab, const int* rows,
+                                 const float* rays, int n, float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  r.ox = rays[i]; r.oy = rays[n + i]; r.oz = rays[2 * n + i];
+  r.dx = rays[3 * n + i]; r.dy = rays[4 * n + i]; r.dz = rays[5 * n + i];
+  const float* w = tab + rows[i] * kCols;
+  float u0, v0, u1, v1;
+  out[i] = woop<true>(w, r, &u0, &v0);
+  out[3 * n + i] = woop<true, true>(w, r, &u1, &v1);
+  out[n + i] = u0; out[2 * n + i] = v0;
+  out[4 * n + i] = u1; out[5 * n + i] = v1;
+}
+
+extern "C" int woop_pair(const float* tab, const int* rows,
+                         const float* rays, int n, float* out) {
+  woop_pair_kernel<<<(n + 127) / 128, 128>>>(tab, rows, rays, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.mark.gpu
+def test_woop_row_loads_agree_bitwise(tmp_path, cuda_device):
+    """The Woop test's float4 row loads give the scalar loads' t, u and v
+    bit for bit on random rays, each against the row its walk hit (so
+    most pairs hit) or a random row; both are one template's arithmetic."""
+    cu, so = tmp_path / "woop_pair.cu", tmp_path / "woop_pair.so"
+    cu.write_text(WOOP_PAIR_CU)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True, timeout=600)
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    data = bo.make_bounce_path_renderer(sc, cam, samples=1,
+                                        max_depth=1).ctx["data"]
+    n = 1 << 16
+    st = _ray_state(n, 11, cuda_device)
+    st[9] = 1.0
+    hd = bo.bounce_walk(data, st, n)
+    rng = np.random.default_rng(5)
+    other = torch.as_tensor(rng.integers(0, data.tab.shape[0], n),
+                            device=cuda_device)
+    hit = hd[4] > 0
+    rows = torch.where(hit & (torch.arange(n, device=cuda_device) % 4 != 0),
+                       hd[3].to(torch.int64), other).to(torch.int32)
+    rays = st[:6, :n].contiguous()
+    out = torch.empty((6, n), dtype=torch.float32, device=cuda_device)
+    lib = ctypes.CDLL(str(so))
+    lib.woop_pair.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                      ctypes.c_void_p]
+    torch.cuda.synchronize()
+    assert lib.woop_pair(data.tab.data_ptr(), rows.data_ptr(),
+                         rays.data_ptr(), n, out.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert int((out[0] < bo.BIG).sum()) > n // 2      # mostly hits
+    assert torch.equal(out[:3].view(torch.int32), out[3:].view(torch.int32))
 
 
 @pytest.mark.gpu

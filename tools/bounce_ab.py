@@ -31,36 +31,17 @@ from __future__ import annotations
 
 import hashlib
 import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from tools.ab_turns import (TRAIN_SEED, ab_main, events,  # noqa: E402
+                            red_wall_problem, runs)
+
 SEED = 0
-TRAIN_SEED = 3
 REPS = 7
 HD_ROWS = ("t", "u", "v", "row", "hit")
-
-
-def _events(fn, reps: int = REPS):
-    """(median ms, [ms]) of fn() by CUDA events after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times), times
-
-
-def _runs(times) -> str:
-    return ", ".join(f"{t:.3f}" for t in times)
 
 
 def _digest(x) -> str:
@@ -68,13 +49,11 @@ def _digest(x) -> str:
                           ).hexdigest()[:16]
 
 
-def _time_one(root: str, label: str, keep: str | None) -> None:
+def _time_one(root: str, label: str, keep: str | None = None) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
-    import dataclasses
-
     import torch
 
-    from chip_smoke import (BIG_LEVELS, MAIN, TRAIN, _resized, run_cli,
+    from chip_smoke import (BIG_LEVELS, MAIN, _resized, run_cli,
                             write_cornell)
     from orion_tpu_torch import engine
     from orion_tpu_torch.camera import camera_from_rtc
@@ -99,17 +78,17 @@ def _time_one(root: str, label: str, keep: str | None) -> None:
 
         # the kernels' times over renders
         fn(SEED)
-        runs = []
+        renders = []
         for _ in range(REPS):
             timings = []
             fn(SEED, timings=timings)
             torch.cuda.synchronize()
-            runs.append({(s, d): a.elapsed_time(b)
+            renders.append({(s, d): a.elapsed_time(b)
                          for s, d, n, a, b in timings})
         sums = {k: statistics.median(sum(v for (s, _), v in r.items()
-                                         if s == k) for r in runs)
+                                         if s == k) for r in renders)
                 for k in ("walk", "shade", "sort")}
-        d0 = {k: statistics.median(r[(k, 0)] for r in runs)
+        d0 = {k: statistics.median(r[(k, 0)] for r in renders)
               for k in ("walk", "shade")}
         print(f"{label}: 6a {sums['walk']:.3f} ms, 6c {sums['shade']:.3f} "
               f"ms a render (sort {sums['sort']:.3f}); depth 0: 6a "
@@ -119,12 +98,12 @@ def _time_one(root: str, label: str, keep: str | None) -> None:
         fn_w, name_w = engine.make_big_path_renderer(
             lv5, cam, order=("walk",),
             order_signs=engine.octant_signs(cam.front), **cfg)
-        b1, t1 = _events(lambda: fn(SEED), 4)
-        w, tw = _events(lambda: fn_w(SEED), 4)
-        b2, t2 = _events(lambda: fn(SEED), 4)
+        _, t1 = events(lambda: fn(SEED), 4)
+        w, tw = events(lambda: fn_w(SEED), 4)
+        _, t2 = events(lambda: fn(SEED), 4)
         b_ms = statistics.median(t1 + t2)
         print(f"{label}: bounce render median {b_ms:.3f} ms (runs "
-              f"{_runs(t1 + t2)}); {name_w} {w:.3f} ms (runs {_runs(tw)}); "
+              f"{runs(t1 + t2)}); {name_w} {w:.3f} ms (runs {runs(tw)}); "
               f"bounce - walk {b_ms - w:+.3f} ms", flush=True)
         del fn_w
 
@@ -157,34 +136,28 @@ def _time_one(root: str, label: str, keep: str | None) -> None:
         ps_t = engine.prepare(rtc_t, device=dev)
         fn_t, name_t = engine.make_big_path_renderer(ps_t.scene, ps_t.camera,
                                                      **cfg)
-        t_ms, t_times = _events(lambda: fn_t(SEED))
+        t_ms, t_times = events(lambda: fn_t(SEED), REPS)
         print(f"{label}: textured CLI render {report['backend']} "
               f"{', '.join(f'{s:.4f}' for s in secs)} s, image mean "
               f"{float(img_t.mean()):.9g}; its renderer {name_t} median "
-              f"{t_ms:.3f} ms (runs {_runs(t_times)})", flush=True)
+              f"{t_ms:.3f} ms (runs {runs(t_times)})", flush=True)
         del fn_t, ps_t
 
         # the bounce train step
-        tcfg = dict(samples=TRAIN["samples"], max_depth=TRAIN["depth"],
-                    light_samples=TRAIN["light_samples"])
-        ps = engine.prepare(rtc, device=dev, xres=TRAIN["xres"],
-                            yres=TRAIN["yres"])
-    target = bo.make_bounce_path_renderer(ps.scene, ps.camera,
-                                          **tcfg)(TRAIN_SEED)
-    kd = ps.scene.mat_diffuse.clone()
-    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
-    kd[red] *= 0.6
-    pert = dataclasses.replace(ps.scene, mat_diffuse=kd)
-    step = bpr.make_bounce_train_step(pert, ps.camera, target,
-                                      dynamic_params=True, **tcfg)
+        pr = red_wall_problem(rtc, dev, bo.make_bounce_path_renderer,
+                              TRAIN_SEED)
+    kd = pr["kd"]
+    step = bpr.make_bounce_train_step(pr["scene"], pr["ps"].camera,
+                                      pr["target"], dynamic_params=True,
+                                      **pr["cfg"])
     params = {"mat_diffuse": kd}
-    s_ms, s_times = _events(lambda: step(params, TRAIN_SEED))
+    s_ms, s_times = events(lambda: step(params, TRAIN_SEED), REPS)
     loss, grads = step(params, TRAIN_SEED)
     digest = ", ".join(
         f"{k} sum {float(g.double().sum()):.9g} max |.| "
         f"{float(g.abs().max()):.9g}" for k, g in sorted(grads.items()))
     print(f"{label}: train step median {s_ms:.3f} ms (runs "
-          f"{_runs(s_times)}); loss {float(loss):.9g}, {digest}", flush=True)
+          f"{runs(s_times)}); loss {float(loss):.9g}, {digest}", flush=True)
 
 
 def compare_hitdata(a, b) -> list:
@@ -209,30 +182,15 @@ def compare_hitdata(a, b) -> list:
     return lines
 
 
-def main(argv) -> int:
-    if len(argv) in (3, 4) and argv[0] == "--one":
-        _time_one(argv[1], argv[2], argv[3] if len(argv) == 4 else None)
-        return 0
-    if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    old, new = argv
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    with tempfile.TemporaryDirectory() as keep:
-        for root, label in ((old, "old-1"), (new, "new-1"), (new, "new-2"),
-                            (old, "old-2")):
-            extra = [keep] if label.endswith("-1") else []
-            subprocess.run([sys.executable, __file__, "--one", root, label,
-                            *extra], check=True, timeout=900)
-        import torch
+def _compare(keep: Path) -> None:
+    import torch
 
-        lines = compare_hitdata(torch.load(Path(keep) / "old-1.pt"),
-                                torch.load(Path(keep) / "new-1.pt"))
-    print("\n".join(lines))
-    return 0
+    print("\n".join(compare_hitdata(torch.load(keep / "old-1.pt"),
+                                     torch.load(keep / "new-1.pt"))))
+
+
+def main(argv) -> int:
+    return ab_main(argv, __doc__, __file__, _time_one, keep=_compare)
 
 
 if __name__ == "__main__":

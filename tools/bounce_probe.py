@@ -27,11 +27,11 @@ At chip_smoke.py phase 11's shapes (the levels-5 subdivided Cornell box,
   (c)'s shapes (1920x1080, 4 spp, depth 8, red wall x 0.6, seed 3): its
   CUDA-event time split into the forward with dumps, the adjoints and the
   rest (--no-train skips it);
-- with --sweep, 6a's and 6c's summed times a render of builds that set
-  one of SWEEP's macros of `csrc/bounce.cu` to each of its values (the
-  resident blocks an SM each kernel is built for, the active lanes below
-  which a warp refills, the node steps between two refill votes), the
-  others at the source's values.
+- with --sweep, 6a's and 6c's summed times a render of builds of copies
+  of `csrc/bounce.cu` in which one of SWEEP's constants is set to each of
+  its values (the resident blocks an SM each kernel is built for, the
+  active lanes below which a warp refills, the node steps between two
+  refill votes), the others at the source's values.
 
 --phase11 runs chip_smoke.py's phase 11 alone instead (--checks first runs
 phase 3's 64x64 checks of the three kernels). The card's name and power
@@ -45,22 +45,23 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import re
 import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+from tools.ab_turns import TRAIN_SEED, card, red_wall_problem  # noqa: E402
 
 SEED = 0
-TRAIN_SEED = 3
 REPS = 5
-SWEEP = {"ORION_WALK_BLOCKS": (10, 12),
-         "ORION_WALK_REFILL": (8, 16, 24),
-         "ORION_WALK_STEPS": (16, 32, 64),
-         "ORION_SHADE_BLOCKS": (8, 10, 12)}
+# constexpr ints of csrc/bounce.cu and the values --sweep builds
+SWEEP = {"kWalkBlocks": (10, 12),
+         "kWalkRefill": (8, 16, 24),
+         "kWalkSteps": (16, 32, 64),
+         "kShadeBlocks": (8, 10, 12)}
 # bounce_info's kernels: (which, name, a string of the mangled name)
 KERNELS = ((0, "6a walk", "bounce_walk_kernel", ()),
            (1, "6c shade <aux 0, vis 0>", "bounce_shade_kernel", ("Lb0ELb0E",)),
@@ -182,6 +183,16 @@ def render_bounds(walks, shades, lanes, tree_bytes: int) -> dict:
     return out
 
 
+def with_constant(src: str, name: str, value: int) -> str:
+    """The source text with `constexpr int <name> = <int>;` set to
+    `value`; ValueError unless the source defines it exactly once."""
+    pat = re.compile(rf"(constexpr int {re.escape(name)} = )-?\d+;")
+    out, n = pat.subn(rf"\g<1>{int(value)};", src)
+    if n != 1:
+        raise ValueError(f"{name}: {n} definitions as a constexpr int")
+    return out
+
+
 def _fmt(d: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                      for k, v in d.items())
@@ -191,32 +202,27 @@ def _fmt(d: dict) -> str:
 # the card
 # ---------------------------------------------------------------------------
 
-def _smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def _builds(tmp: Path, sweep: bool) -> dict:
-    """{tag: (library path, nvcc's report)}: the port's flags, the
-    counters, and with `sweep` the launch-bound and refill variants; one
-    nvcc each, all together."""
+    """{tag: (library path, nvcc's report)}: the port's source and flags,
+    the counters, and with `sweep` copies of the source with SWEEP's
+    values; one nvcc each, all together."""
     from tools.path_probe import _nvcc
 
     src = (ROOT / "orion_tpu_torch" / "csrc" / "bounce.cu").read_text()
-    jobs = {"port": (), "counters": ("-DORION_BOUNCE_COUNTERS",)}
+    jobs = {"port": ("bounce", ()),
+            "counters": ("bounce", ("-DORION_BOUNCE_COUNTERS",))}
     if sweep:
-        for macro, values in SWEEP.items():
-            if macro in src:
-                jobs.update({f"{macro}={v}": (f"-D{macro}={v}",)
-                             for v in values})
+        for name, values in SWEEP.items():
+            for v in values:
+                cu = tmp / f"bounce_{name}_{v}.cu"
+                cu.write_text(with_constant(src, name, v))
+                jobs[f"{name}={v}"] = (cu, ())
     out = {}
 
     def one(item):
-        tag, defines = item
+        tag, (cu, defines) = item
         so = tmp / f"bounce_{tag.replace('=', '_')}.so"
-        return tag, so, _nvcc("bounce", so, defines)
+        return tag, so, _nvcc(cu, so, defines)
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         for tag, so, log in pool.map(one, jobs.items()):
@@ -354,27 +360,18 @@ def _sweep(fn, builds: dict) -> None:
 
 
 def _train(tmp: Path, dev, lv5_rtc: Path) -> None:
-    import dataclasses
-
     import torch
 
     from chip_smoke import TRAIN, event_ms
-    from orion_tpu_torch import engine
     from orion_tpu_torch.ops import bounce as bo
     from orion_tpu_torch.ops import bounce_prb as bpr
 
-    tcfg = dict(samples=TRAIN["samples"], max_depth=TRAIN["depth"],
-                light_samples=TRAIN["light_samples"])
-    ps = engine.prepare(lv5_rtc, device=dev, xres=TRAIN["xres"],
-                        yres=TRAIN["yres"])
-    target = bo.make_bounce_path_renderer(ps.scene, ps.camera,
-                                          **tcfg)(TRAIN_SEED)
-    kd = ps.scene.mat_diffuse.clone()
-    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
-    kd[red] *= 0.6
-    pert = dataclasses.replace(ps.scene, mat_diffuse=kd)
-    step = bpr.make_bounce_train_step(pert, ps.camera, target,
-                                      dynamic_params=True, **tcfg)
+    pr = red_wall_problem(lv5_rtc, dev, bo.make_bounce_path_renderer,
+                          TRAIN_SEED)
+    kd = pr["kd"]
+    step = bpr.make_bounce_train_step(pr["scene"], pr["ps"].camera,
+                                      pr["target"], dynamic_params=True,
+                                      **pr["cfg"])
     params = {"mat_diffuse": kd}
     ms, times, _ = event_ms(lambda: step(params, TRAIN_SEED), REPS)
     runs = []
@@ -392,7 +389,7 @@ def _train(tmp: Path, dev, lv5_rtc: Path) -> None:
         print(f"[train step] {line}")
 
 
-def _phase11(checks: bool, dev, card: str) -> int:
+def _phase11(checks: bool, dev, card_line: str) -> int:
     import chip_smoke as cs
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.scene import load_scene, subdivide_scene
@@ -410,7 +407,7 @@ def _phase11(checks: bool, dev, card: str) -> int:
         big = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
                                levels=cs.BIG_LEVELS)
         lv5, _ = load_scene(big, device=dev)
-        records = cs._phase_bounce(tmp, dev, card, lv5, errs)
+        records = cs._phase_bounce(tmp, dev, card_line, lv5, errs)
     for name, rec in records.items():
         print(name, rec)
     return 0
@@ -433,13 +430,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("error: bounce_probe.py needs a CUDA device", file=sys.stderr)
         return 1
-    card = _smi("name,power.limit")
-    print(card)
-    print(f"SM clock {_smi('clocks.sm')}, max {_smi('clocks.max.sm')}",
+    line = card()
+    print(line)
+    print(f"SM clock {card('clocks.sm')}, max {card('clocks.max.sm')}",
           flush=True)
     dev = torch.device("cuda", 0)
     if args.phase11:
-        return _phase11(args.checks, dev, card)
+        return _phase11(args.checks, dev, line)
 
     import chip_smoke as cs
     from orion_tpu_torch.camera import camera_from_rtc

@@ -17,13 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from tools.ab_turns import TRAIN_SEED, card, red_wall  # noqa: E402
 
 
 def main() -> int:
@@ -36,10 +36,7 @@ def main() -> int:
     from orion_tpu_torch.ops import prb
     from orion_tpu_torch.optim import fit
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     dev = torch.device("cuda", 0)
     W, H = TRAIN["xres"], TRAIN["yres"]
     S, D, LS = TRAIN["samples"], TRAIN["depth"], TRAIN["light_samples"]
@@ -61,18 +58,15 @@ def main() -> int:
     target = timed("target render (fused kernel, first launch)",
                    lambda: fp.make_fused_path_renderer(
                        ps.scene, ps.camera, samples=S, max_depth=D,
-                       light_samples=LS)(3))
-    kd = ps.scene.mat_diffuse.clone()
-    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
-    kd[red] *= 0.6
-    ps = dataclasses.replace(ps, scene=dataclasses.replace(ps.scene,
-                                                           mat_diffuse=kd))
+                       light_samples=LS)(TRAIN_SEED))
+    kd, scene = red_wall(ps.scene)
+    ps = dataclasses.replace(ps, scene=scene)
     step = timed("make_fused_train_step", lambda: prb.make_fused_train_step(
         ps.scene, ps.camera, target, samples=S, max_depth=D,
         light_samples=LS, dynamic_params=True))
     for i in (1, 2):
         timed(f"train step, call {i}",
-              lambda: step({"mat_diffuse": kd}, 3))
+              lambda: step({"mat_diffuse": kd}, TRAIN_SEED))
     for i in (1, 2):
         before = "torch._dynamo" in sys.modules
         p = kd.clone().requires_grad_(True)
@@ -86,7 +80,7 @@ def main() -> int:
     stamps = [time.perf_counter()]
     res = fit(ps, target, params=("mat_diffuse",), steps=5,
               learning_rate=0.05, samples=S, max_depth=D, light_samples=LS,
-              seed=3, resample_keys=False, use_prb=True,
+              seed=TRAIN_SEED, resample_keys=False, use_prb=True,
               callback=lambda i, loss: stamps.append(time.perf_counter()))
     per = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     print(f"fit: first step {per[0]:.1f} ms, later steps "

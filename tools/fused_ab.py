@@ -20,11 +20,12 @@ differ only in rounding print means a few ulps apart.
 
 from __future__ import annotations
 
-import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from tools.ab_turns import ab_main, events, runs  # noqa: E402
 
 RES, SAMPLES, DEPTH, LIGHT_SAMPLES = (1920, 1080), 16, 8, 2
 SMALL_RES, SMALL_DEPTH = (256, 256), 4
@@ -32,23 +33,11 @@ REPS = 7
 
 
 def _timed(label: str, what: str, fn, res=RES, depth=DEPTH) -> None:
-    import torch
-
-    img = fn()                                   # builds, loads, warms up
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        img = fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+    ms, times = events(fn, REPS)
     W, H = res
     print(f"{label}: {what} {W}x{H} {SAMPLES}spp depth {depth}: median "
-          f"{statistics.median(times):.3f} ms, runs "
-          f"{', '.join(f'{t:.3f}' for t in times)}, mean "
-          f"{float(img.mean()):.9g}", flush=True)
+          f"{ms:.3f} ms, runs {runs(times)}, mean {float(fn().mean()):.9g}",
+          flush=True)
 
 
 def _time_one(root: str, label: str) -> None:
@@ -96,22 +85,7 @@ def _time_one(root: str, label: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[0] == "--one":
-        _time_one(argv[1], argv[2])
-        return 0
-    if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    old, new = argv
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    for root, label in ((old, "old-1"), (new, "new-1"), (new, "new-2"),
-                        (old, "old-2")):
-        subprocess.run([sys.executable, __file__, "--one", root, label],
-                       check=True, timeout=900)
-    return 0
+    return ab_main(argv, __doc__, __file__, _time_one)
 
 
 if __name__ == "__main__":

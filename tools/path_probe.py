@@ -56,6 +56,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+from tools.ab_turns import card, red_wall_problem  # noqa: E402
 
 RES, SAMPLES, DEPTH, LIGHT_SAMPLES = (1920, 1080), 16, 8, 2
 PLAIN_RES = (256, 256)
@@ -74,25 +75,20 @@ COUNTERS = ("lane_cycles", "nearest_cycles", "nee_cycles", "iters",
             "acc_lanes", "acc_groups", "acc_peers", "acc_max")
 
 
-def _smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 _LOGS: dict = {}
 
 
-def _nvcc(src: str, out: Path, defines=()) -> str:
-    """Build csrc/<src>.cu into `out` (once per output path); nvcc's
+def _nvcc(src, out: Path, defines=()) -> str:
+    """Build csrc/<src>.cu, or the source file `src` (a Path, its
+    includes found in csrc/), into `out` (once per output path); nvcc's
     report."""
     from orion_tpu_torch.ops import cuda_build
 
     if out in _LOGS:
         return _LOGS[out]
-    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o",
-           str(out), str(cuda_build.CSRC / f"{src}.cu")]
+    cu = src if isinstance(src, Path) else cuda_build.CSRC / f"{src}.cu"
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines,
+           "-I", str(cuda_build.CSRC), "-o", str(out), str(cu)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc {src} {defines}: {res.stdout}{res.stderr}")
@@ -324,31 +320,20 @@ def _probe_path_kernels(tmp: Path, dev) -> None:
 
 def _probe_train_pair(tmp: Path, dev) -> None:
     """Kernels 9a and 9b, and the train step, at phase 12 (c)'s shapes."""
-    import dataclasses
-
-    import torch
-
     from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
-    from orion_tpu_torch import engine
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import bvh_prb as bvp
 
     W, H, S = TRAIN["xres"], TRAIN["yres"], TRAIN["samples"]
-    tcfg = dict(samples=S, max_depth=TRAIN["depth"],
-                light_samples=TRAIN["light_samples"])
-    ps = engine.prepare(write_cornell(tmp / "t", xres=W, yres=H,
-                                      depth=TRAIN["depth"],
-                                      levels=BIG_LEVELS), device=dev)
-    target = bp.make_bvh_path_renderer(ps.scene, ps.camera,
-                                       **tcfg)(TRAIN_SEED)
-    kd = ps.scene.mat_diffuse.clone()
-    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
-    kd[red] *= 0.6
-    pert = dataclasses.replace(ps.scene, mat_diffuse=kd)
+    pr = red_wall_problem(write_cornell(tmp / "t", xres=W, yres=H,
+                                        depth=TRAIN["depth"],
+                                        levels=BIG_LEVELS), dev,
+                          bp.make_bvh_path_renderer, TRAIN_SEED)
+    kd, pert, target = pr["kd"], pr["scene"], pr["target"]
     params = {"mat_diffuse": kd, "mat_emissive": pert.mat_emissive}
-    step = bvp.make_bvh_train_step(pert, ps.camera, target,
-                                   order_signs=ps.order_signs,
-                                   dynamic_params=True, **tcfg)
+    step = bvp.make_bvh_train_step(pert, pr["ps"].camera, target,
+                                   order_signs=pr["ps"].order_signs,
+                                   dynamic_params=True, **pr["cfg"])
     plan = step.plan
     tab = plan.table(kd, pert.mat_emissive)
     # every build of prb.cu that the probe loads, one nvcc each, together
@@ -412,8 +397,8 @@ def main(argv) -> int:
         print("error: path_probe.py needs a CUDA device", file=sys.stderr)
         return 1
     which = set(argv) or {"1", "8", "9"}
-    print(_smi("name,power.limit"))
-    print(f"SM clock {_smi('clocks.sm')}, max {_smi('clocks.max.sm')}")
+    print(card())
+    print(f"SM clock {card('clocks.sm')}, max {card('clocks.max.sm')}")
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)

@@ -21,61 +21,44 @@ order of additions varies from run to run.
 
 from __future__ import annotations
 
-import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
-SEED = 3
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from tools.ab_turns import (TRAIN_SEED, ab_main, events,  # noqa: E402
+                            red_wall_problem, runs)
+
+SEED = TRAIN_SEED
 REPS = 7
 
 
 def _timed(label: str, what: str, fn) -> None:
-    import torch
-
-    fn()                                         # builds, loads, warms up
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    print(f"{label}: {what}: median {statistics.median(times):.3f} ms, runs "
-          f"{', '.join(f'{t:.3f}' for t in times)}", flush=True)
+    ms, times = events(fn, REPS)
+    print(f"{label}: {what}: median {ms:.3f} ms, runs {runs(times)}",
+          flush=True)
 
 
 def _time_one(root: str, label: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
-    import dataclasses
-
     import torch
 
     from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
-    from orion_tpu_torch import engine
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import bvh_prb as bvp
 
     dev = torch.device("cuda", 0)
     W, H, S = TRAIN["xres"], TRAIN["yres"], TRAIN["samples"]
-    tcfg = dict(samples=S, max_depth=TRAIN["depth"],
-                light_samples=TRAIN["light_samples"])
     with tempfile.TemporaryDirectory() as tmp:
-        ps = engine.prepare(write_cornell(tmp, xres=W, yres=H,
-                                          depth=TRAIN["depth"],
-                                          levels=BIG_LEVELS), device=dev)
-    target = bp.make_bvh_path_renderer(ps.scene, ps.camera, **tcfg)(SEED)
-    kd = ps.scene.mat_diffuse.clone()
-    red = int(torch.argmax(kd[:, 0] - kd[:, 1]))
-    kd[red] *= 0.6
-    pert = dataclasses.replace(ps.scene, mat_diffuse=kd)
+        pr = red_wall_problem(write_cornell(tmp, xres=W, yres=H,
+                                            depth=TRAIN["depth"],
+                                            levels=BIG_LEVELS), dev,
+                              bp.make_bvh_path_renderer, SEED)
+    kd, pert, target = pr["kd"], pr["scene"], pr["target"]
     params = {"mat_diffuse": kd, "mat_emissive": pert.mat_emissive}
-    step = bvp.make_bvh_train_step(pert, ps.camera, target,
-                                   order_signs=ps.order_signs,
-                                   dynamic_params=True, **tcfg)
+    step = bvp.make_bvh_train_step(pert, pr["ps"].camera, target,
+                                   order_signs=pr["ps"].order_signs,
+                                   dynamic_params=True, **pr["cfg"])
     plan = step.plan
     tab = plan.table(kd, pert.mat_emissive)
     img, ls = plan.forward(tab, SEED)
@@ -95,22 +78,7 @@ def _time_one(root: str, label: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[0] == "--one":
-        _time_one(argv[1], argv[2])
-        return 0
-    if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    old, new = argv
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    for root, label in ((old, "old-1"), (new, "new-1"), (new, "new-2"),
-                        (old, "old-2")):
-        subprocess.run([sys.executable, __file__, "--one", root, label],
-                       check=True, timeout=900)
-    return 0
+    return ab_main(argv, __doc__, __file__, _time_one)
 
 
 if __name__ == "__main__":
