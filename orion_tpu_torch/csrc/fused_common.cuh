@@ -1,29 +1,22 @@
 // Shared device code of the path kernels (fused_path.cu, prb.cu,
-// bvh_path.cu), the Whitted kernels (whitted.cu, bvh_whitted.cu, through
-// whitted_common.cuh) and the wavefront's walk kernel (bvh_intersect.cu):
-// PCG4D, the Woop test, the nearest-hit and any-hit sweeps over a triangle
-// table, the skip-pointer walk over a flattened tree (nearest and any hit),
-// primary rays, and the regenerative path lane loop, templated over its
-// geometry (`Geo`: a table swept chunk by chunk; `Tree`: a skip-pointer BVH
-// over a bundled table), its NEE form and what it records.
+// bvh_path.cu, bounce.cu, through render_lane.cuh), the Whitted kernels
+// (whitted.cu, bvh_whitted.cu, through whitted_common.cuh) and the
+// wavefront's walk kernels (bvh_intersect.cu, bvh_g8.cu, binned.cu): PCG4D,
+// the Woop test, the nearest-hit and any-hit sweeps over a triangle table
+// (`Geo`, Whitted's kernel 4), the skip-pointer walk over a flattened tree
+// (`Tree`: nearest and any hit), primary rays, and what the path lane loop
+// (render_lane.cuh's `render_lanes`) computes at a path vertex: the NEE
+// (`nee`, fast-shadow and legacy forms) and a bounce's contribution
+// (`bounce_contrib`).
 //
-// The lane loop (`path_lane`) is the estimator of
-// orion_tpu/ops/pallas_fused.py::_make_regen_body, one thread per pixel
-// lane, for the training kernels over a swept table (prb.cu's 3a/3b). Its
-// two modes:
-//   kForwardLs : legacy NEE, radiance / spp out plus each sample's radiance
-//                L_s (prb.cu, the training forward);
-//   kReplay    : legacy NEE, re-traces the same paths and accumulates the
-//                closed-form material adjoints (prb.cu, the replay).
-// The render kernels (fused_path.cu, bvh_path.cu) and the training pair
-// over a tree (prb.cu's 9a/9b) run render_lane.cuh's persistent lane loop
-// over the same NEE (`nee`, both forms) and `bounce_contrib`.
-// The forward and the replay must compute every bounce's contribution
-// bit for bit alike, or the replay's remaining radiance U = L_s - sum of
-// contributions drifts. Each pair is two instantiations of one loop
-// (`path_lane` here, `render_lanes` for 9a/9b), and the contribution, the running sums and U are computed with
-// __fmul_rn/__fadd_rn/__fsub_rn, which the compiler never contracts into
-// an FMA, so no context-dependent contraction can make them differ.
+// The training pairs (prb.cu: 3a/3b over a table, 9a/9b over a tree) run
+// `render_lanes` twice, as the forward and as the replay. Both must
+// compute every bounce's contribution bit for bit alike, or the replay's
+// remaining radiance U = L_s - sum of contributions drifts: they are two
+// instantiations of one loop, and the contribution, the running sums and U
+// are computed with __fmul_rn/__fadd_rn/__fsub_rn, which the compiler never
+// contracts into an FMA, so no context-dependent contraction can make them
+// differ.
 
 #pragma once
 
@@ -380,13 +373,13 @@ __device__ __forceinline__ void primary(const float* cam, uint32_t seed,
 }
 
 // ---------------------------------------------------------------------------
-// the regenerative path lane
+// a path vertex of the lane loop (render_lane.cuh)
 // ---------------------------------------------------------------------------
 
 template <class G>
 struct PathParamsT {
   const float* cam;   // [12] origin | front | right | up
-  G geo;              // Geo: [T_pad, 32] table; Tree: nodes + bundled table
+  G geo;              // RGeo: [T_pad, 32] table; Tree: nodes + bundled table
   const float* em;    // [n_em, 160]
   float* out;         // [n_pix, 3] radiance / spp (render, forward)
   float* ls;          // [3S, n_pix] per-sample radiance (forward out,
@@ -396,7 +389,6 @@ struct PathParamsT {
   uint32_t seed;
   int pix_base = 0;   // global pixel of out's first row (a tile's offset)
 };
-using PathParams = PathParamsT<Geo>;
 
 // the bounce's contribution T * (ke * em_scale + kd * A), rounded
 // op by op (see the header note)
@@ -507,179 +499,6 @@ __device__ __forceinline__ void nee(const P& p, const float* sgeo,
         A[2] += ske2 * scale;
       }
     }
-  }
-}
-
-// One pixel lane, until its sample index reaches p.samples. kReplay reads
-// the lane's L_s and adjoint, and adds its material adjoints to the block's
-// shared accumulator `sacc` [6, kMLanes] (double: a grey material's
-// gradient is a small difference of large per-lane terms) and its NEE
-// emitted-color adjoint to `ek`.
-template <bool kLegacy, int kMode, class P>
-__device__ __forceinline__ void path_lane(const P& p,
-                                          const float* sgeo, int pix,
-                                          double* sacc, float ek[3]) {
-  float cam[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) cam[k] = __ldg(p.cam + k);
-  const uint32_t upix = static_cast<uint32_t>(pix);
-  const int n_pix = p.W * p.H;
-
-  Ray r;
-  int samp = 0, depth = 0;
-  primary(cam, p.seed, p.W, p.H, pix, 0, r);
-  float T[3] = {1.f, 1.f, 1.f};
-  float acc[3] = {0.f, 0.f, 0.f};   // radiance sum (forward)
-  float Ls[3] = {0.f, 0.f, 0.f};    // this sample's radiance (forward)
-  float U[3] = {0.f, 0.f, 0.f};     // remaining radiance (replay)
-  float w[3] = {0.f, 0.f, 0.f};     // the lane's adjoint (replay)
-  if (kMode == kReplay) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      U[ch] = __ldg(p.ls + ch * n_pix + pix);
-      w[ch] = __ldg(p.w + 3 * pix + ch);
-    }
-  }
-
-  while (samp < p.samples) {
-    float t;
-    const int row = nearest<kCols>(p.geo, sgeo, r, kBig, t);
-    const bool hit = row >= 0;
-    const uint32_t site_sd = static_cast<uint32_t>(samp) * 131071u +
-                             static_cast<uint32_t>(depth);
-    float kd[3] = {0.f, 0.f, 0.f};
-    float hx = 0.f, hy = 0.f, hz = 0.f, snx = 0.f, sny = 0.f, snz = 0.f;
-    if (hit) {
-      const float* g = p.geo.tab + row * kCols;
-      float u, v;
-      woop<true>(g, r, &u, &v);
-      hx = r.ox + t * r.dx; hy = r.oy + t * r.dy; hz = r.oz + t * r.dz;
-      const float wb = 1.0f - u - v;
-      snx = wb * __ldg(g + C_N0) + u * __ldg(g + C_N1) + v * __ldg(g + C_N2);
-      sny = wb * __ldg(g + C_N0 + 1) + u * __ldg(g + C_N1 + 1) +
-            v * __ldg(g + C_N2 + 1);
-      snz = wb * __ldg(g + C_N0 + 2) + u * __ldg(g + C_N1 + 2) +
-            v * __ldg(g + C_N2 + 2);
-      norm3(snx, sny, snz);
-      // geometric normal: the Woop w-row rescaled by |n|
-      const float s = sqrtf(__ldg(g + 12));
-      const float gnx = __ldg(g + 6) * s, gny = __ldg(g + 7) * s,
-                  gnz = __ldg(g + 8) * s;
-      kd[0] = __ldg(g + C_KD); kd[1] = __ldg(g + C_KD + 1);
-      kd[2] = __ldg(g + C_KD + 2);
-      const float ke[3] = {__ldg(g + C_KE), __ldg(g + C_KE + 1),
-                           __ldg(g + C_KE + 2)};
-
-      // depth-0 emissive term: Ke * meshArea * dot(norm(d), -s_n)
-      float ndx = r.dx, ndy = r.dy, ndz = r.dz;
-      norm3(ndx, ndy, ndz);
-      const float cosv = -(ndx * snx + ndy * sny + ndz * snz);
-      const float em_scale = depth == 0 ? __ldg(g + C_AREA) * cosv : 0.0f;
-
-      float A[3] = {0.f, 0.f, 0.f};
-      float sum_scale = 0.f;
-      nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
-                   sny, snz, A, sum_scale);
-      {
-        float c[3];
-        bounce_contrib(T, ke, em_scale, kd, A, c);
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          if (kMode == kForwardLs) {
-            acc[ch] = __fadd_rn(acc[ch], c[ch]);
-            Ls[ch] = __fadd_rn(Ls[ch], c[ch]);
-          } else {
-            U[ch] = __fsub_rn(U[ch], c[ch]);
-          }
-        }
-        if (kMode == kReplay) {
-          // closed-form adjoints (pallas_prb.py replay_impl :201-238);
-          // p = max(kd) splits a tie evenly over the tied channels
-          const float p_max = fmaxf(fmaxf(kd[0], kd[1]), kd[2]);
-          const float inv_p = p_max > 0.0f ? 1.0f / p_max : 0.0f;
-          const float ties[3] = {kd[0] == p_max ? 1.f : 0.f,
-                                 kd[1] == p_max ? 1.f : 0.f,
-                                 kd[2] == p_max ? 1.f : 0.f};
-          const float tie_n = ties[0] + ties[1] + ties[2];
-          const float wU = w[0] * U[0] + w[1] * U[1] + w[2] * U[2];
-          const float amax_term = -inv_p * wU / fmaxf(tie_n, 1.0f);
-          const int mat = static_cast<int>(__ldg(g + C_MESH));
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            const float wT = w[ch] * T[ch];
-            const float g_kd =
-                wT * A[ch] +
-                (kd[ch] > 0.0f ? w[ch] * U[ch] / fmaxf(kd[ch], 1e-30f)
-                               : 0.0f) +
-                ties[ch] * amax_term;
-            atomicAdd(sacc + ch * kMLanes + mat, static_cast<double>(g_kd));
-            atomicAdd(sacc + (3 + ch) * kMLanes + mat,
-                      static_cast<double>(wT * em_scale));
-            ek[ch] += wT * kd[ch] * sum_scale;
-          }
-        }
-      }
-    }
-
-    // Russian roulette + cosine bounce
-    uint32_t a = upix, b = site_sd, c = 0x5EEDu, d = p.seed;
-    pcg4d(a, b, c, d);
-    const float u_rr = u01(a), u1 = u01(b), u2 = u01(c);
-    const float p_cont = fmaxf(fmaxf(kd[0], kd[1]), kd[2]);
-    if (hit && depth < p.max_depth && u_rr <= p_cont) {
-      const float inv_p = p_cont > 0.0f ? 1.0f / p_cont : 0.0f;
-      const float sin_th = sqrtf(u1);
-      const float cos_th = sqrtf(fmaxf(1.0f - u1, 0.0f));
-      const float psi = u2 * 6.28318548202514648f;  // float32(2 pi)
-      float t1x = snz, t1y = 0.0f, t1z = -snx;
-      if (t1x * t1x + t1z * t1z == 0.0f) {
-        t1x = -sny;
-        t1y = snx;
-      }
-      norm3(t1x, t1y, t1z);
-      const float btx = sny * t1z - snz * t1y;
-      const float bty = snz * t1x - snx * t1z;
-      const float btz = snx * t1y - sny * t1x;
-      const float ca = sin_th * cosf(psi);
-      const float cb = sin_th * sinf(psi);
-      r.dx = ca * t1x + cb * btx + cos_th * snx;
-      r.dy = ca * t1y + cb * bty + cos_th * sny;
-      r.dz = ca * t1z + cb * btz + cos_th * snz;
-      r.ox = hx + snx * kBias;
-      r.oy = hy + sny * kBias;
-      r.oz = hz + snz * kBias;
-      T[0] = T[0] * kd[0] * inv_p;
-      T[1] = T[1] * kd[1] * inv_p;
-      T[2] = T[2] * kd[2] * inv_p;
-      ++depth;
-    } else {
-      // terminate: regenerate as the lane's next sample
-      if (kMode == kForwardLs) {
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          p.ls[(3 * samp + ch) * n_pix + pix] = Ls[ch];
-          Ls[ch] = 0.f;
-        }
-      }
-      ++samp;
-      depth = 0;
-      T[0] = T[1] = T[2] = 1.0f;
-      if (samp < p.samples) {
-        primary(cam, p.seed, p.W, p.H, pix, samp, r);
-        if (kMode == kReplay) {
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            U[ch] = __ldg(p.ls + (3 * samp + ch) * n_pix + pix);
-        }
-      }
-    }
-  }
-  if (kMode != kReplay) {
-    const float inv_s = static_cast<float>(1.0 / p.samples);
-    float* out = p.out + 3 * (pix - p.pix_base);
-    out[0] = acc[0] * inv_s;
-    out[1] = acc[1] * inv_s;
-    out[2] = acc[2] * inv_s;
   }
 }
 

@@ -1,16 +1,20 @@
-// The persistent lane loop of the path megakernels: fused_path.cu (a
-// triangle table, kernel 1), bvh_path.cu (a BVH, kernel 8) and prb.cu's
-// training pair over a BVH (9a, the forward; 9b, the replay). The training
-// pair over a swept table (3a/3b) keeps fused_common.cuh's path_lane.
+// The persistent lane loop of the path megakernels, and the swept table's
+// geometry. `render_lanes` runs kernel 1 (fused_path.cu, a triangle table)
+// and kernel 8 (bvh_path.cu, a BVH), and prb.cu's two training pairs: 3a
+// and 3b over a triangle table, 9a and 9b over a BVH (the forward and the
+// replay of each). `RGeo` (below) is the table of kernels 1, 3a and 3b:
+// staged float4 rows and a division-free row test.
 //
 // `render_lanes` is the radiance / spp estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body: PCG4D-jittered primary
 // ray, nearest hit, depth-0 emission, next-event estimation (`nee` of
-// fused_common.cuh, fast-shadow or legacy form), Russian roulette on
+// fused_common.cuh, fast-shadow or legacy form; over a table the legacy
+// form is `nee_pairs`, the same terms), Russian roulette on
 // max(kd), cosine bounce, regeneration onto the pixel's next sample. The
-// geometry `G` supplies `nearest<kCols>` and the table of winner
-// attributes (`p.geo.tab`). Its mode (kRender, kForwardLs, kReplay) adds
-// the training pair's records at compile time.
+// geometry `G` (`RGeo`, or fused_common.cuh's `Tree`) supplies
+// `nearest<kCols>` and the table of winner attributes (`p.geo.tab`). Its
+// mode (kRender, kForwardLs, kReplay) adds the training pairs' records at
+// compile time.
 //
 // Persistent lanes. A thread renders one pixel's samples in sample order,
 // writes the pixel, and takes the next pixel from a global counter
@@ -35,6 +39,8 @@
 // and clear them.
 
 #pragma once
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -164,6 +170,252 @@ __device__ __forceinline__ void pc_exit(long long t_done) {
 #define ORION_PC_ARG
 #endif
 
+// ---------------------------------------------------------------------------
+// the swept table of kernels 1, 3a and 3b
+// ---------------------------------------------------------------------------
+
+// `Geo`'s [T_pad, 32] table and chunk AABBs under their own sweep
+// (`nearest` below). Tables up to one chunk (512 rows) are staged once per
+// resident block into shared memory (`stage_rows`): a row's first 16
+// floats (the 13 Woop floats) as four float4, read by broadcast as four
+// 128-bit loads, and only the rows up to the last real one (a padding row
+// has |n|^2 = 0), which the staging counts. Larger tables are read through
+// the read-only cache in 512-row chunks, each chunk's AABB slab-tested
+// against the lane's live segment [0, t_best) and skipped when the lane
+// cannot improve. The row test (`test_row`) works in the numerator domain:
+// with D = |dw| and n = t D, u D, v D sign-corrected by one xor each, it
+// needs no division per row, and a row replaces the best (n_b, D_b) iff
+// n D_b < n_b D; rows are swept in order, so ties keep the smaller row. The
+// winner's t = n_b / D_b is -ow / dw of that row, bit for bit as the Woop
+// test computes it. The legacy NEE of 3a/3b sweeps the same rows for two
+// shadow rays a pass (`nee_pairs`); the winner's u, v come from `woop` on
+// its global row.
+struct RGeo : Geo {};
+
+// Shared-memory image of a resident table: one float4 header (x: the rows
+// to sweep, as int bits), then per row its first 16 floats as four float4.
+__device__ __forceinline__ void stage_rows(const RGeo& g, float4* s) {
+  if (!g.resident()) return;
+  int* n_rows = reinterpret_cast<int*>(s);
+  if (threadIdx.x == 0) *n_rows = 0;
+  __syncthreads();
+  const float4* src = reinterpret_cast<const float4*>(g.tab);
+  for (int k = threadIdx.x; k < g.T_pad * 4; k += blockDim.x) {
+    const int row = k >> 2, q = k & 3;
+    const float4 v = __ldg(src + row * (kCols / 4) + q);
+    s[1 + k] = v;
+    if (q == 3 && v.x > 0.0f) atomicMax(n_rows, row + 1);  // |n|^2 > 0
+  }
+  __syncthreads();
+}
+
+// One row's test in the numerator domain (see RGeo); a = w0-3,
+// b = w4-7, c = w8-11, e.x = w12. Replaces (bn, bd, brow) when row k is
+// hit at t in [0, bn / bd).
+__device__ __forceinline__ void test_row(const float4 a, const float4 b,
+                                         const float4 c, const float4 e,
+                                         const Ray& r, int k, float& bn,
+                                         float& bd, int& brow) {
+  const float ou = a.x * r.ox + a.y * r.oy + a.z * r.oz + c.y;
+  const float ov = a.w * r.ox + b.x * r.oy + b.y * r.oz + c.z;
+  const float ow = b.z * r.ox + b.w * r.oy + c.x * r.oz + c.w;
+  const float du = a.x * r.dx + a.y * r.dy + a.z * r.dz;
+  const float dv = a.w * r.dx + b.x * r.dy + b.y * r.dz;
+  const float dw = b.z * r.dx + b.w * r.dy + c.x * r.dz;
+  const unsigned s = __float_as_uint(dw) & 0x80000000u;
+  const float n = __uint_as_float(__float_as_uint(ow) ^ s ^ 0x80000000u);
+  const float un = __uint_as_float(__float_as_uint(ou * dw - ow * du) ^ s);
+  const float vn = __uint_as_float(__float_as_uint(ov * dw - ow * dv) ^ s);
+  const float d = fabsf(dw);
+  const bool ok = (d * e.x > kMtEps) && (un >= 0.0f) && (vn >= 0.0f) &&
+                  (un + vn <= d) && (n >= 0.0f) && (n * bd < bn * d);
+  bn = ok ? n : bn;
+  bd = ok ? d : bd;
+  brow = ok ? k : brow;
+}
+
+// nearest row with t < cap (ties -> min row), or -1
+template <int kStride>
+__device__ __forceinline__ int nearest(const RGeo& g, const float* sgeo,
+                                       const Ray& r, float cap, float& t) {
+  float bn = cap, bd = 1.0f;
+  int row = -1;
+  if (g.resident()) {
+    const float4* rows = reinterpret_cast<const float4*>(sgeo) + 1;
+    const int n = *reinterpret_cast<const int*>(sgeo);
+#pragma unroll 2
+    for (int k = 0; k < n; ++k)
+      test_row(rows[4 * k], rows[4 * k + 1], rows[4 * k + 2],
+               rows[4 * k + 3], r, k, bn, bd, row);
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(g.tab);
+    for (int c = 0; c < g.n_chunks; ++c) {
+      if (!box_reachable(g, c, r, row < 0 ? cap : bn / bd)) continue;
+      for (int k = c * kChunk; k < (c + 1) * kChunk; ++k) {
+        const float4* w = src + k * (kCols / 4);
+        test_row(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3), r, k,
+                 bn, bd, row);
+      }
+    }
+  }
+  t = row < 0 ? cap : bn / bd;
+  return row;
+}
+
+// The winners (row with t < cap, ties -> min row, or -1) of two rays of
+// one origin, in one pass over the rows: each row is loaded once and
+// tested against both rays, and each ray keeps its own best, chunk cull
+// included, so each winner is nearest()'s for that ray bit for bit.
+__device__ __forceinline__ void nearest_pair(const RGeo& g, const float* sgeo,
+                                             const Ray& r0, const Ray& r1,
+                                             float cap, int& w0, int& w1) {
+  float bn0 = cap, bd0 = 1.0f, bn1 = cap, bd1 = 1.0f;
+  w0 = w1 = -1;
+  if (g.resident()) {
+    const float4* rows = reinterpret_cast<const float4*>(sgeo) + 1;
+    const int n = *reinterpret_cast<const int*>(sgeo);
+    for (int k = 0; k < n; ++k) {
+      const float4 a = rows[4 * k], b = rows[4 * k + 1], c = rows[4 * k + 2],
+                   e = rows[4 * k + 3];
+      test_row(a, b, c, e, r0, k, bn0, bd0, w0);
+      test_row(a, b, c, e, r1, k, bn1, bd1, w1);
+    }
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(g.tab);
+    for (int c = 0; c < g.n_chunks; ++c) {
+      const bool k0 = box_reachable(g, c, r0, w0 < 0 ? cap : bn0 / bd0);
+      const bool k1 = box_reachable(g, c, r1, w1 < 0 ? cap : bn1 / bd1);
+      if (!k0 && !k1) continue;
+      for (int k = c * kChunk; k < (c + 1) * kChunk; ++k) {
+        const float4* w = src + k * (kCols / 4);
+        const float4 a = __ldg(w), b = __ldg(w + 1), cc = __ldg(w + 2),
+                     e = __ldg(w + 3);
+        if (k0) test_row(a, b, cc, e, r0, k, bn0, bd0, w0);
+        if (k1) test_row(a, b, cc, e, r1, k, bn1, bd1, w1);
+      }
+    }
+  }
+}
+
+// One light sample of the legacy NEE: the sampled emitter triangle `L`,
+// the shadow ray's direction s (unnormalised, to the sampled point), its
+// normalised copy l and cos at the surface. `nee`'s arithmetic, op by op
+// (nee does not call these two: written over them, it compiled kernel 8
+// with other registers, PERF.md).
+struct ShadowDraw {
+  const float* L;
+  float sdx, sdy, sdz, ldx, ldy, ldz, cos_s;
+};
+
+template <class P>
+__device__ __forceinline__ ShadowDraw shadow_draw(
+    const P& p, const float* E, int count, uint32_t upix, uint32_t site_sd,
+    int site, float hx, float hy, float hz, float snx, float sny,
+    float snz) {
+  uint32_t a = upix, b = site_sd,
+           c = 0x11u + 0x101u * static_cast<uint32_t>(site), d = p.seed;
+  pcg4d(a, b, c, d);
+  const float ut = u01(a), ua = u01(b), ub = u01(c);
+  const int sel = min(static_cast<int>(ut * static_cast<float>(count)),
+                      count - 1);
+  ShadowDraw s;
+  s.L = E + kEmHeader + kEmTri * sel;
+  const float* L = s.L;
+  const bool flip = (ua + ub) > 1.0f;
+  const float la = flip ? 1.0f - ua : ua;
+  const float lb = flip ? 1.0f - ub : ub;
+  s.sdx = __ldg(L + 0) + la * __ldg(L + 3) + lb * __ldg(L + 6) - hx;
+  s.sdy = __ldg(L + 1) + la * __ldg(L + 4) + lb * __ldg(L + 7) - hy;
+  s.sdz = __ldg(L + 2) + la * __ldg(L + 5) + lb * __ldg(L + 8) - hz;
+  s.ldx = s.sdx; s.ldy = s.sdy; s.ldz = s.sdz;
+  norm3(s.ldx, s.ldy, s.ldz);
+  s.cos_s = snx * s.ldx + sny * s.ldy + snz * s.ldz;
+  return s;
+}
+
+// The light sample's term, its shadow winner `srow` given: nothing unless
+// the winner lies on the sampled mesh; else the light normal at the
+// winner's u, v and its emitted color, added to A and sum(scale) as `nee`
+// adds them.
+template <class P>
+__device__ __forceinline__ void shadow_term(const P& p, const ShadowDraw& s,
+                                            const Ray& sray, int srow,
+                                            float mesh, float inv_ls,
+                                            float A[3], float& sum_scale) {
+  if (srow < 0) return;
+  const float* gs = p.geo.tab + srow * kCols;
+  if (__ldg(gs + C_MESH) != mesh) return;
+  float su, sv;
+  woop<true>(gs, sray, &su, &sv);
+  const float sw = 1.0f - su - sv;
+  float lnx = sw * __ldg(gs + C_N0) + su * __ldg(gs + C_N1) +
+              sv * __ldg(gs + C_N2);
+  float lny = sw * __ldg(gs + C_N0 + 1) + su * __ldg(gs + C_N1 + 1) +
+              sv * __ldg(gs + C_N2 + 1);
+  float lnz = sw * __ldg(gs + C_N0 + 2) + su * __ldg(gs + C_N1 + 2) +
+              sv * __ldg(gs + C_N2 + 2);
+  norm3(lnx, lny, lnz);
+  const float ske0 = __ldg(gs + C_KE), ske1 = __ldg(gs + C_KE + 1),
+              ske2 = __ldg(gs + C_KE + 2);
+  const float cos_l = -(lnx * s.ldx + lny * s.ldy + lnz * s.ldz);
+  const float geom = fmaxf(s.cos_s * cos_l, 0.0f);
+  const float d2 = s.sdx * s.sdx + s.sdy * s.sdy + s.sdz * s.sdz;
+  const float scale = geom * __ldg(s.L + 9) / (1.0f + d2) * inv_ls;
+  A[0] = __fadd_rn(A[0], __fmul_rn(ske0, scale));
+  A[1] = __fadd_rn(A[1], __fmul_rn(ske1, scale));
+  A[2] = __fadd_rn(A[2], __fmul_rn(ske2, scale));
+  sum_scale = __fadd_rn(sum_scale, scale);
+}
+
+// `nee<true>` over a swept table, two light samples a sweep
+// (nearest_pair; an odd last sample sweeps alone): the same draws,
+// winners and terms, added in the same order, so A and sum(scale) are
+// nee<true>'s bit for bit.
+template <class P>
+__device__ __forceinline__ void nee_pairs(const P& p, const float* sgeo,
+                                          uint32_t upix, uint32_t site_sd,
+                                          float hx, float hy, float hz,
+                                          float gnx, float gny, float gnz,
+                                          float snx, float sny, float snz,
+                                          float A[3], float& sum_scale) {
+  const float inv_ls = static_cast<float>(1.0 / p.light_samples);
+  Ray r0, r1;
+  r0.ox = r1.ox = hx + kBias * gnx;
+  r0.oy = r1.oy = hy + kBias * gny;
+  r0.oz = r1.oz = hz + kBias * gnz;
+  for (int mi = 0; mi < p.n_em; ++mi) {
+    const float* E = p.em + mi * kEmStride;
+    const float mesh = __ldg(E);
+    const int count = static_cast<int>(__ldg(E + 1));
+    for (int ls = 0; ls < p.light_samples; ls += 2) {
+      const bool two = ls + 1 < p.light_samples;
+      const int site = ls + p.light_samples * mi;
+      const ShadowDraw s0 = shadow_draw(p, E, count, upix, site_sd, site, hx,
+                                        hy, hz, snx, sny, snz);
+      const ShadowDraw s1 = shadow_draw(p, E, count, upix, site_sd,
+                                        two ? site + 1 : site, hx, hy, hz,
+                                        snx, sny, snz);
+      r0.dx = s0.sdx; r0.dy = s0.sdy; r0.dz = s0.sdz;
+      r1.dx = s1.sdx; r1.dy = s1.sdy; r1.dz = s1.sdz;
+      int w0, w1 = -1;
+      if (two) {
+        nearest_pair(p.geo, sgeo, r0, r1, kNeeTCap, w0, w1);
+      } else {
+        float ts;
+        w0 = nearest<kCols>(p.geo, sgeo, r0, kNeeTCap, ts);
+      }
+      shadow_term(p, s0, r0, w0, mesh, inv_ls, A, sum_scale);
+      if (two) shadow_term(p, s1, r1, w1, mesh, inv_ls, A, sum_scale);
+    }
+  }
+}
+
+// dynamic shared memory of a launch over `g`: stage_rows' image of a
+// resident table
+inline size_t staged_bytes(const RGeo& g) {
+  return g.resident() ? sizeof(float4) * (1 + 4 * g.T_pad) : 0;
+}
+
 // the next pixel lane for every active thread of the warp: one atomic for
 // all of them, consecutive lanes in lane order
 __device__ __forceinline__ int take_lane(int* next) {
@@ -215,19 +467,19 @@ __device__ __forceinline__ void add_adjoint(double* sacc, int mat,
 
 // Persistent lanes: run pixels p.pix_base + [0, n_lanes), each taken from
 // *next (zero at launch). kLegacy picks the NEE form (false: the fast
-// shadow test of kernel 1; true: the legacy NEE of kernels 8, 9a, 9b).
-// kMode:
+// shadow test of kernel 1; true: the legacy NEE of kernels 8, 3a, 3b, 9a,
+// 9b). kMode:
 //   kRender    : write each pixel's radiance / spp to p.out (kernels 1, 8);
 //   kForwardLs : the same, with each bounce's contribution rounded op by op
 //                (bounce_contrib), plus each sample's radiance L_s to
-//                p.ls[(3 s + c) * W H + pix] (kernel 9a);
+//                p.ls[(3 s + c) * W H + pix] (kernels 3a, 9a);
 //   kReplay    : start U at L_s when a sample begins, subtract each
 //                bounce's contribution (the forward's own arithmetic) and
 //                add the closed-form material adjoints of the pixel's
 //                adjoint p.w (read at each hit, not held in registers) to
 //                the block's accumulator `sacc` (add_adjoint)
 //                and the NEE emitted-color adjoint to the thread's `ek`
-//                (kernel 9b).
+//                (kernels 3b, 9b).
 // The training modes are compile-time branches that kRender drops.
 template <bool kLegacy, int kMode, class P>
 __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
@@ -246,7 +498,9 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
   primary(cam, p.seed, p.W, p.H, pix, 0, r);
   float T[3] = {1.f, 1.f, 1.f};
   float acc[3] = {0.f, 0.f, 0.f};
-  const int n_pix = p.W * p.H;      // the training modes' plane stride
+  // the training modes' plane stride; a plane's offset (3 s + c) W H + pix
+  // is taken in 64 bits (3 S W H passes 2^31 from 22.4 M pixels at 32 spp)
+  const size_t n_pix = static_cast<size_t>(p.W * p.H);
   float Ls[3] = {0.f, 0.f, 0.f};    // this sample's radiance (forward)
   float U[3] = {0.f, 0.f, 0.f};     // remaining radiance (replay)
   if constexpr (kMode == kReplay) {
@@ -299,8 +553,12 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
       float sum_scale = 0.f;
       ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);
                const long long pc1 = clock64();)
-      nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
-                   sny, snz, A, sum_scale);
+      if constexpr (kLegacy && std::is_same_v<decltype(P::geo), RGeo>)
+        nee_pairs(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
+                  sny, snz, A, sum_scale);
+      else
+        nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
+                     sny, snz, A, sum_scale);
       ORION_PC(pc.nee += clock64() - pc1;)
       if constexpr (kMode == kRender) {
         float rr = ke[0] * em_scale, rg = ke[1] * em_scale,

@@ -25,6 +25,11 @@ jnp.maximum splits that tie 1/4, 1/4, 1/2 instead. Both are valid
 subgradients; the port's AD oracle (`fused_path.fused_reference_render`)
 takes torch.amax, whose backward splits evenly like the kernel.
 
+Both kernels (3a, 3b) are `csrc/prb.cu`'s instantiations of the render
+kernel's persistent lane loop (`csrc/render_lane.cuh`) over its staged
+table sweep: each launch is handed a zeroed int32 pixel counter, as
+ops/fused_path.py hands kernel 1 one.
+
 The wrappers take the plain versions only for CPU tensors; for CUDA
 tensors they launch the kernels or raise. `FusedPathPRB` is the
 autograd.Function over the pair: its forward launches the training
@@ -49,11 +54,9 @@ M_LANES = 128     # materials the replay's accumulator holds
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 FWD_KERNEL = CudaKernel("prb", "prb_fwd_ls_launch",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P])
+                        [_P] * 8 + [_I] * 9 + [_P])
 REPLAY_KERNEL = CudaKernel("prb", "prb_replay_launch",
-                           [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P])
+                           [_P] * 9 + [_I] * 10 + [_P])
 
 
 def fused_train_supported(scene: Scene, samples: int = 1) -> bool:
@@ -167,11 +170,12 @@ def fused_fwd_ls(tab, clo, chi, em, cam, seed: int, W: int, H: int,
     img = torch.empty((n, 3), dtype=torch.float32, device=tab.device)
     planes = torch.empty((3 * samples, n), dtype=torch.float32,
                          device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     FWD_KERNEL.launch(cam.data_ptr(), tab.data_ptr(), clo.data_ptr(),
                       chi.data_ptr(), em.data_ptr(), img.data_ptr(),
-                      planes.data_ptr(), tab.shape[0], clo.shape[0],
-                      em.shape[0], W, H, samples, max_depth, light_samples,
-                      _seed32(seed), stream_ptr(tab.device))
+                      planes.data_ptr(), nxt.data_ptr(), tab.shape[0],
+                      clo.shape[0], em.shape[0], W, H, samples, max_depth,
+                      light_samples, _seed32(seed), stream_ptr(tab.device))
     return img, planes.t()
 
 
@@ -203,12 +207,13 @@ def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
                   (("w", w, (n, 3)), ("ls", planes, (3 * samples, n))))
     em_mesh = _emitter_column("prb_replay", tab, em)
     out = torch.zeros((6, M_LANES), dtype=torch.float64, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     REPLAY_KERNEL.launch(cam.data_ptr(), tab.data_ptr(), clo.data_ptr(),
                          chi.data_ptr(), em.data_ptr(), w.data_ptr(),
-                         planes.data_ptr(), out.data_ptr(), tab.shape[0],
-                         clo.shape[0], em.shape[0], W, H, samples,
-                         max_depth, light_samples, _seed32(seed), em_mesh,
-                         stream_ptr(tab.device))
+                         planes.data_ptr(), out.data_ptr(), nxt.data_ptr(),
+                         tab.shape[0], clo.shape[0], em.shape[0], W, H,
+                         samples, max_depth, light_samples, _seed32(seed),
+                         em_mesh, stream_ptr(tab.device))
     return out.to(torch.float32)
 
 

@@ -128,18 +128,20 @@ def test_compare_hitdata_counts_lanes_by_row():
 
 
 def test_sass_diff_keeps_every_untouched_kernel():
-    """The kernels a redesign of 6a and 6c must leave alone: 1, 8, 3a, 3b,
-    9a, 9b, 10, and 6b's visibility and draw kernels; more are named as
-    source:kernel[:also]."""
+    """The kernels a redesign of other kernels must leave alone: 1, 8,
+    9a, 9b, 10, 11, 6a, 6b's visibility and draw kernels and 6c; more are
+    named as source:kernel[:also]."""
     names = {(s, k) for s, k, _ in sass_diff.KERNELS}
     for want in (("fused_path", "fused_path_kernel"),
                  ("bvh_path", "bvh_path_kernel"),
-                 ("prb", "prb_fwd_ls_kernel"), ("prb", "prb_replay_kernel"),
                  ("prb", "bvh_prb_fwd_kernel"),
                  ("prb", "bvh_prb_replay_kernel"),
                  ("binned", "binned_round_kernel"),
+                 ("bvh_g8", "bvh_g8_kernel"),
+                 ("bounce", "bounce_walk_kernel"),
                  ("bounce", "bounce_vis_kernel"),
-                 ("bounce", "bounce_draw_kernel")):
+                 ("bounce", "bounce_draw_kernel"),
+                 ("bounce", "bounce_shade_kernel")):
         assert want in names
     more = sass_diff.parse_kernels(["bounce:bounce_shade_kernel:Lb0ELb0E"])
     assert more[-1] == ("bounce", "bounce_shade_kernel", ("Lb0ELb0E",))

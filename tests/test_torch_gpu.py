@@ -62,8 +62,8 @@ from torch_port_util import cuda_device  # noqa: F401  (fixture)
 from torch_port_util import regroup_meshes
 
 
-def _scene(tmp_path, device, name):
-    sc, rtc = load_scene(write_cornell(tmp_path, xres=32, yres=24),
+def _scene(tmp_path, device, name, xres=32, yres=24):
+    sc, rtc = load_scene(write_cornell(tmp_path, xres=xres, yres=yres),
                          device=device)
     if name.startswith("levels-"):
         sc = subdivide_scene(sc, levels=int(name[-1]))
@@ -117,17 +117,23 @@ def _images_agree(k, p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["cornell", "levels-2"])
-def test_prb_kernels_match_plain(tmp_path, cuda_device, name):
-    sc, cam = _scene(tmp_path, cuda_device, name)
+@pytest.mark.parametrize("name,W,H", [("cornell", 32, 24),
+                                      ("levels-2", 32, 24),
+                                      ("levels-4", 32, 24),
+                                      ("cornell", 33, 17)])
+def test_prb_kernels_match_plain(tmp_path, cuda_device, name, W, H):
+    """3a and 3b against their plain versions: a resident table, tables of
+    2 and 18 chunks, and 33x17 pixels (no multiple of a warp or a block:
+    the persistent lanes' last warp takes a partial set of pixels)."""
+    sc, cam = _scene(tmp_path, cuda_device, name, W, H)
     args = fp.fused_args(sc, cam)
-    cfg = (32, 24, 4, 4, 2)
+    cfg = (W, H, 4, 4, 2)
     before = (prb.FWD_KERNEL.launches, prb.REPLAY_KERNEL.launches)
     img_k, ls_k = prb.fused_fwd_ls(*args, 99, *cfg)
     img_p, ls_p = fp.fused_fwd_ls_plain(*args, 99, *cfg)
     _images_agree(img_k, img_p)
     _images_agree(ls_k, ls_p)
-    w = (img_p * 0.5 + 0.01).contiguous() / (32 * 24 * 3 * 4)
+    w = (img_p * 0.5 + 0.01).contiguous() / (W * H * 3 * 4)
     g_k = prb.prb_replay(*args, 99, w, ls_k, *cfg)
     torch.cuda.synchronize()
     assert (prb.FWD_KERNEL.launches, prb.REPLAY_KERNEL.launches) == (
@@ -137,6 +143,91 @@ def test_prb_kernels_match_plain(tmp_path, cuda_device, name):
     scale = g_p.abs().max()
     assert scale > 0
     assert (g_k - g_p).abs().max() <= 1e-3 * scale
+
+
+def _prb_big(tmp_path, device, W, H):
+    sc, cam = _scene(tmp_path, device, "cornell", W, H)
+    return fp.fused_args(sc, cam)
+
+
+@pytest.mark.gpu
+def test_prb_forward_is_deterministic(tmp_path, cuda_device):
+    """More pixels than the card holds threads: every thread of 3a runs
+    several pixels, taken from the lane counter in an order that varies
+    from launch to launch, and two launches of one seed give the same
+    image and per-sample radiance bit for bit."""
+    args = _prb_big(tmp_path, cuda_device, 480, 480)
+    cfg = (480, 480, 2, 3, 2)
+    img, ls = prb.fused_fwd_ls(*args, 17, *cfg)
+    img2, ls2 = prb.fused_fwd_ls(*args, 17, *cfg)
+    torch.cuda.synchronize()
+    assert img.mean() > 0
+    assert torch.equal(img, img2) and torch.equal(ls, ls2)
+
+
+@pytest.mark.gpu
+def test_prb_replays_agree(tmp_path, cuda_device):
+    """Two replays of one forward sum the same float terms in double, in
+    an order of atomics that varies from launch to launch: their float32
+    outputs agree within 1e-6 of the largest entry."""
+    args = _prb_big(tmp_path, cuda_device, 480, 480)
+    cfg = (480, 480, 2, 3, 2)
+    img, ls = prb.fused_fwd_ls(*args, 17, *cfg)
+    w = ((img - 0.05) * (2.0 / (480 * 480 * 3 * 2))).contiguous()
+    g1 = prb.prb_replay(*args, 17, w, ls, *cfg)
+    g2 = prb.prb_replay(*args, 17, w, ls, *cfg)
+    torch.cuda.synchronize()
+    scale = float(g1.abs().max())
+    assert scale > 0
+    assert (g1 - g2).abs().max() <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_prb_info_reports_the_built_blocks(tmp_path, cuda_device):
+    """prb.cu's kernel_info of 3a and 3b at the Cornell box's staged
+    table: at least the resident blocks an SM that __launch_bounds__
+    asks for (the constexpr kTableBlocks), and no more than the shared
+    memory of a block (the replay's 6 KB accumulator and the staged rows)
+    leaves room for at 512 rows."""
+    import re
+
+    blocks = int(re.search(r"constexpr int kTableBlocks = (\d+);",
+                           (cuda_build.CSRC / "prb.cu").read_text())[1])
+    sc, cam = _scene(tmp_path, cuda_device, "cornell")
+    t_pad = int(fp.fused_args(sc, cam)[0].shape[0])
+    cuda_build.build(["prb"])
+    lib = ctypes.CDLL(str(cuda_build.lib_path("prb")))
+    out = (ctypes.c_int * 4)()
+    for which in (0, 1):
+        assert lib.prb_info(which, t_pad, out) == 0
+        assert out[0] >= blocks, (which, list(out))
+        assert out[1] <= 65536 // (blocks * 128)
+        assert lib.prb_info(which, 512, out) == 0
+        smem = 16 * (1 + 4 * 512) + (6 * 1024 if which else 0)
+        assert out[0] <= 228 * 1024 // smem
+
+
+@pytest.mark.gpu
+def test_prb_planes_past_2_31_floats(tmp_path, cuda_device):
+    """6144x3840 at 32 spp: the forward's 96 radiance planes hold 2.26e9
+    floats (9 GB), so the last planes start past 2^31 floats and their
+    offsets need 64 bits. Every plane is written (finite; the image is the
+    mean of the samples' planes) and the last sample's planes have the
+    first's means within the estimator's noise (1e-2 relative)."""
+    W, H, S = 6144, 3840, 32
+    args = _prb_big(tmp_path, cuda_device, W, H)
+    img, ls = prb.fused_fwd_ls(*args, 5, W, H, S, 0, 2)
+    planes = ls.t()                                 # [3 S, W H], a view
+    torch.cuda.synchronize()
+    assert 3 * S * W * H > 2**31 and (3 * S - 1) * W * H > 2**31
+    means = torch.stack([p.double().mean() for p in planes])
+    assert all(bool(torch.isfinite(p).all()) for p in planes[-6:])
+    assert torch.isfinite(means).all()
+    first, last = means[:3], means[-3:]
+    assert (first > 0).all()
+    assert torch.allclose(last, first, rtol=1e-2)
+    per_ch = means.reshape(S, 3).mean(dim=0)
+    assert torch.allclose(img.double().mean(dim=0), per_ch, rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -151,3 +151,160 @@ def test_report_of_recorded_replay_counters(capsys):
     assert "adjoint accumulation: 0.0386 of a thread's cycles" in out
     assert "20.2805 active lanes, 5.3929 distinct materials" in out
     assert "collision degree 7.1288, largest group 8.8687" in out
+
+
+@pytest.mark.parametrize("argv,kernels,root", [
+    ([], {"1", "8", "9", "3"}, None),
+    (["3"], {"3"}, None),
+    (["9", "3", "--root", "_archive/old"], {"9", "3"}, "_archive/old"),
+])
+def test_parse_args_names_kernels_and_a_checkout(argv, kernels, root):
+    """`path_probe.py [1] [8] [9] [3] [--root CHECKOUT]`: the kernels
+    named, all four when none is; the checkout to probe, or this one."""
+    args = path_probe.parse_args(argv)
+    assert args.kernels == kernels
+    assert (args.root is None if root is None else str(args.root) == root)
+
+
+def test_parse_args_refuses_an_unknown_kernel():
+    with pytest.raises(SystemExit):
+        path_probe.parse_args(["4"])
+
+
+@pytest.mark.parametrize("pair,constant", [("3", "kTableBlocks"),
+                                           ("9", "kTreeBlocks")])
+def test_sweep_rewrites_the_blocks_constant(tmp_path, pair, constant):
+    """The sweep's copies of csrc/prb.cu differ from it in the line of
+    the pair's `constexpr int` alone, one copy a value of TRAIN_BLOCKS;
+    prb.cu sets each pair's blocks by such a constexpr, with no -D knob."""
+    from orion_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "prb.cu").read_text()
+    assert "#ifndef" not in src and "ORION_PRB_BLOCKS" not in src
+    assert path_probe.BLOCKS_CONSTANT[pair] == constant
+    assert not path_probe.prb_sources(cuda_build.CSRC, tmp_path)
+    assert (tmp_path / "prb.cu").read_text() == src
+    assert (tmp_path / "render_lane.cuh").exists()
+    copies = path_probe.sweep_sources(tmp_path, pair)
+    assert sorted(copies) == sorted(path_probe.TRAIN_BLOCKS)
+    assert {6, 10, 12} <= set(copies)
+    for blocks, cu in copies.items():
+        out = cu.read_text()
+        diff = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
+                if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        assert len(diff) <= 1
+        assert f"constexpr int {constant} = {blocks};" in out
+
+
+def _path_lane_checkout():
+    """The layout of a checkout whose 3a/3b run fused_common.cuh's
+    one-thread-a-pixel path_lane: each text that hook_path_lane replaces,
+    once, around lines of its own."""
+    lane = "\n".join(["// One pixel lane, until its sample index reaches "
+                      "p.samples. kReplay reads",
+                      "template <bool kLegacy, int kMode, class P>",
+                      "__device__ __forceinline__ void path_lane(const P& p,",
+                      "    const float* sgeo, int pix,",
+                      "    " + path_probe.LANE_HOOKS[0][0]]
+                     + [old for old, _ in path_probe.LANE_HOOKS[1:]]
+                     + ["}", "", ""])
+    fused_common = ("#pragma once\nnamespace orion {\nstruct Geo {};\n"
+                    + lane + "}  // namespace orion\n")
+    render_lane = ("#pragma once\n#include \"fused_common.cuh\"\n"
+                   "namespace orion {\nstruct LaneCounters {};\n"
+                   + path_probe.RENDER_LANE_END + "extern \"C\" int f();\n"
+                   "#endif\n")
+    prb = ("#include \"render_lane.cuh\"\nvoid fwd() {\n"
+           + "\n".join(old for old, _ in path_probe.KERNEL_HOOKS) + "}\n")
+    return {"fused_common.cuh": fused_common,
+            "render_lane.cuh": render_lane, "prb.cu": prb}
+
+
+def test_hook_path_lane_moves_the_lane_and_puts_in_hooks(tmp_path):
+    """A path_lane checkout's copy: path_lane leaves fused_common.cuh for
+    the end of render_lane.cuh's namespace (after the counters), with
+    every hook of render_lanes (loop SIMT, nearest and NEE cycles, NEE
+    SIMT, the replay's accumulation and collisions, the tail); the
+    kernels count and flush per thread, and prb.cu gains prb_info. A
+    text not found once raises."""
+    files = _path_lane_checkout()
+    out = path_probe.hook_path_lane(files)
+    assert "path_lane" not in out["fused_common.cuh"]
+    assert out["fused_common.cuh"].endswith("}  // namespace orion\n")
+    rl = out["render_lane.cuh"]
+    assert rl.index("struct LaneCounters") < rl.index("path_lane(") \
+        < rl.index("#ifdef ORION_PATH_COUNTERS")
+    for hook in ("ORION_PC_ARG", "pc_warp_vote(pc.iters, pc.iter_lanes)",
+                 "pc.nearest += clock64() - pc0",
+                 "pc_warp_vote(pc.nee_iters, pc.nee_lanes)",
+                 "pc.nee += clock64() - pc1", "pc_acc_vote(pc, mat)",
+                 "pc.acc += clock64() - pc2", "pc.t_done = clock64()"):
+        assert rl.count(hook) == 1, hook
+    prb = out["prb.cu"]
+    assert prb.count("pc_exit(pc.t_done)") == 2
+    assert prb.count("pc_flush(pc)") == 2
+    assert 'extern "C" int prb_info(int which, int T_pad, int* out)' in prb
+    # the forward's uninstrumented branch is the checkout's own code
+    assert path_probe.KERNEL_HOOKS[0][0] in prb
+    # prb_sources applies it to a checkout of path_lane
+    src = tmp_path / "old"
+    src.mkdir()
+    for name, text in files.items():
+        (src / name).write_text(text)
+    assert path_probe.prb_sources(src, tmp_path / "copy")
+    assert (tmp_path / "copy" / "prb.cu").read_text() == prb
+    files["prb.cu"] = files["prb.cu"].replace("if (pix >= p.W * p.H)", "")
+    with pytest.raises(ValueError, match="prb.cu: 0 matches"):
+        path_probe.hook_path_lane(files)
+
+
+def test_prb_ab_cornell_case_on_cpu(tmp_path):
+    """tools/prb_ab.py's Cornell pair at a CPU size: the red wall problem
+    on the Cornell box through make_fused_train_step (the plain versions
+    on CPU tensors), the forward's image and planes, the MSE cotangent
+    and a step's loss and gradients."""
+    import torch
+
+    from orion_tpu_torch.ops import prb
+    from tools import prb_ab
+
+    shapes = dict(xres=8, yres=6, samples=2, depth=2)
+    c = prb_ab.cornell_case(tmp_path, "cpu", shapes=shapes)
+    assert isinstance(c["plan"], prb.PRBPlan)
+    assert (c["plan"].W, c["plan"].H, c["plan"].samples) == (8, 6, 2)
+    assert c["tab"].shape[1] == 32 and c["tab"].device.type == "cpu"
+    assert c["img"].shape == (48, 3) and c["ls"].shape == (48, 6)
+    assert c["w"].shape == (48, 3) and c["w"].is_contiguous()
+    assert c["img"].mean() > 0
+    red = int(torch.argmax(c["params"]["mat_diffuse"][:, 0]
+                           - c["params"]["mat_diffuse"][:, 1]))
+    loss, grads = c["step"](c["params"], 3)
+    assert float(loss) > 0 and set(grads) == {"mat_diffuse", "mat_emissive"}
+    assert torch.isfinite(grads["mat_diffuse"]).all()
+    assert float(grads["mat_diffuse"][red].abs().sum()) > 0
+    assert [p[:2] for p in prb_ab.PAIRS] == [("3a", "3b"), ("9a", "9b")]
+
+
+def test_sass_diff_lists_every_instantiation():
+    """sass_diff's kernels: 1, 8, 9a, 9b, 10, both G8 walks (any hit or
+    not), 6a, 6b's two kernels and the four shade instantiations, each
+    picked by a string that one mangled name alone contains; 3a and 3b,
+    which this redesign changes, are not listed."""
+    from tools import sass_diff
+
+    names = {(s, k, a) for s, k, a in sass_diff.KERNELS}
+    assert len(names) == len(sass_diff.KERNELS) == 14
+    assert not {k for _, k, _ in names} & {"prb_fwd_ls_kernel",
+                                           "prb_replay_kernel"}
+    assert ("bounce", "bounce_walk_kernel", ()) in names
+    assert ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)) in names
+    funcs = {f"_ZN12_GLOBAL__N_119bounce_shade_kernelILb{a}ELb{v}EEEvN5o"
+             f"rion12BounceParamsEPf": [f"{a}{v}"]
+             for a in (0, 1) for v in (0, 1)}
+    funcs.update({f"_ZN12_GLOBAL__N_113bvh_g8_kernelILb{a}EEEvPKf": [str(a)]
+                  for a in (0, 1)})
+    for src, kernel, also in sass_diff.KERNELS:
+        if kernel in ("bounce_shade_kernel", "bvh_g8_kernel"):
+            got = sass_diff.pick(funcs, kernel, also)
+            assert got == ["".join(c for c in also[0] if c.isdigit())]

@@ -12,7 +12,11 @@
 - `red_wall(scene)` and `red_wall_problem(...)`: the train problem of
   chip_smoke.py phases 7 (b), 11 (c) and 12 (c): the scene prepared at
   chip_smoke.TRAIN's shapes, its target rendered with the true albedos,
-  and the red wall's albedo x 0.6.
+  and the red wall's albedo x 0.6; `train_case(...)`: a training pair's
+  step over that problem with what its kernels are timed on;
+- `with_constant(src, name, value)`: a source's text with one
+  `constexpr int` set to another value (the probes' sweeps build such
+  rewritten copies).
 
 `chip_smoke` and `orion_tpu_torch` are imported inside the functions, so
 an A/B run uses the checkout its `--one` put first on sys.path.
@@ -20,6 +24,7 @@ an A/B run uses the checkout its `--one` put first on sys.path.
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
 import sys
@@ -103,18 +108,53 @@ def red_wall(scene) -> tuple:
     return kd, dataclasses.replace(scene, mat_diffuse=kd)
 
 
-def red_wall_problem(rtc, device, render, seed: int = TRAIN_SEED) -> dict:
+def red_wall_problem(rtc, device, render, seed: int = TRAIN_SEED,
+                     shapes: dict | None = None) -> dict:
     """The scene of `rtc` prepared on `device` at chip_smoke.TRAIN's
     resolution, and: `cfg` (samples, max_depth, light_samples of TRAIN),
     `target` = render(scene, camera, **cfg)(seed) of the true scene, and
-    `kd`, `scene` of red_wall."""
+    `kd`, `scene` of red_wall. `shapes` overrides entries of TRAIN (the
+    CPU tests' small problems)."""
     from chip_smoke import TRAIN
+
     from orion_tpu_torch import engine
 
-    cfg = dict(samples=TRAIN["samples"], max_depth=TRAIN["depth"],
-               light_samples=TRAIN["light_samples"])
-    ps = engine.prepare(rtc, device=device, xres=TRAIN["xres"],
-                        yres=TRAIN["yres"])
+    sh = {**TRAIN, **(shapes or {})}
+    cfg = dict(samples=sh["samples"], max_depth=sh["depth"],
+               light_samples=sh["light_samples"])
+    ps = engine.prepare(rtc, device=device, xres=sh["xres"], yres=sh["yres"])
     target = render(ps.scene, ps.camera, **cfg)(seed)
     kd, scene = red_wall(ps.scene)
     return dict(ps=ps, cfg=cfg, target=target, kd=kd, scene=scene)
+
+
+def train_case(pr: dict, make_step, seed: int = TRAIN_SEED, **kw) -> dict:
+    """A training pair's step over red_wall_problem's `pr`:
+    make_step(scene, camera, target, dynamic_params=True, **cfg, **kw)
+    (ops/prb.make_fused_train_step for 3a/3b, ops/bvh_prb.
+    make_bvh_train_step for 9a/9b) and what its kernels are timed on:
+    `step`, `params` (the perturbed albedos, the emission), the step's
+    `plan`, its table `tab`, the forward's `img` and `ls` of `seed`, and
+    `w`, the MSE cotangent of that image a lane (2 (img - target) /
+    (H W 3 S))."""
+    kd, pert, target = pr["kd"], pr["scene"], pr["target"]
+    step = make_step(pert, pr["ps"].camera, target, dynamic_params=True,
+                     **pr["cfg"], **kw)
+    plan = step.plan
+    tab = plan.table(kd, pert.mat_emissive)
+    img, ls = plan.forward(tab, seed)
+    W, H, S = plan.W, plan.H, plan.samples
+    w = ((img.reshape(H, W, 3) - target) * (2.0 / (H * W * 3 * S))
+         ).reshape(-1, 3).contiguous()
+    return dict(step=step, plan=plan, tab=tab, img=img, ls=ls, w=w,
+                params={"mat_diffuse": kd, "mat_emissive": pert.mat_emissive})
+
+
+def with_constant(src: str, name: str, value: int) -> str:
+    """The source text with `constexpr int <name> = <int>;` set to
+    `value`; ValueError unless the source defines it exactly once."""
+    pat = re.compile(rf"(constexpr int {re.escape(name)} = )-?\d+;")
+    out, n = pat.subn(rf"\g<1>{int(value)};", src)
+    if n != 1:
+        raise ValueError(f"{name}: {n} definitions as a constexpr int")
+    return out

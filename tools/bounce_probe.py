@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
-import re
 import statistics
 import sys
 import tempfile
@@ -53,7 +52,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from tools.ab_turns import TRAIN_SEED, card, red_wall_problem  # noqa: E402
+from tools.ab_turns import (TRAIN_SEED, card,  # noqa: E402
+                             red_wall_problem, with_constant)
 
 SEED = 0
 REPS = 5
@@ -180,16 +180,6 @@ def render_bounds(walks, shades, lanes, tree_bytes: int) -> dict:
         out["vis"] += bound_ms(shadow, n * (9 + 5 + 8) * 4 + tree_bytes)[0]
         out["shade"] += bound_ms(shadow, n * (16 + 14 + 5) * 4
                                  + tree_bytes)[0]
-    return out
-
-
-def with_constant(src: str, name: str, value: int) -> str:
-    """The source text with `constexpr int <name> = <int>;` set to
-    `value`; ValueError unless the source defines it exactly once."""
-    pat = re.compile(rf"(constexpr int {re.escape(name)} = )-?\d+;")
-    out, n = pat.subn(rf"\g<1>{int(value)};", src)
-    if n != 1:
-        raise ValueError(f"{name}: {n} definitions as a constexpr int")
     return out
 
 

@@ -1,15 +1,23 @@
 """Resources, occupancy and lane-loop counters of the path megakernels.
 
-    python3 tools/path_probe.py [1] [8] [9]
+    python3 tools/path_probe.py [1] [8] [9] [3] [--root CHECKOUT]
 
 Kernel 1 (csrc/fused_path.cu) runs on the Cornell box and kernel 8
 (csrc/bvh_path.cu) on the 34,818-triangle subdivided box, both at the main
 path's 1920x1080, 16 spp, depth 8, 2 light samples (chip_smoke.py phases
-6 and 9); the BVH path-replay pair (csrc/prb.cu over a tree: 9a the
+6 and 9); the BVH path-replay pair (`9`: csrc/prb.cu over a tree, 9a the
 training forward, 9b the replay) on the same box at chip_smoke.py phase
 12 (c)'s 1920x1080, 4 spp, depth 8, 2 light samples, red wall x 0.6,
-together with the whole `make_bvh_train_step`. With no argument the probe
-runs all three. For each kernel it prints:
+together with the whole `make_bvh_train_step`; the path-replay pair over
+the swept table (`3`: 3a, 3b) on the Cornell box at phase 7's same
+shapes, with the whole `make_fused_train_step`. With no argument the
+probe runs all four. `--root CHECKOUT` probes another checkout's package
+and kernel sources (its `orion_tpu_torch` and `chip_smoke` come first on
+sys.path): a checkout whose 3a/3b still run fused_common.cuh's
+one-thread-a-pixel `path_lane`, which has no counter hooks, is built
+from copies of its sources with the hooks put in (`hook_path_lane`) and
+a `prb_info` added; its port build is the same code, the hooks being
+macros of the instrumented build. For each kernel it prints:
 
 - ptxas's registers, shared memory and spill lines of the port's build
   (ops/cuda_build.NVCC_FLAGS), and what the built kernel reports
@@ -22,16 +30,18 @@ runs all three. For each kernel it prints:
   bounce), the SIMT efficiency of the loop (active lanes per warp
   iteration / 32) and of NEE's entries, the cycles from a warp's (and a
   block's) first lane running out of pixels to its last;
-- for 9b, the replay's share of cycles in its adjoint accumulation and
+- for 3b and 9b, the replay's share of cycles in its adjoint accumulation and
   the collisions there: a warp entry's active lanes, its distinct
   materials, the collision degree (the mean over lanes of the lanes on
   the lane's material) and the largest group of an entry; and the atomic
   instructions of the replay in the built library's SASS (`cuobjdump
   -sass`): a shared double add compiled to a compare-and-swap loop shows
   as ATOMS.CAST.SPIN.64 or ATOMS.CAS.64;
-- for 9a and 9b, the registers, spills and time of builds for 5 to 12
-  resident blocks an SM (TRAIN_BLOCKS; prb.cu's -DORION_PRB_BLOCKS), and
-  the train step's time;
+- for each training pair, the registers, spills and time of builds for
+  6 to 12 resident blocks an SM (TRAIN_BLOCKS): copies of csrc/prb.cu
+  with the pair's `constexpr int` (BLOCKS_CONSTANT: kTableBlocks,
+  kTreeBlocks) rewritten (`with_constant`), one nvcc each, all started
+  together; and the train step's time;
 - for kernel 8, the nodes and leaves a walk of the plain version
   (`bvh_path_plain`, the skip-pointer walk) visits at 256x256, 16 spp,
   depth 8, the yardstick of the walk's work.
@@ -43,6 +53,7 @@ their counters give shares and ratios, their times are not the kernels'.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import concurrent.futures
 import contextlib
@@ -56,19 +67,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from tools.ab_turns import card, red_wall_problem  # noqa: E402
+from tools.ab_turns import (card, red_wall_problem, train_case,  # noqa: E402
+                            with_constant)
 
 RES, SAMPLES, DEPTH, LIGHT_SAMPLES = (1920, 1080), 16, 8, 2
 PLAIN_RES = (256, 256)
 REPS = 5
 TRAIN_SEED = 3
-# the pair's kernels in prb.cu's ptxas report and SASS: the names and a
-# string their mangled names contain
-TRAIN_KERNELS = ("bvh_prb_fwd_kernel", "bvh_prb_replay_kernel")
-TRAIN_ALSO = ()
-# the resident blocks an SM that the pair is built for in the sweep
-# (prb.cu's -DORION_PRB_BLOCKS)
-TRAIN_BLOCKS = (5, 6, 7, 8, 9, 10, 12)
+KERNELS = ("1", "8", "9", "3")
+# each pair's kernels in prb.cu's ptxas report and SASS: the names and the
+# strings their mangled names contain (the table pair's parameters are
+# PathParamsT<RGeo>, or <Geo> in a checkout of path_lane; the tree pair's
+# PathParamsT<Tree>)
+TREE_KERNELS = ("bvh_prb_fwd_kernel", "bvh_prb_replay_kernel")
+TREE_ALSO = ()
+TABLE_KERNELS = ("prb_fwd_ls_kernel", "prb_replay_kernel")
+TABLE_ALSO = ("Geo",)
+# the resident blocks an SM that each pair is built for in the sweep
+# (prb.cu's constexpr BLOCKS_CONSTANT[pair])
+BLOCKS_CONSTANT = {"3": "kTableBlocks", "9": "kTreeBlocks"}
+TRAIN_BLOCKS = (6, 7, 8, 9, 10, 11, 12)
 COUNTERS = ("lane_cycles", "nearest_cycles", "nee_cycles", "iters",
             "iter_lanes", "nee_iters", "nee_lanes", "warp_tail", "warps",
             "block_tail", "blocks", "lanes", "acc_cycles", "acc_entries",
@@ -211,12 +229,14 @@ def _swapped(mod, attr: str, lib, symbol: str):
 
 
 def _run(name, src, symbol, kernel_name, info, launch, tmp: Path,
-         attr: str = "KERNEL", also=()) -> None:
+         attr: str = "KERNEL", also=(), tag: str | None = None) -> None:
     """Time `launch()` on the port's build, then run it once on the
     instrumented build of `src` (the kernel of `launch.module` named
     `attr` swapped for the instrumented library's `symbol`) and print the
-    counters. `kernel_name` and `also` pick the kernel's ptxas lines."""
-    so = tmp / f"{src}.so"
+    counters. `kernel_name` and `also` pick the kernel's ptxas lines;
+    the builds are tmp/<tag>.so and tmp/<tag>_counters.so (tag: src)."""
+    tag = tag or src
+    so = tmp / f"{tag}.so"
     log = _nvcc(src, so)
     for line in _ptxas_lines(log, kernel_name, *also):
         print(f"[{name}] ptxas: {line}")
@@ -232,7 +252,7 @@ def _run(name, src, symbol, kernel_name, info, launch, tmp: Path,
           f"{', '.join(f'{t:.3f}' for t in times)}), output mean "
           f"{float(img.mean()):.9g}", flush=True)
 
-    pc_so = tmp / f"{src}_counters.so"
+    pc_so = tmp / f"{tag}_counters.so"
     log = _nvcc(src, pc_so, ("-DORION_PATH_COUNTERS",))
     pc = ctypes.CDLL(str(pc_so))
     import torch
@@ -318,94 +338,256 @@ def _probe_path_kernels(tmp: Path, dev) -> None:
           f"rows a walk {stats['tests'] / walks[0]:.3f}")
 
 
-def _probe_train_pair(tmp: Path, dev) -> None:
-    """Kernels 9a and 9b, and the train step, at phase 12 (c)'s shapes."""
+# ---------------------------------------------------------------------------
+# the training pairs
+# ---------------------------------------------------------------------------
+
+# A checkout whose 3a/3b run fused_common.cuh's one-thread-a-pixel
+# `path_lane` has no counter hooks in it. hook_path_lane moves path_lane
+# (from PATH_LANE_START to fused_common.cuh's last NAMESPACE_END) to the
+# end of render_lane.cuh's namespace (before RENDER_LANE_END), where the
+# counters are declared, and puts in the hooks of render_lanes: each
+# (text, replacement) of LANE_HOOKS in path_lane and of KERNEL_HOOKS in
+# prb.cu, each text found exactly once; prb.cu gains PRB_INFO. The
+# uninstrumented build of the copy is the checkout's own code.
+PATH_LANE_START = "// One pixel lane, until its sample index reaches p.samples."
+NAMESPACE_END = "}  // namespace orion"
+RENDER_LANE_END = "}  // namespace orion\n\n#ifdef ORION_PATH_COUNTERS\n"
+LANE_HOOKS = (
+    ("double* sacc, float ek[3]) {",
+     "double* sacc, float ek[3] ORION_PC_ARG) {"),
+    ("  while (samp < p.samples) {\n    float t;\n"
+     "    const int row = nearest<kCols>(p.geo, sgeo, r, kBig, t);\n",
+     "  while (samp < p.samples) {\n"
+     "    ORION_PC(pc_warp_vote(pc.iters, pc.iter_lanes);\n"
+     "             const long long pc0 = clock64();)\n    float t;\n"
+     "    const int row = nearest<kCols>(p.geo, sgeo, r, kBig, t);\n"
+     "    ORION_PC(pc.nearest += clock64() - pc0;)\n"),
+    ("      nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, "
+     "snx,\n                   sny, snz, A, sum_scale);\n",
+     "      ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);\n"
+     "               const long long pc1 = clock64();)\n"
+     "      nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, "
+     "snx,\n                   sny, snz, A, sum_scale);\n"
+     "      ORION_PC(pc.nee += clock64() - pc1;)\n"),
+    ("        if (kMode == kReplay) {\n          // closed-form adjoints",
+     "        if (kMode == kReplay) {\n"
+     "          ORION_PC(const long long pc2 = clock64();)\n"
+     "          // closed-form adjoints"),
+    ("          const int mat = static_cast<int>(__ldg(g + C_MESH));\n",
+     "          const int mat = static_cast<int>(__ldg(g + C_MESH));\n"
+     "          ORION_PC(pc_acc_vote(pc, mat);)\n"),
+    ("            ek[ch] += wT * kd[ch] * sum_scale;\n          }\n",
+     "            ek[ch] += wT * kd[ch] * sum_scale;\n          }\n"
+     "          ORION_PC(pc.acc += clock64() - pc2;)\n"),
+    ("  if (kMode != kReplay) {\n    const float inv_s",
+     "  ORION_PC(pc.t_done = clock64();)\n"
+     "  if (kMode != kReplay) {\n    const float inv_s"),
+)
+KERNEL_HOOKS = (
+    ("  if (pix >= p.W * p.H) return;\n"
+     "  path_lane<true, kForwardLs>(p, sgeo, pix, nullptr, nullptr);\n",
+     "#ifdef ORION_PATH_COUNTERS\n"
+     "  LaneCounters pc;\n  pc.t_start = pc.t_done = clock64();\n"
+     "  if (pix < p.W * p.H)\n"
+     "    path_lane<true, kForwardLs>(p, sgeo, pix, nullptr, nullptr, pc);\n"
+     "  pc_flush(pc);\n  __syncwarp();\n  pc_exit(pc.t_done);\n#else\n"
+     "  if (pix >= p.W * p.H) return;\n"
+     "  path_lane<true, kForwardLs>(p, sgeo, pix, nullptr, nullptr);\n"
+     "#endif\n"),
+    ("  if (pix < p.W * p.H) path_lane<true, kReplay>(p, sgeo, pix, sacc, "
+     "ek);\n",
+     "  ORION_PC(LaneCounters pc; pc.t_start = pc.t_done = clock64();)\n"
+     "  if (pix < p.W * p.H)\n"
+     "    path_lane<true, kReplay>(p, sgeo, pix, sacc, ek ORION_PC(, pc));\n"
+     "  ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)\n"),
+)
+PRB_INFO = """
+// out = render_lane.cuh's kernel_info of 3a (which 0) or 3b (which 1) at
+// the shared memory of a resident table of T_pad rows (path_probe.py)
+extern "C" int prb_info(int which, int T_pad, int* out) {
+  const size_t smem = T_pad <= kChunk ? sizeof(float) * T_pad * kGeo : 0;
+  return which == 0 ? kernel_info(prb_fwd_ls_kernel<Geo>, smem, out)
+                    : kernel_info(prb_replay_kernel<Geo>, smem, out);
+}
+"""
+
+
+def _sub_once(text: str, old: str, new: str, where: str) -> str:
+    n = text.count(old)
+    if n != 1:
+        raise ValueError(f"{where}: {n} matches of "
+                         f"{old.strip().splitlines()[0]!r}")
+    return text.replace(old, new)
+
+
+def hook_path_lane(files: dict) -> dict:
+    """{name: text} of fused_common.cuh, render_lane.cuh and prb.cu of a
+    checkout whose 3a/3b run `path_lane`, rewritten with the counter
+    hooks (see LANE_HOOKS); ValueError where a text to replace is not
+    found exactly once."""
+    fc = files["fused_common.cuh"]
+    a, b = fc.find(PATH_LANE_START), fc.rfind(NAMESPACE_END)
+    if a < 0 or b < a:
+        raise ValueError("fused_common.cuh: no path_lane")
+    lane = fc[a:b]
+    for old, new in LANE_HOOKS:
+        lane = _sub_once(lane, old, new, "path_lane")
+    prb = files["prb.cu"]
+    for old, new in KERNEL_HOOKS:
+        prb = _sub_once(prb, old, new, "prb.cu")
+    return {"fused_common.cuh": fc[:a] + fc[b:],
+            "render_lane.cuh": _sub_once(files["render_lane.cuh"],
+                                         RENDER_LANE_END,
+                                         lane + RENDER_LANE_END,
+                                         "render_lane.cuh"),
+            "prb.cu": prb + PRB_INFO}
+
+
+def prb_sources(csrc: Path, out: Path) -> bool:
+    """Copy `csrc`'s prb.cu and headers into `out`, the copies rewritten
+    by hook_path_lane where prb.cu runs `path_lane` (then True)."""
+    out.mkdir(parents=True, exist_ok=True)
+    files = {f.name: f.read_text()
+             for f in [csrc / "prb.cu", *sorted(csrc.glob("*.cuh"))]}
+    path_lane = "path_lane<" in files["prb.cu"]
+    if path_lane:
+        files.update(hook_path_lane(files))
+    for name, text in files.items():
+        (out / name).write_text(text)
+    return path_lane
+
+
+def sweep_sources(src: Path, pair: str) -> dict:
+    """{blocks: path} of copies of src/prb.cu beside it, each with the
+    pair's BLOCKS_CONSTANT set to one value of TRAIN_BLOCKS."""
+    text = (src / "prb.cu").read_text()
+    out = {}
+    for b in TRAIN_BLOCKS:
+        out[b] = src / f"prb_blocks_{b}.cu"
+        out[b].write_text(with_constant(text, BLOCKS_CONSTANT[pair], b))
+    return out
+
+
+def _probe_pair(pair: str, tmp: Path, dev) -> None:
+    """Kernels 3a and 3b (pair "3", the Cornell box at phase 7's shapes)
+    or 9a and 9b (pair "9", the subdivided box at phase 12 (c)'s), the
+    sweep of their resident blocks, and the train step."""
     from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import bvh_prb as bvp
+    from orion_tpu_torch.ops import cuda_build
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
 
-    W, H, S = TRAIN["xres"], TRAIN["yres"], TRAIN["samples"]
-    pr = red_wall_problem(write_cornell(tmp / "t", xres=W, yres=H,
-                                        depth=TRAIN["depth"],
-                                        levels=BIG_LEVELS), dev,
-                          bp.make_bvh_path_renderer, TRAIN_SEED)
-    kd, pert, target = pr["kd"], pr["scene"], pr["target"]
-    params = {"mat_diffuse": kd, "mat_emissive": pert.mat_emissive}
-    step = bvp.make_bvh_train_step(pert, pr["ps"].camera, target,
-                                   order_signs=pr["ps"].order_signs,
-                                   dynamic_params=True, **pr["cfg"])
-    plan = step.plan
-    tab = plan.table(kd, pert.mat_emissive)
-    # every build of prb.cu that the probe loads, one nvcc each, together
-    builds = [("prb", tmp / "prb.so", ()),
-              ("prb", tmp / "prb_counters.so", ("-DORION_PATH_COUNTERS",))]
-    builds += [("prb", tmp / f"prb_{b}.so", (f"-DORION_PRB_BLOCKS={b}",))
-               for b in TRAIN_BLOCKS]
+    W, H = TRAIN["xres"], TRAIN["yres"]
+    if pair == "3":
+        rtc = write_cornell(tmp / "c3", xres=W, yres=H, depth=TRAIN["depth"])
+        case = train_case(red_wall_problem(rtc, dev,
+                                           fp.make_fused_path_renderer),
+                          prb.make_fused_train_step)
+        t_pad = int(case["tab"].shape[0])
+        mod, kernels, also = prb, TABLE_KERNELS, TABLE_ALSO
+        names = ("3a", "3b")
+        symbols = ("prb_fwd_ls_launch", "prb_replay_launch")
+
+        def info(lib, which, out):
+            return lib.prb_info(which, t_pad, out)
+    else:
+        rtc = write_cornell(tmp / "t9", xres=W, yres=H, depth=TRAIN["depth"],
+                            levels=BIG_LEVELS)
+        pr = red_wall_problem(rtc, dev, bp.make_bvh_path_renderer)
+        case = train_case(pr, bvp.make_bvh_train_step,
+                          order_signs=pr["ps"].order_signs)
+        mod, kernels, also = bvp, TREE_KERNELS, TREE_ALSO
+        names = ("9a", "9b")
+        symbols = ("bvh_prb_fwd_ls_launch", "bvh_prb_replay_launch")
+
+        def info(lib, which, out):
+            return lib.bvh_prb_info(which, out)
+    src = tmp / f"prb_{pair}_src"
+    path_lane = prb_sources(cuda_build.CSRC, src)
+    tag = f"prb_{pair}"
+    sweep = {} if path_lane else sweep_sources(src, pair)
+    # every build that the probe loads, one nvcc each, together
+    builds = [(src / "prb.cu", tmp / f"{tag}.so", ()),
+              (src / "prb.cu", tmp / f"{tag}_counters.so",
+               ("-DORION_PATH_COUNTERS",))]
+    builds += [(cu, tmp / f"{tag}_blocks_{b}.so", ())
+               for b, cu in sweep.items()]
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: _nvcc(*b), builds))
+
+    plan, tab, w, ls = case["plan"], case["tab"], case["w"], case["ls"]
 
     def fwd():
         return plan.forward(tab, TRAIN_SEED)[0]
 
-    img, ls = plan.forward(tab, TRAIN_SEED)
-    w = ((img.reshape(H, W, 3) - target) * (2.0 / (H * W * 3 * S))
-         ).reshape(-1, 3).contiguous()
-
     def replay():
         return plan.replay(tab, TRAIN_SEED, w, ls)
 
-    fwd.module = replay.module = bvp.__name__
-    for name, fn, attr, symbol, kernel, which in (
-            ("9a", fwd, "FWD_KERNEL", "bvh_prb_fwd_ls_launch",
-             TRAIN_KERNELS[0], 0),
-            ("9b", replay, "REPLAY_KERNEL", "bvh_prb_replay_launch",
-             TRAIN_KERNELS[1], 1)):
-        _run(f"kernel {name}", "prb", symbol, kernel,
-             lambda lib, out, which=which: lib.bvh_prb_info(which, out), fn,
-             tmp, attr=attr, also=TRAIN_ALSO)
-    atoms = _sass_atomics(_cuobjdump(tmp / "prb.so"), TRAIN_KERNELS[1],
-                          *TRAIN_ALSO)
-    print(f"[kernel 9b] SASS atomics of the replay: {atoms}")
-    mod = sys.modules[bvp.__name__]
-    for blocks in TRAIN_BLOCKS:
-        so = tmp / f"prb_{blocks}.so"
-        log = _nvcc("prb", so, (f"-DORION_PRB_BLOCKS={blocks}",))
+    fwd.module = replay.module = mod.__name__
+    runs = ((names[0], fwd, "FWD_KERNEL", symbols[0], kernels[0], 0),
+            (names[1], replay, "REPLAY_KERNEL", symbols[1], kernels[1], 1))
+    if path_lane:
+        print(f"[kernels {'/'.join(names)}] path_lane: counter hooks put "
+              f"into a copy of the sources")
+    for name, fn, attr, symbol, kernel, which in runs:
+        _run(f"kernel {name}", src / "prb.cu", symbol, kernel,
+             lambda lib, out, which=which: info(lib, which, out), fn, tmp,
+             attr=attr, also=also, tag=tag)
+    atoms = _sass_atomics(_cuobjdump(tmp / f"{tag}.so"), kernels[1], *also)
+    print(f"[kernel {names[1]}] SASS atomics of the replay: {atoms}")
+    for blocks, cu in sweep.items():
+        so = tmp / f"{tag}_blocks_{blocks}.so"
+        log = _nvcc(cu, so)
         lib = ctypes.CDLL(str(so))
-        for name, fn, attr, symbol, kernel, which in (
-                ("9a", fwd, "FWD_KERNEL", "bvh_prb_fwd_ls_launch",
-                 TRAIN_KERNELS[0], 0),
-                ("9b", replay, "REPLAY_KERNEL", "bvh_prb_replay_launch",
-                 TRAIN_KERNELS[1], 1)):
+        for name, fn, attr, symbol, kernel, which in runs:
             out = (ctypes.c_int * 4)()
-            lib.bvh_prb_info(which, out)
-            spill = " ".join(_ptxas_lines(log, kernel, *TRAIN_ALSO)[1:2])
-            with _swapped(mod, attr, lib, symbol):
+            info(lib, which, out)
+            spill = " ".join(_ptxas_lines(log, kernel, *also)[1:2])
+            with _swapped(sys.modules[mod.__name__], attr, lib, symbol):
                 ms, times, _ = _median_ms(fn)
             print(f"[kernel {name}] built for {blocks} blocks: {out[1]} "
                   f"registers, {out[0]} resident ({spill}); {ms:.3f} ms "
                   f"(runs {', '.join(f'{t:.3f}' for t in times)})",
                   flush=True)
+    step, params = case["step"], case["params"]
     ms, times, _ = _median_ms(lambda: step(params, TRAIN_SEED)[0])
-    print(f"[train step] fwd + replay + loss + table: {ms:.3f} ms (runs "
-          f"{', '.join(f'{t:.3f}' for t in times)})")
+    print(f"[train step {'/'.join(names)}] fwd + replay + loss + table: "
+          f"{ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in times)})")
+
+
+def parse_args(argv) -> argparse.Namespace:
+    """`kernels`: the set of KERNELS named (all when none is), `root`:
+    the checkout to probe (None: this one)."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernels", nargs="*", choices=KERNELS)
+    ap.add_argument("--root", type=Path, default=None)
+    args = ap.parse_args(argv)
+    args.kernels = set(args.kernels) or set(KERNELS)
+    return args
 
 
 def main(argv) -> int:
+    args = parse_args(argv)
+    if args.root is not None:
+        sys.path.insert(0, str(args.root.resolve()))
     import torch
 
     if not torch.cuda.is_available():
         print("error: path_probe.py needs a CUDA device", file=sys.stderr)
         return 1
-    which = set(argv) or {"1", "8", "9"}
     print(card())
     print(f"SM clock {card('clocks.sm')}, max {card('clocks.max.sm')}")
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        if which & {"1", "8"}:
+        if args.kernels & {"1", "8"}:
             _probe_path_kernels(tmp, dev)
-        if "9" in which:
-            _probe_train_pair(tmp, dev)
+        for pair in ("9", "3"):
+            if pair in args.kernels:
+                _probe_pair(pair, tmp, dev)
     return 0
 
 

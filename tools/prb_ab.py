@@ -1,22 +1,28 @@
-"""Compare the BVH path-replay pair of two checkouts on one card in one call.
+"""Compare the two path-replay pairs of two checkouts on one card in one call.
 
     git archive <old commit> | tar -x -C _archive/old
     python3 tools/prb_ab.py _archive/old .
 
-Times kernel 9a (the training forward), kernel 9b (the replay) and the
-whole `make_bvh_train_step` (forward, replay, loss and the table's
-material columns) at chip_smoke.py phase 12 (c)'s shapes: the
-34,818-triangle box at 1920x1080, 4 spp, depth 8, 2 light samples, the
-red wall's albedo x 0.6 against kernel 8's render of the true box, seed
-3; by CUDA events, one warm-up launch, then 7 timed launches, median. The
+Times, for each training pair, its forward, its replay and the whole
+train step (forward, replay, loss and the table's material columns),
+each on the red wall problem (the red wall's albedo x 0.6 against the
+pair's own renderer's image of the true box, seed 3) at chip_smoke.py's
+TRAIN shapes, 1920x1080, 4 spp, depth 8, 2 light samples:
+
+- the Cornell pair, kernels 3a and 3b, and `make_fused_train_step` on the
+  Cornell box (chip_smoke.py phase 7);
+- the BVH pair, kernels 9a and 9b, and `make_bvh_train_step` on the
+  34,818-triangle box (phase 12 (c)).
+
+By CUDA events, one warm-up launch, then 7 timed launches, median. The
 checkouts run in the order old, new, new, old, so a drift of the card's
 clock shows as a gap between the two runs of one version. Each run is a
 process of its own that imports `orion_tpu_torch` and `chip_smoke` from
-its checkout and builds the kernels there. Each run also prints the
-forward image's mean, the step's loss, and the sum and largest |entry|
-of each gradient, to 9 digits: two versions that compute the same step
-print the same loss and gradients up to the replay's double sums, whose
-order of additions varies from run to run.
+its checkout and builds the kernels there. Each run also prints, for each
+pair, the forward image's mean, the step's loss, and the sum and largest
+|entry| of each gradient, to 9 digits: two versions that compute the same
+step print the same loss and gradients up to the replay's double sums,
+whose order of additions varies from run to run.
 """
 
 from __future__ import annotations
@@ -27,10 +33,45 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.ab_turns import (TRAIN_SEED, ab_main, events,  # noqa: E402
-                            red_wall_problem, runs)
+                            red_wall_problem, runs, train_case)
 
 SEED = TRAIN_SEED
 REPS = 7
+
+
+def cornell_case(tmp, device, shapes: dict | None = None) -> dict:
+    """ab_turns.train_case of the Cornell pair (3a/3b): the red wall
+    problem on `write_cornell`'s box, its target from the fused render
+    kernel (`shapes` overrides chip_smoke.TRAIN's)."""
+    from chip_smoke import TRAIN, write_cornell
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
+
+    sh = {**TRAIN, **(shapes or {})}
+    rtc = write_cornell(tmp, xres=sh["xres"], yres=sh["yres"],
+                        depth=sh["depth"])
+    pr = red_wall_problem(rtc, device, fp.make_fused_path_renderer, SEED,
+                          shapes=shapes)
+    return train_case(pr, prb.make_fused_train_step, SEED)
+
+
+def bvh_case(tmp, device, shapes: dict | None = None) -> dict:
+    """ab_turns.train_case of the BVH pair (9a/9b): the red wall problem
+    on the subdivided box, its target from the BVH path kernel."""
+    from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import bvh_prb as bvp
+
+    sh = {**TRAIN, **(shapes or {})}
+    rtc = write_cornell(tmp, xres=sh["xres"], yres=sh["yres"],
+                        depth=sh["depth"], levels=BIG_LEVELS)
+    pr = red_wall_problem(rtc, device, bp.make_bvh_path_renderer, SEED,
+                          shapes=shapes)
+    return train_case(pr, bvp.make_bvh_train_step, SEED,
+                      order_signs=pr["ps"].order_signs)
+
+
+PAIRS = (("3a", "3b", cornell_case), ("9a", "9b", bvh_case))
 
 
 def _timed(label: str, what: str, fn) -> None:
@@ -43,38 +84,30 @@ def _time_one(root: str, label: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
-    from orion_tpu_torch.ops import bvh_path as bp
-    from orion_tpu_torch.ops import bvh_prb as bvp
+    from chip_smoke import TRAIN
 
     dev = torch.device("cuda", 0)
-    W, H, S = TRAIN["xres"], TRAIN["yres"], TRAIN["samples"]
-    with tempfile.TemporaryDirectory() as tmp:
-        pr = red_wall_problem(write_cornell(tmp, xres=W, yres=H,
-                                            depth=TRAIN["depth"],
-                                            levels=BIG_LEVELS), dev,
-                              bp.make_bvh_path_renderer, SEED)
-    kd, pert, target = pr["kd"], pr["scene"], pr["target"]
-    params = {"mat_diffuse": kd, "mat_emissive": pert.mat_emissive}
-    step = bvp.make_bvh_train_step(pert, pr["ps"].camera, target,
-                                   order_signs=pr["ps"].order_signs,
-                                   dynamic_params=True, **pr["cfg"])
-    plan = step.plan
-    tab = plan.table(kd, pert.mat_emissive)
-    img, ls = plan.forward(tab, SEED)
-    w = ((img.reshape(H, W, 3) - target) * (2.0 / (H * W * 3 * S))
-         ).reshape(-1, 3).contiguous()
-    shapes = f"{W}x{H} {S}spp depth {TRAIN['depth']}"
-    _timed(label, f"9a forward {shapes}", lambda: plan.forward(tab, SEED))
-    _timed(label, f"9b replay {shapes}",
-           lambda: plan.replay(tab, SEED, w, ls))
-    _timed(label, f"train step {shapes}", lambda: step(params, SEED))
-    loss, grads = step(params, SEED)
-    digest = ", ".join(
-        f"{k} sum {float(g.double().sum()):.9g} max |.| "
-        f"{float(g.abs().max()):.9g}" for k, g in sorted(grads.items()))
-    print(f"{label}: image mean {float(img.double().mean()):.9g}, loss "
-          f"{float(loss):.9g}, {digest}", flush=True)
+    shapes = (f"{TRAIN['xres']}x{TRAIN['yres']} {TRAIN['samples']}spp "
+              f"depth {TRAIN['depth']}")
+    for fwd, rep, make in PAIRS:
+        with tempfile.TemporaryDirectory() as tmp:
+            c = make(tmp, dev)
+        plan, tab, w, ls = c["plan"], c["tab"], c["w"], c["ls"]
+        step, params = c["step"], c["params"]
+        _timed(label, f"{fwd} forward {shapes}",
+               lambda: plan.forward(tab, SEED))
+        _timed(label, f"{rep} replay {shapes}",
+               lambda: plan.replay(tab, SEED, w, ls))
+        _timed(label, f"{fwd}/{rep} train step {shapes}",
+               lambda: step(params, SEED))
+        loss, grads = step(params, SEED)
+        digest = ", ".join(
+            f"{k} sum {float(g.double().sum()):.9g} max |.| "
+            f"{float(g.abs().max()):.9g}" for k, g in sorted(grads.items()))
+        print(f"{label}: {fwd}/{rep} image mean "
+              f"{float(c['img'].double().mean()):.9g}, loss "
+              f"{float(loss):.9g}, {digest}", flush=True)
+        del c, plan, tab, w, ls, step, params
 
 
 def main(argv) -> int:

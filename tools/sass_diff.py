@@ -11,11 +11,12 @@ the same, encodings included, addresses aside (and, where they are not,
 the first lines that differ). A kernel whose shared
 headers or source changed around it but whose code did not prints
 "same": what a redesign of other kernels must leave alone (kernels 1 and
-8, the table's training pair 3a/3b and the tree's 9a/9b, the binned
-round 10, and beside the bounce pipeline's walk and shade its
-visibility and draw kernels 6b). More kernels may be named after the two
-checkouts, as `source:kernel` or `source:kernel:also`. Exit code 1 if a
-kernel differs or is missing.
+8, the tree's training pair 9a/9b, the binned round 10, both
+instantiations of the G8 walk 11, and the bounce pipeline's walk 6a, its
+visibility and draw kernels 6b and the four instantiations of its shade
+kernel 6c). More kernels may be named after the two checkouts, as
+`source:kernel` or `source:kernel:also`. Exit code 1 if a kernel differs
+or is missing.
 """
 
 from __future__ import annotations
@@ -29,16 +30,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# (source, a string of the kernel's mangled name, more such strings)
+# (source, a string of the kernel's mangled name, more such strings: a
+# template's bool arguments mangle as ILb0E / ILb1E, <false, true> as
+# ILb0ELb1E)
 KERNELS = (("fused_path", "fused_path_kernel", ()),
            ("bvh_path", "bvh_path_kernel", ()),
-           ("prb", "prb_fwd_ls_kernel", ("Geo",)),
-           ("prb", "prb_replay_kernel", ("Geo",)),
            ("prb", "bvh_prb_fwd_kernel", ()),
            ("prb", "bvh_prb_replay_kernel", ()),
            ("binned", "binned_round_kernel", ()),
+           ("bvh_g8", "bvh_g8_kernel", ("ILb0E",)),
+           ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)),
+           ("bounce", "bounce_walk_kernel", ()),
            ("bounce", "bounce_vis_kernel", ()),
-           ("bounce", "bounce_draw_kernel", ()))
+           ("bounce", "bounce_draw_kernel", ()),
+           *(("bounce", "bounce_shade_kernel", (f"ILb{a}ELb{v}E",))
+             for a in (0, 1) for v in (0, 1)))
 SHOW = 8        # differing lines printed for a kernel that differs
 
 
