@@ -61,7 +61,8 @@ Phases (any failure raises and the script exits non-zero):
      depth-8 wavefront); the levels-5 Whitted box through `--backend bvh`
      at 512x512, 4 spp, depth 4 (any-hit launches > 0, mean within 2.5%
      of `--backend brute`); the walk kernel timed by CUDA-graph replay on
-     one wavefront sample's recorded sweeps.
+     one wavefront sample's recorded sweeps at 256x256 (a quarter of the
+     card's threads a launch) and at 1920x1080 (the card full).
  11. the bounce pipeline at full width, on the levels-5 box: (a) a
      1920x1080, 16 spp, depth 8 render through
      make_big_path_renderer(order=("bounce",)): launches
@@ -87,11 +88,12 @@ Phases (any failure raises and the script exits non-zero):
      1,024 lanes, against the Whitted kernel over the brute sweep on
      levels-2 at 64x64, and against the `--backend bvh` Whitted wavefront
      at 256x256, 16 spp (means within 2.5%); (b) the same box with the 8x8
-     checker through cli.main on the deferred kernel (backend
-     bvh-whitted-deferred-kernel), the records kernel and the epilogue
-     timed apart, the records against the plain version's over the whole
-     image and on the tiles, and the render against the textured
-     wavefront at 256x256; (c) one make_bvh_train_step at 1920x1080, 4
+     checker through cli.main on the textured kernel (backend
+     bvh-whitted-deferred-kernel), the kernel and the renderer timed, the
+     image against the plain version's (records and their epilogue) over
+     the whole image and on the tiles, the bound from the walks the
+     kernel makes, and the render against the textured wavefront at
+     256x256; (c) one make_bvh_train_step at 1920x1080, 4
      spp, depth 8 (red wall x 0.6) with the times of the BVH PRB pair and
      of the step, the pair against its plain versions at those shapes and
      the gradients at 256x256, and a 5-step optim.fit of mat_diffuse and
@@ -127,10 +129,10 @@ levels-4, the BVH path kernel against its plain version at 64x64 on
 levels-2 and levels-5 and against the brute training forward on levels-2,
 the three bounce kernels against their plain versions on every bounce
 of a 64x64 render of Cornell, levels-2 and levels-5 at leaf widths 2 and
-128, with and without the replay dump, and this slice's kernels (BVH
-Whitted, deferred records, BVH PRB forward and replay) against their plain
-versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths 2 and
-128.
+128, with and without the replay dump, and the BVH Whitted kernels
+(untextured, textured) and the BVH PRB forward and replay against their
+plain versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths
+2 and 128.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -170,6 +172,7 @@ WHITTED = dict(xres=1920, yres=1080, samples=4, light_samples=1, depth=4)
 BIG_LEVELS = 5          # 34 * 4**5 + 2 = 34,818 triangles
 REGEN = dict(xres=256, yres=256, samples=16, light_samples=2, depth=8)
 BIG_WHITTED = dict(xres=512, yres=512, samples=4, light_samples=1, depth=4)
+HD = dict(xres=1920, yres=1080)   # kernel 5's sweeps of a 1080p wavefront
 TILE_LANES, N_TILES = 1024, 48     # phase 9's tiles through pix_base
 # kernel vs plain gradients: max |difference| <= this x the largest entry
 GRAD_TOL = 1e-3
@@ -434,24 +437,6 @@ def grad_agree(name: str, kernel, plain) -> float:
     return err
 
 
-def rows_agree(name: str, k, p) -> float:
-    """Hold rows [n, c] (records of the deferred Whitted kernel, one row of
-    12 floats per (sample, bounce, lane)) against the plain version's on
-    the card, as fused_agree holds pixels: <= 1% of rows off by more than
-    1e-4 + 1e-3*|ref|. Returns the largest absolute difference."""
-    import torch
-
-    check(torch_isfinite(k), f"rows {name}: non-finite")
-    bad = (k - p).abs() > 1e-4 + 1e-3 * p.abs()
-    frac_bad = float(bad.any(dim=1).float().mean())
-    err = float((k - p).abs().max())
-    print(f"[rows {name}] {p.shape[0]} rows, rows off {frac_bad:.6f}, max "
-          f"abs {err:.3g}, nonzero rows {int((p != 0).any(dim=1).sum())}")
-    check(frac_bad <= 0.01, f"rows {name}: {frac_bad} rows off")
-    check(bool((p != 0).any()), f"rows {name}: all zero")
-    return err
-
-
 def agreeing_lanes(ls_k, ls_p):
     """[n] bool: lanes whose per-sample radiance (ls [n, 3 samples]) the
     kernel and the plain version agree on to fused_agree's tolerance. A
@@ -460,14 +445,6 @@ def agreeing_lanes(ls_k, ls_p):
     lane follow different paths, so a replay is held against its plain
     version on the agreeing lanes (a zero cotangent elsewhere)."""
     return ~((ls_k - ls_p).abs() > 1e-4 + 1e-3 * ls_p.abs()).any(dim=1)
-
-
-def record_rows(rec):
-    """[groups * 12, n] deferred records -> [groups * n, 12] rows."""
-    from orion_tpu_torch.ops.bvh_whitted import REC_ROWS
-
-    return rec.reshape(-1, REC_ROWS, rec.shape[1]).permute(0, 2, 1).reshape(
-        -1, REC_ROWS)
 
 
 def once_ms(fn):
@@ -747,6 +724,39 @@ def record_sweeps(scene, cam, intersect, cfg: dict, seed: int = 0):
     return calls
 
 
+def graph_ms(run, passes: int, replays: int):
+    """Per launch of `run()` (a list of kernel launches): the CUDA-event
+    median over `replays` replays of a CUDA graph of `passes` passes, and
+    the spread (max - min) / median of the replays. Eager launches from
+    Python leave the card waiting on the host; a graph measures the
+    kernels. `run` is called once first, outside the capture."""
+    import torch
+
+    n = len(run())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(passes):
+            run()
+    ms, times, _ = event_ms(graph.replay, replays)
+    del graph
+    return (ms / (passes * n),
+            (max(times) - min(times)) / float(np.median(times)))
+
+
+def walk_bound(stats: dict, sweeps, nodes, tri):
+    """(ms, 'operations' | 'bytes') of one launch of kernel 5 over `sweeps`,
+    on average: the plain walk's node visits (SLAB_TEST_FLOPS each) and Woop
+    tests of real rows (WOOP_TEST_FLOPS) in `stats`, against each ray's 33
+    bytes (origin, direction, alive in; t, row out) and the tree once."""
+    n = len(sweeps)
+    n_rays = sum(o.shape[0] for o, _, _ in sweeps)
+    return bound_ms(
+        (stats["box_tests"] * SLAB_TEST_FLOPS
+         + stats["tests"] * WOOP_TEST_FLOPS) / n,
+        (n_rays * 33 + n * (nodes.numel() + tri.numel()) * 4) / n)
+
+
 def bound_ms(flops: float, nbytes: float):
     """(ms, 'operations' | 'bytes'): the larger of the two floors."""
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -989,13 +999,7 @@ def main() -> int:
         # eager launches from Python leave the card waiting on the host, so
         # the kernel's own time is taken from a CUDA graph of 20 passes
         n_calls, passes = len(calls), 20
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(passes):
-                sweeps(bi.brute_sweep)()
-        b_ms, b_times, _ = event_ms(graph.replay, 21)
-        b_ms /= passes * n_calls
-        b_spread = (max(b_times) - min(b_times)) / float(np.median(b_times))
+        b_ms, b_spread = graph_ms(sweeps(bi.brute_sweep), passes, 21)
         b_eager_ms, _, _ = event_ms(sweeps(bi.brute_sweep), 21, inner=passes)
         b_plain_ms, _, _ = event_ms(sweeps(bi.brute_sweep_plain), 5)
         b_eager_ms, b_plain_ms = b_eager_ms / n_calls, b_plain_ms / n_calls
@@ -1875,7 +1879,9 @@ def _phase_bvh_wavefront(tmp: Path, dev, sweeps, walk_err: float) -> dict:
     wavefront over the walk kernel. Returns the walk kernel's record."""
     import torch
 
+    from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.io.rtc import parse_rtc
     from orion_tpu_torch.ops import brute_intersect as bi
     from orion_tpu_torch.ops import bvh_intersect as bx
     from orion_tpu_torch.ops import bvh_path as bp
@@ -1962,43 +1968,49 @@ def _phase_bvh_wavefront(tmp: Path, dev, sweeps, walk_err: float) -> dict:
     check(n_near > 0 and n_any > 0, "Whitted --backend bvh: no any-hit launch")
     check(np.isfinite(img_b).all() and mrel <= 0.025, f"Whitted mean {mrel}")
 
-    # the walk kernel's own time: a CUDA graph of the recorded sweeps of
-    # one wavefront sample over the engine's tree (eager launches from
-    # Python measure the host)
+    # the walk kernel's own time: CUDA graphs of the recorded sweeps of one
+    # wavefront sample over the engine's tree (eager launches from Python
+    # measure the host), the 256x256 sample's (a quarter of the card's
+    # threads a launch) and a 1920x1080 sample's (the card full)
     nodes, tri = bx._bvh_device_layout(ps.bvh, dev)
     leaf = ps.bvh.leaf_width
 
-    def run(fn):
+    def run(fn, rays):
         return lambda: [fn(nodes, tri, o, d, a, leaf_width=leaf)
-                        for o, d, a in sweeps]
+                        for o, d, a in rays]
 
     stats = {}
     for o, d, a in sweeps:
         bx.bvh_walk_plain(nodes, tri, o, d, a, leaf_width=leaf, stats=stats)
-    n_calls, passes = len(sweeps), 20
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(passes):
-            run(bx.bvh_walk)()
-    ms, times, _ = event_ms(graph.replay, 21)
-    ms /= passes * n_calls
-    spread = (max(times) - min(times)) / float(np.median(times))
-    plain_ms, _, _ = event_ms(run(bx.bvh_walk_plain), 3)
+    passes = 20
+    ms, spread = graph_ms(run(bx.bvh_walk, sweeps), passes, 21)
+    plain_ms, _, _ = event_ms(run(bx.bvh_walk_plain, sweeps), 3)
+    n_calls = len(sweeps)
     plain_ms /= n_calls
     n_rays = sum(o.shape[0] for o, _, _ in sweeps)
     n_alive = sum(int(a.sum()) for _, _, a in sweeps)
-    bound, by = bound_ms(
-        (stats["box_tests"] * SLAB_TEST_FLOPS
-         + stats["tests"] * WOOP_TEST_FLOPS) / n_calls,
-        (n_rays * 33 + n_calls * (nodes.numel() + tri.numel()) * 4) / n_calls)
+    bound, by = walk_bound(stats, sweeps, nodes, tri)
     print(f"[10] walk kernel, per launch over the {n_calls} sweeps of one "
-          f"wavefront sample ({n_rays} rays, {n_alive} alive; leaf {leaf}, "
-          f"{nodes.shape[0]} nodes): {ms:.5f} ms kernel (median of 21 "
-          f"replays of a CUDA graph of {passes} passes; spread "
+          f"256x256 wavefront sample ({n_rays} rays, {n_alive} alive; leaf "
+          f"{leaf}, {nodes.shape[0]} nodes): {ms:.5f} ms kernel (median of "
+          f"21 replays of a CUDA graph of {passes} passes; spread "
           f"(max-min)/median {spread:.4f}), {plain_ms:.3f} ms plain; "
           f"{stats['box_tests'] / n_alive:.1f} box tests and "
           f"{stats['tests'] / n_alive:.1f} Woop tests a live ray, bound "
           f"{bound:.5f} ms ({by})")
+    cam_hd = camera_from_rtc(_resized(parse_rtc(rtc), HD), device=dev)
+    hd = record_sweeps(ps.scene, cam_hd, ps.intersect, SECOND)
+    hd_ms, hd_spread = graph_ms(run(bx.bvh_walk, hd), 3, 7)
+    any_ms, _ = graph_ms(lambda: [bx.bvh_walk(nodes, tri, o, d, a,
+                                              leaf_width=leaf, any_hit=True)
+                                  for o, d, a in hd], 3, 7)
+    print(f"[10] walk kernel, per launch over the {len(hd)} sweeps of one "
+          f"{HD['xres']}x{HD['yres']} wavefront sample "
+          f"({sum(o.shape[0] for o, _, _ in hd)} rays, "
+          f"{sum(int(a.sum()) for _, _, a in hd)} alive): {hd_ms:.5f} ms "
+          f"kernel (median of 7 replays of a CUDA graph of 3 passes; spread "
+          f"{hd_spread:.4f}), any-hit {any_ms:.5f} ms; its bound from the "
+          f"plain walk's counts: tools/bvh_probe.py --walk")
     return {"launches": n_wave + n_regen + n_near + n_any,
             "max_abs_err": walk_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -2008,10 +2020,11 @@ def _phase_slice5_checks(tmp: Path, dev, cornell, lv2, lv5, cam64) -> dict:
     """Phase 3, kernels 7a, 7b, 9a and 9b against their plain versions at
     64x64, 4 spp, depth 4 (2 light samples for the path pair) on Cornell,
     levels-2 and levels-5, at leaf width 2 (one tree) and 128 (eight octant
-    copies): the BVH Whitted kernel on the point-light box, the deferred
-    kernel's records (and their image) on the checker-textured point-light
-    box, the BVH PRB forward (image, per-sample radiance) and replay
-    (gradients) on the path box. Returns the largest errors by kernel."""
+    copies): the BVH Whitted kernel on the point-light box, the textured
+    kernel's image on the checker-textured point-light box (against the
+    records and epilogue of its plain version), the BVH PRB forward
+    (image, per-sample radiance) and replay (gradients) on the path box.
+    Returns the largest errors by kernel."""
     import torch
 
     from orion_tpu_torch.ops import bvh_prb as bvp
@@ -2049,16 +2062,13 @@ def _phase_slice5_checks(tmp: Path, dev, cornell, lv2, lv5, cam64) -> dict:
             fd = bw.make_bvh_whitted_deferred(ts, cam64, samples=S,
                                               max_depth=D, **tree)
             dd = fd.data
-            args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 1234,
-                    64, 64, S, 0, D, dd["with_emissive"])
-            rec_k = bw.bvh_whitted_deferred(*args, **kw)
+            k = fd(1234).reshape(-1, 3)
             torch.cuda.synchronize()
-            rec_p = bw.bvh_whitted_deferred_plain(*args, **kw)
-            errs["7b"] = max(errs["7b"], rows_agree(
-                f"deferred records {tag}", record_rows(rec_k),
-                record_rows(rec_p)))
-            fused_agree(f"deferred image {tag}", fd(1234).reshape(-1, 3),
-                        bw.deferred_epilogue(ts, rec_p, S, D) / S)
+            p = bw.bvh_whitted_textured_plain(
+                ts, dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 1234,
+                64, 64, S, D, dd["with_emissive"], **kw)
+            errs["7b"] = max(errs["7b"], fused_agree(
+                f"bvh whitted textured {tag}", k, p))
         for sname, sc in paths:
             tag = f"{sname} leaf {leaf} 64x64"
             nodes, _, update = bvp.make_bvh_tab_updater(sc, **tree)
@@ -2210,43 +2220,40 @@ def _phase_big_whitted(tmp: Path, dev, card: str, errs: dict) -> dict:
     fd = bw.make_bvh_whitted_deferred(tsc, cam, samples=S, max_depth=D,
                                       order_signs=signs)
     dd = fd.data
-    check(dd["chunks"] == [(0, S)], f"deferred chunks {dd['chunks']}")
-    args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 0, W, H, S, 0,
+    args = (tsc, dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 0, W, H, S,
             D, dd["with_emissive"])
     kw = dict(leaf_width=dd["leaf_width"])
-    k_ms, k_times, rec_k = event_ms(
-        lambda: bw.bvh_whitted_deferred(*args, **kw), 3)
-    e_ms, e_times, _ = event_ms(
-        lambda: bw.deferred_epilogue(tsc, rec_k, S, D), 3)
+    k_ms, k_times, k = event_ms(lambda: bw.bvh_whitted_textured(
+        *args, **kw, texels=dd["texels"]), 3)
     r_ms, r_times, _ = event_ms(lambda: fd(0), 3)
     stats = {}
-    d_plain_ms, rec_p = once_ms(lambda: bw.bvh_whitted_deferred_plain(
+    d_plain_ms, p = once_ms(lambda: bw.bvh_whitted_textured_plain(
         *args, **kw, stats=stats))
-    err_b = max(errs["7b"], rows_agree("deferred records 1080p",
-                                       record_rows(rec_k),
-                                       record_rows(rec_p)))
-    for b in bases:
-        tile = bw.bvh_whitted_deferred(*args, **kw, pix_base=b,
-                                       n_lanes=TILE_LANES)
-        check(torch.equal(tile, rec_k[:, b:b + TILE_LANES]),
-              "a deferred tile does not give the whole image's records")
-    rows_agree(f"deferred records, {N_TILES} tiles x {TILE_LANES} lanes",
-               record_rows(torch.cat([rec_k[:, b:b + TILE_LANES]
-                                      for b in bases], dim=1)),
-               record_rows(torch.cat([rec_p[:, b:b + TILE_LANES]
-                                      for b in bases], dim=1)))
-    rec_bytes = rec_k.numel() * 4
-    del rec_p
-    box, tri = stats["box_tests"], stats["tests"]
+    err_b = max(errs["7b"], fused_agree("bvh whitted textured 1080p", k, p))
+    tiles = torch.cat([fd(0, pix_base=b, n_lanes=TILE_LANES) for b in bases])
+    check(torch.equal(tiles, k[pix]),
+          "a textured tile does not render the whole image's pixels")
+    fused_agree(f"bvh whitted textured 1080p, {N_TILES} tiles x "
+                f"{TILE_LANES} lanes", tiles, p[pix])
+    del p
+    # the bound counts the walks the kernel makes: the mirror chain pruned
+    # where the throughput is zero. The checker maps Kd alone, so this box
+    # has (a)'s geometry, tree and Ks, and the kernel walks (a)'s rays: (a)'s
+    # plain counts (the plain version's records run every bounce: printed
+    # beside)
+    mat_tex, atlas = dd["texels"]
     d_bound, d_by = bound_ms(box * SLAB_TEST_FLOPS + tri * WOOP_TEST_FLOPS,
-                             (dd["nodes"].numel() + dd["tab"].numel()) * 4
-                             + rec_bytes)
-    print(f"[12] deferred: kernel {k_ms:.3f} ms (runs "
-          f"{', '.join(f'{x:.3f}' for x in k_times)}), epilogue {e_ms:.3f} "
-          f"ms (runs {', '.join(f'{x:.3f}' for x in e_times)}), whole render"
-          f" {r_ms:.3f} ms = {rays / (r_ms * 1e-3):.4g} primary rays/s on "
-          f"{card}; {d_plain_ms:.1f} ms plain; {rec_bytes:.6g} record bytes,"
-          f" {box:.6g} box tests and {tri:.6g} Woop tests, bound "
+                             (dd["nodes"].numel() + dd["tab"].numel()
+                              + mat_tex.numel() + atlas.numel()) * 4
+                             + n_pix * 12)
+    print(f"[12] textured: kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in k_times)}), the renderer "
+          f"{r_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in r_times)}) = "
+          f"{rays / (r_ms * 1e-3):.4g} primary rays/s on {card}, backend "
+          f"{rep['backend']}; {d_plain_ms:.1f} ms plain (records and "
+          f"epilogue: {stats['box_tests']:.6g} box tests and "
+          f"{stats['tests']:.6g} Woop tests, every bounce); the kernel's "
+          f"walks {box:.6g} box tests and {tri:.6g} Woop tests, bound "
           f"{d_bound:.4f} ms ({d_by})")
     against_wavefront("textured", True, "bvh-whitted-deferred-kernel")
     return {"7a": rec_a,
@@ -2701,12 +2708,7 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
                           fn_q.sweep.tab) for st, key in rounds]
 
     passes = 5
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(passes):
-            run(bn.binned_round)()
-    k_ms, k_times, _ = event_ms(graph.replay, 11)
-    k_ms /= passes * len(rounds)
+    k_ms, k_spread = graph_ms(run(bn.binned_round), passes, 11)
     p_ms, _, _ = event_ms(run(bn.binned_round_plain), 1)
     p_ms /= len(rounds)
     q_flops, q_bytes = _round_bound(rounds, fn_q.sweep)
@@ -2714,9 +2716,8 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
     print(f"[13] (b) kernel 10 per launch over the {len(rounds)} rounds of a "
           f"256x256 render ({sum(k.numel() for _, k in rounds)} lanes): "
           f"{k_ms:.5f} ms (median of 11 replays of a CUDA graph of "
-          f"{passes} passes; spread "
-          f"{(max(k_times) - min(k_times)) / float(np.median(k_times)):.4f})"
-          f", {p_ms:.3f} ms plain, bound {q_bound:.5f} ms ({q_by})")
+          f"{passes} passes; spread {k_spread:.4f}), {p_ms:.3f} ms plain, "
+          f"bound {q_bound:.5f} ms ({q_by})")
     del rounds, fn_q
 
     # (c) the trainer --------------------------------------------------------
@@ -2787,14 +2788,8 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
         for kname, f in (("G8", lambda o, d, a: g8.bvh_g8(
                 nodes, tri, o, d, a)), ("kernel 5", lambda o, d, a: bx.bvh_walk(
                 nodes, tri, o, d, a, leaf_width=g8.LEAF_WIDTH))):
-            passes = 3
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(passes):
-                    for o, d, a in rs:
-                        f(o, d, a)
-            ms, _, _ = event_ms(graph.replay, 5)
-            times[kname] = ms / (passes * len(rs))
+            times[kname], _ = graph_ms(
+                lambda: [f(o, d, a) for o, d, a in rs], 3, 5)
         n_r = sum(o.shape[0] for o, _, _ in rs)
         print(f"[13] (d) {rname} ({len(rs)} launches, {n_r} rays), leaf "
               f"128: G8 {times['G8']:.5f} ms a launch, kernel 5 "

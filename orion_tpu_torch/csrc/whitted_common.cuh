@@ -20,6 +20,12 @@
 //   - the mirror continuation with throughput T * Ks; a ray whose
 //     throughput reaches zero in every channel retires (value-identical to
 //     tracing it on), and a retired lane regenerates as its next sample.
+//
+// The lane is templated, besides the geometry, on the table's row stride
+// (40, or 48 for the textured table of bvh_whitted.cu) and on a texel hook
+// that may replace the hit's Kd and Ks by its material's map entries at the
+// hit's uv; the defaults (40, `NoTexel`) are the untextured kernels'
+// (4 and 7a), whose machine code the hook leaves alone.
 
 #pragma once
 
@@ -69,11 +75,20 @@ __device__ __forceinline__ void hit_frame(const float* g, const Ray& r,
   gnx = __ldg(g + 6) * s; gny = __ldg(g + 7) * s; gnz = __ldg(g + 8) * s;
 }
 
+// the untextured kernels' texel hook: the table's solid Kd and Ks stay
+struct NoTexel {
+  __device__ __forceinline__ void operator()(const float*, float, float,
+                                             float*, float*) const {}
+};
+
 // One pixel lane, until its sample index reaches p.samples; writes the
-// lane's radiance / spp to out row pix - pix_base.
-template <class G>
+// lane's radiance / spp to out row pix - pix_base. `tex(g, u, v, kd, ks)`
+// sees the winner's table row and its barycentrics once Kd and Ks are
+// read from the row.
+template <class G, int kStride = kWCols, class Tex = NoTexel>
 __device__ __forceinline__ void whitted_lane(const WhittedParamsT<G>& p,
-                                             const float* sgeo, int pix) {
+                                             const float* sgeo, int pix,
+                                             const Tex& tex = Tex()) {
   float cam[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) cam[k] = __ldg(p.cam + k);
@@ -86,12 +101,12 @@ __device__ __forceinline__ void whitted_lane(const WhittedParamsT<G>& p,
 
   while (samp < p.samples) {
     float t;
-    const int row = nearest<kWCols>(p.geo, sgeo, r, kBig, t);
+    const int row = nearest<kStride>(p.geo, sgeo, r, kBig, t);
     const bool hit = row >= 0;
     float ks[3] = {0.f, 0.f, 0.f};
     float hx = 0.f, hy = 0.f, hz = 0.f, snx = 0.f, sny = 0.f, snz = 0.f;
     if (hit) {
-      const float* g = p.geo.tab + row * kWCols;
+      const float* g = p.geo.tab + row * kStride;
       float u, v, gnx, gny, gnz;
       hit_frame(g, r, t, hx, hy, hz, snx, sny, snz, gnx, gny, gnz, u, v);
       float kd[3], ka[3];
@@ -101,6 +116,7 @@ __device__ __forceinline__ void whitted_lane(const WhittedParamsT<G>& p,
         ka[ch] = __ldg(g + C_KA + ch);
         ks[ch] = __ldg(g + C_KS + ch);
       }
+      tex(g, u, v, kd, ks);
       const float shin = __ldg(g + C_SHIN);
 
       float r3[3] = {0.f, 0.f, 0.f};
@@ -124,7 +140,7 @@ __device__ __forceinline__ void whitted_lane(const WhittedParamsT<G>& p,
         const float tlx = __ldg(Lr + 0) - hx, tly = __ldg(Lr + 1) - hy,
                     tlz = __ldg(Lr + 2) - hz;
         sr.dx = tlx; sr.dy = tly; sr.dz = tlz;
-        if (any_hit<kWCols>(p.geo, sgeo, sr)) continue;  // scale 0
+        if (any_hit<kStride>(p.geo, sgeo, sr)) continue;  // scale 0
         const float d2 = tlx * tlx + tly * tly + tlz * tlz;
         float ldx = tlx, ldy = tly, ldz = tlz;
         norm3(ldx, ldy, ldz);

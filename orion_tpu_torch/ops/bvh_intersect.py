@@ -3,9 +3,11 @@
 Replaces `orion_tpu.ops.pallas_bvh` (the Pallas packet-traversal
 `_make_kernel`): the wavefront renderer's intersect for scenes past the
 brute sweep's gate, and its occlusion-only variant for Whitted shadow
-rays. The kernel is `csrc/bvh_intersect.cu`, one thread per ray;
-`bvh_walk_plain` is the same per-ray walk batched in PyTorch
-(ops/bvh_traverse.walk_plain over the kernel's own tables).
+rays. The kernel is `csrc/bvh_intersect.cu`: resident threads, each
+walking one ray at a time through windows of consecutive node rows,
+refilling a warp's idle lanes from a lane counter where the rays
+outnumber the threads; `bvh_walk_plain` is the same per-ray walk batched
+in PyTorch (ops/bvh_traverse.walk_plain over the kernel's own tables).
 
 `bvh_walk` takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.
@@ -40,7 +42,7 @@ LANE_MULT = 128    # row padding granularity (the JAX package's)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
 # one entry point, two counts: nearest-hit and any-hit launches
 KERNEL = CudaKernel("bvh_intersect", "bvh_intersect_launch", _ARGS)
 ANY_HIT_KERNEL = CudaKernel("bvh_intersect", "bvh_intersect_launch", _ARGS)
@@ -125,10 +127,12 @@ def bvh_walk(nodes, tri, orig, dirs, alive, *, leaf_width: int,
         raise ValueError(f"bvh_walk: leaf_width {leaf_width}")
     t = torch.empty((N,), dtype=torch.float32, device=orig.device)
     row = torch.empty((N,), dtype=torch.int32, device=orig.device)
+    # the lane counter; the launch zeroes it on the stream where it uses it
+    nxt = torch.empty((1,), dtype=torch.int32, device=orig.device)
     (ANY_HIT_KERNEL if any_hit else KERNEL).launch(
         orig.data_ptr(), dirs.data_ptr(), alive.data_ptr(), nodes.data_ptr(),
         tri.data_ptr(), nodes.shape[0], int(leaf_width), N, int(any_hit),
-        t.data_ptr(), row.data_ptr(), stream_ptr(orig.device))
+        t.data_ptr(), row.data_ptr(), nxt.data_ptr(), stream_ptr(orig.device))
     return t, row
 
 

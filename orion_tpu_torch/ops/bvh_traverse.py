@@ -72,8 +72,10 @@ def walk_plain(lo, hi, skip, start, rows13, orig, dirs, *, leaf_width: int,
     flagged_starts: bit 0 of a leaf's start is a flag, not part of the
     row offset (bvh_path_device_data). stats accumulates "box_tests"
     (nodes visited), "tests" (Woop tests of real rows: |n|^2 > 0),
-    "leaf_visits" and "steps". Leaf bundles are gathered for the rays at
-    a hit leaf only, `budget` ray-row pairs at a time.
+    "leaf_visits" and "steps"; where it holds "ray_box_tests", an [N]
+    int64 tensor, each ray's nodes visited are added to it. Leaf bundles
+    are gathered for the rays at a hit leaf only, `budget` ray-row pairs
+    at a time.
     """
     N = orig.shape[0]
     dev = orig.device
@@ -99,6 +101,7 @@ def walk_plain(lo, hi, skip, start, rows13, orig, dirs, *, leaf_width: int,
     lane = torch.arange(W, device=dev)
     step_rays = max(1, budget // W)
     box_tests = leaf_visits = tests = steps = 0
+    ray_box_tests = None if stats is None else stats.get("ray_box_tests")
 
     while True:
         active = ptr < end
@@ -107,6 +110,8 @@ def walk_plain(lo, hi, skip, start, rows13, orig, dirs, *, leaf_width: int,
             break
         steps += 1
         box_tests += n_active
+        if ray_box_tests is not None:
+            ray_box_tests += active
         p = torch.clamp(ptr, max=M - 1)
         hit_box, tmin = _slab(orig, inv_dir, lo[p], hi[p])
         hit_box = hit_box & (tmin < t_best) & active

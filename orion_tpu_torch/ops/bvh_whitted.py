@@ -9,28 +9,35 @@ Replaces `orion_tpu.ops.pallas_bvh_whitted` (the Pallas `_make_kernel` and
   pow(0, 0) = 1, the Ks mirror chain with zero-throughput pruning,
   regeneration), every nearest hit and shadow query a skip-pointer walk
   over a bundled [B_pad, 40] table. Tiles through `pix_base` / `n_lanes`.
-- `bvh_whitted_deferred` (kernel 7b): textured Whitted scenes. Inside the
-  kernel a texel is unknown, so per (sample, bounce, lane) it writes the
-  record of the texture-independent factors: uv, material id, the ambient
-  (+ depth-0 emission) sum, the diffuse light sum Cd and the specular light
-  sum Cs, for `chunk` samples from `samp_base` (the RNG keys on the global
-  sample index, so chunked launches compose). `deferred_epilogue` resolves
-  kd(uv) and ks(uv) through the atlas (ops/shade.py, floored-mod wrap) and
-  folds the mirror chain back to front, contrib = r + Cd kd + ks (Cs +
-  contrib), as the JAX package does in jnp after its kernel.
+- `bvh_whitted_textured` (kernel 7b): textured Whitted scenes, the same
+  estimator with the hit's Kd and Ks read from its material's maps at the
+  hit's uv (the nearest texel, floored-modulo wrap, as ops/shade.py), the
+  mirror chain folded front to back with the textured throughput and
+  pruned where it is zero. The JAX package cannot gather texels in its
+  kernel: it writes per (sample, bounce, lane) the record of the
+  texture-independent factors (uv, material id, the ambient (+ depth-0
+  emission) sum, the diffuse light sum Cd and the specular light sum Cs)
+  and resolves and folds them in jnp after the kernel. The plain version
+  keeps that split: `bvh_whitted_deferred_plain` writes the records of
+  `chunk` samples from `samp_base` (the RNG keys on the global sample
+  index, so chunks compose), and `deferred_epilogue` resolves kd(uv) and
+  ks(uv) through the atlas and folds the chain back to front, contrib = r
+  + Cd kd + ks (Cs + contrib); `fold_front_to_back` is the kernel's order
+  over the same records.
 
 The kernels are `csrc/bvh_whitted.cu` (the Whitted lane of
-`csrc/whitted_common.cuh` over a tree, and the deferred kernel). Their
+`csrc/whitted_common.cuh` over a tree, 7b with its texel hook). Their
 plain versions are ops/whitted.py's `_whitted_plain`, the one Whitted
-estimator of the package, over the walk of ops/bvh_traverse.py. The
-wrappers take the plain versions only for CPU tensors; for CUDA tensors
-they launch the kernels or raise.
+estimator of the package, over the walk of ops/bvh_traverse.py (for 7b
+its records, then `deferred_epilogue`). The wrappers take the plain
+versions only for CPU tensors; for CUDA tensors they launch the kernels
+or raise.
 
 Tree data: `bvh_path_device_data`'s nodes (the SAH tree collapsed to a
 4-ary skip-pointer layout, one or 8 per-octant copies) with the Whitted
 row in bundled order. The JAX package's packed-u24 texel gather (a TPU
 gather-traffic device, checked bit-equal to the float atlas) is not
-carried over: the epilogue reads the float atlas. No residency cap:
+carried over: kernel and epilogue read the float atlas. No residency cap:
 device memory holds the whole tree and table.
 """
 
@@ -58,18 +65,20 @@ from orion_tpu_torch.ops.whitted import (_C_KA, _C_KS, _C_SHIN, _C_UV,
 from orion_tpu_torch.scene import Scene
 
 MAX_DEFERRED_DEPTH = 4
-# (sample, bounce) record groups per deferred launch: the samples are cut
-# into chunks of MAX_REC_GROUPS // (max_depth + 1), so one launch's records
-# stay bounded (12 floats a group and lane: 2.0 GB at 1920x1080 for 40
-# groups), and the buffer is freed before the next chunk
+# (sample, bounce) record groups per pass of the plain version: the samples
+# are cut into chunks of MAX_REC_GROUPS // (max_depth + 1), so one pass's
+# records stay bounded (12 floats a group and lane: 2.0 GB at 1920x1080
+# for 40 groups), and the buffer is freed before the next chunk
 MAX_REC_GROUPS = 64
+# per material: the diffuse, then the specular map's (h, w, y0, x0)
+TEXEL_COLS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("bvh_whitted", "bvh_whitted_launch",
                     [_P] * 5 + [_I] * 12 + [_P])
-DEFERRED_KERNEL = CudaKernel("bvh_whitted", "bvh_whitted_deferred_launch",
-                             [_P] * 5 + [_I] * 13 + [_P])
+DEFERRED_KERNEL = CudaKernel("bvh_whitted", "bvh_whitted_textured_launch",
+                             [_P] * 6 + [_I, _P] + [_I] * 12 + [_P])
 
 
 def bvh_whitted_supported(scene: Scene) -> bool:
@@ -237,8 +246,24 @@ def make_bvh_whitted_renderer(scene: Scene, camera, *, samples: int,
 
 
 # ---------------------------------------------------------------------------
-# kernel 7b and its epilogue
+# kernel 7b; its plain version: the records and their epilogue
 # ---------------------------------------------------------------------------
+
+def pack_texels(scene: Scene):
+    """(mat_tex [n_materials, TEXEL_COLS] int32, atlas [AH, AW, 3] float32)
+    on the scene's device: per material the diffuse, then the specular
+    map's (h, w, y0, x0) in the atlas, h = 0 where the material has no such
+    map (its solid colour stays). What 7b's texel hook reads."""
+    hw, off = scene.numpy("tex_hw"), scene.numpy("tex_off")
+    maps = (scene.numpy("mat_map_diffuse"), scene.numpy("mat_map_specular"))
+    out = np.zeros((maps[0].shape[0], TEXEL_COLS), np.int32)
+    for k, m in enumerate(maps):
+        img = np.clip(m, 0, None)
+        ent = np.concatenate([hw[img], off[img]], axis=1)
+        out[:, 4 * k:4 * k + 4] = np.where((m >= 0)[:, None], ent, 0)
+    return (torch.as_tensor(out, device=scene.device),
+            scene.tex_atlas.float().contiguous())
+
 
 def bvh_whitted_deferred_plain(nodes, tab, lights, cam, seed: int, W: int,
                                H: int, chunk: int, samp_base: int,
@@ -246,9 +271,10 @@ def bvh_whitted_deferred_plain(nodes, tab, lights, cam, seed: int, W: int,
                                leaf_width: int, copies: int = 1,
                                pix_base: int = 0, n_lanes: int | None = None,
                                stats: dict | None = None) -> torch.Tensor:
-    """Kernel 7b's function: the records [chunk * (max_depth + 1) * 12,
-    n_lanes] of the samples [samp_base, samp_base + chunk) of the lanes
-    [pix_base, pix_base + n_lanes); `stats` as in bvh_whitted_plain."""
+    """The TPU kernel 7b's function: the records [chunk * (max_depth + 1) *
+    12, n_lanes] of the samples [samp_base, samp_base + chunk) of the lanes
+    [pix_base, pix_base + n_lanes); `stats` as in bvh_whitted_plain (every
+    lane walks all max_depth + 1 bounces where it hits: no pruning)."""
     tree = TreeData.from_nodes(nodes, copies, leaf_width)
     with torch.no_grad():
         return _whitted_plain(tab, lights, cam, seed, W, H, chunk,
@@ -257,38 +283,18 @@ def bvh_whitted_deferred_plain(nodes, tab, lights, cam, seed: int, W: int,
                               records=(samp_base, chunk), stats=stats)
 
 
-def bvh_whitted_deferred(nodes, tab, lights, cam, seed: int, W: int, H: int,
-                         chunk: int, samp_base: int, max_depth: int,
-                         with_emissive: bool, *, leaf_width: int,
-                         copies: int = 1, pix_base: int = 0,
-                         n_lanes: int | None = None) -> torch.Tensor:
-    """Records [chunk * (max_depth + 1) * 12, n_lanes]: kernel 7b for CUDA
-    tensors, the plain version for CPU tensors."""
-    if n_lanes is None:
-        n_lanes = W * H - pix_base
-    _check("bvh_whitted_deferred", nodes, tab, lights, cam, _D_COLS, copies,
-           W, H, pix_base, n_lanes)
-    if chunk < 1 or samp_base < 0 or max_depth < 0:
-        raise ValueError(f"bvh_whitted_deferred: chunk {chunk}, samp_base "
-                         f"{samp_base}, max_depth {max_depth}")
-    if tab.device.type == "cpu":
-        return bvh_whitted_deferred_plain(
-            nodes, tab, lights, cam, seed, W, H, chunk, samp_base, max_depth,
-            with_emissive, leaf_width=leaf_width, copies=copies,
-            pix_base=pix_base, n_lanes=n_lanes)
-    if tab.device.type != "cuda":
-        raise ValueError(f"bvh_whitted_deferred: unsupported device "
-                         f"{tab.device}")
-    rec = torch.empty((chunk * (max_depth + 1) * REC_ROWS, n_lanes),
-                      dtype=torch.float32, device=tab.device)
-    DEFERRED_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
-                           lights.data_ptr(), rec.data_ptr(),
-                           nodes.shape[0] // copies, int(leaf_width), copies,
-                           lights.shape[0], W, H, chunk, samp_base,
-                           max_depth, int(bool(with_emissive)),
-                           _seed32(seed), pix_base, n_lanes,
-                           stream_ptr(tab.device))
-    return rec
+def _record_bounces(scene: Scene, rec: torch.Tensor, chunk: int,
+                    max_depth: int, depths):
+    """Per bounce d of `depths`: (r, Cd, Cs, kd(uv), ks(uv)), each [chunk *
+    n, 3], of the records `rec` (materials without a map keep their solid
+    colours)."""
+    n = rec.shape[1]
+    r = rec.reshape(chunk, max_depth + 1, REC_ROWS, n)
+    for d in depths:
+        x = r[:, d].permute(0, 2, 1).reshape(chunk * n, REC_ROWS)
+        uv, mat = x[:, 0:2], x[:, 2].to(torch.int64)
+        yield (x[:, 3:6], x[:, 6:9], x[:, 9:12],
+               diffuse_color(scene, mat, uv), specular_color(scene, mat, uv))
 
 
 def deferred_epilogue(scene: Scene, rec: torch.Tensor, chunk: int,
@@ -298,18 +304,98 @@ def deferred_epilogue(scene: Scene, rec: torch.Tensor, chunk: int,
     atlas (materials without a map keep their solid colors), then the
     mirror chain folded from the deepest bounce up, contrib_d = r_d +
     Cd_d kd_d + ks_d (Cs_d + contrib_{d+1})."""
-    D1 = max_depth + 1
     n = rec.shape[1]
-    r = rec.reshape(chunk, D1, REC_ROWS, n)
     contrib = torch.zeros((chunk * n, 3), dtype=torch.float32,
                           device=rec.device)
-    for d in range(D1 - 1, -1, -1):
-        x = r[:, d].permute(0, 2, 1).reshape(chunk * n, REC_ROWS)
-        uv, mat = x[:, 0:2], x[:, 2].to(torch.int64)
-        kd = diffuse_color(scene, mat, uv)
-        ks = specular_color(scene, mat, uv)
-        contrib = x[:, 3:6] + x[:, 6:9] * kd + ks * (x[:, 9:12] + contrib)
+    for r, cd, cs, kd, ks in _record_bounces(scene, rec, chunk, max_depth,
+                                             range(max_depth, -1, -1)):
+        contrib = r + cd * kd + ks * (cs + contrib)
     return contrib.reshape(chunk, n, 3).sum(dim=0)
+
+
+def fold_front_to_back(scene: Scene, rec: torch.Tensor, chunk: int,
+                       max_depth: int) -> torch.Tensor:
+    """deferred_epilogue's sum in kernel 7b's order: per sample the bounces
+    from the first, acc += T (r + Cd kd + Cs ks), then T *= ks(uv) (T = 1
+    at the primary hit). The same value as the back-to-front fold up to
+    the sums' rounding."""
+    n = rec.shape[1]
+    acc = torch.zeros((chunk * n, 3), dtype=torch.float32, device=rec.device)
+    T = torch.ones_like(acc)
+    for r, cd, cs, kd, ks in _record_bounces(scene, rec, chunk, max_depth,
+                                             range(max_depth + 1)):
+        acc = acc + T * (r + cd * kd + cs * ks)
+        T = T * ks
+    return acc.reshape(chunk, n, 3).sum(dim=0)
+
+
+def bvh_whitted_textured_plain(scene: Scene, nodes, tab, lights, cam,
+                               seed: int, W: int, H: int, samples: int,
+                               max_depth: int, with_emissive: bool, *,
+                               leaf_width: int, copies: int = 1,
+                               pix_base: int = 0, n_lanes: int | None = None,
+                               sample_chunk: int | None = None,
+                               stats: dict | None = None) -> torch.Tensor:
+    """Kernel 7b's function as the JAX package computes it: the records of
+    `sample_chunk` samples at a time (MAX_REC_GROUPS // (max_depth + 1) by
+    default), each chunk resolved and folded by deferred_epilogue and its
+    records freed before the next: [n_lanes, 3] radiance / spp of the lanes
+    [pix_base, pix_base + n_lanes)."""
+    n = W * H - pix_base if n_lanes is None else n_lanes
+    if sample_chunk is None:
+        sample_chunk = max(1, MAX_REC_GROUPS // (max_depth + 1))
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=tab.device)
+    for samp_base in range(0, samples, sample_chunk):
+        chunk = min(sample_chunk, samples - samp_base)
+        rec = bvh_whitted_deferred_plain(
+            nodes, tab, lights, cam, seed, W, H, chunk, samp_base, max_depth,
+            with_emissive, leaf_width=leaf_width, copies=copies,
+            pix_base=pix_base, n_lanes=n, stats=stats)
+        acc = acc + deferred_epilogue(scene, rec, chunk, max_depth)
+        del rec
+    return acc * _f32(1.0 / samples, tab.device)
+
+
+def bvh_whitted_textured(scene: Scene, nodes, tab, lights, cam, seed: int,
+                         W: int, H: int, samples: int, max_depth: int,
+                         with_emissive: bool, *, leaf_width: int,
+                         copies: int = 1, pix_base: int = 0,
+                         n_lanes: int | None = None, texels=None,
+                         sample_chunk: int | None = None) -> torch.Tensor:
+    """[n_lanes, 3] radiance / spp of the lanes [pix_base, pix_base +
+    n_lanes) of the textured Whitted render: kernel 7b for CUDA tensors
+    (one launch; `texels` = pack_texels(scene), packed here when None), the
+    plain version for CPU tensors (`sample_chunk` samples a pass)."""
+    if n_lanes is None:
+        n_lanes = W * H - pix_base
+    _check("bvh_whitted_textured", nodes, tab, lights, cam, _D_COLS, copies,
+           W, H, pix_base, n_lanes)
+    if samples < 1 or max_depth < 0:
+        raise ValueError(f"bvh_whitted_textured: samples {samples}, "
+                         f"max_depth {max_depth}")
+    if tab.device.type == "cpu":
+        return bvh_whitted_textured_plain(
+            scene, nodes, tab, lights, cam, seed, W, H, samples, max_depth,
+            with_emissive, leaf_width=leaf_width, copies=copies,
+            pix_base=pix_base, n_lanes=n_lanes, sample_chunk=sample_chunk)
+    if tab.device.type != "cuda":
+        raise ValueError(f"bvh_whitted_textured: unsupported device "
+                         f"{tab.device}")
+    mat_tex, atlas = texels if texels is not None else pack_texels(scene)
+    check_inputs("bvh_whitted_textured", tab.device,
+                 (("mat_tex", mat_tex, (mat_tex.shape[0], TEXEL_COLS),
+                   torch.int32),
+                  ("atlas", atlas, (atlas.shape[0], atlas.shape[1], 3),
+                   torch.float32)))
+    out = torch.empty((n_lanes, 3), dtype=torch.float32, device=tab.device)
+    DEFERRED_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
+                           lights.data_ptr(), mat_tex.data_ptr(),
+                           atlas.data_ptr(), atlas.shape[1], out.data_ptr(),
+                           nodes.shape[0] // copies, int(leaf_width), copies,
+                           lights.shape[0], W, H, samples, max_depth,
+                           int(bool(with_emissive)), _seed32(seed), pix_base,
+                           n_lanes, stream_ptr(tab.device))
+    return out
 
 
 def make_bvh_whitted_deferred(scene: Scene, camera, *, samples: int,
@@ -319,12 +405,12 @@ def make_bvh_whitted_deferred(scene: Scene, camera, *, samples: int,
                               octants: int = 1, builder: str = "auto",
                               bvh: BVH | None = None):
     """Build `fn(seed: int, pix_base=0, n_lanes=None) -> image`: the
-    textured Whitted render as launches of kernel 7b (the samples cut into
-    chunks of MAX_REC_GROUPS // (max_depth + 1)), each followed by the
-    texel resolve and fold of `deferred_epilogue`, on the scene's device
-    (the plain version on the CPU). [H, W, 3] for the whole image,
-    [n_lanes, 3] for a tile. Raises ValueError outside the gate (depth /
-    lights). `fn.data` holds the kernel's tensors and the chunk sizes."""
+    textured Whitted render as one launch of kernel 7b on a CUDA scene, and
+    as the plain version's record chunks (MAX_REC_GROUPS // (max_depth + 1)
+    samples each) resolved and folded by `deferred_epilogue` on the CPU.
+    [H, W, 3] for the whole image, [n_lanes, 3] for a tile. Raises
+    ValueError outside the gate (depth / lights). `fn.data` holds the
+    kernel's tensors and the plain version's chunks."""
     if not bvh_whitted_deferred_supported(scene, max_depth):
         raise ValueError("scene outside the deferred bvh-whitted gate "
                          f"(max_depth <= {MAX_DEFERRED_DEPTH}; "
@@ -336,27 +422,23 @@ def make_bvh_whitted_deferred(scene: Scene, camera, *, samples: int,
     lights = torch.as_tensor(pack_lights(scene), device=scene.device)
     cam = camera_vec(camera).to(scene.device)
     with_em = scene.num_emissive > 0
+    texels = pack_texels(scene)
     sample_chunk = max(1, MAX_REC_GROUPS // (max_depth + 1))
     chunks = [(c, min(sample_chunk, samples - c))
               for c in range(0, samples, sample_chunk)]
 
     def render_deferred(seed: int, pix_base: int = 0, n_lanes=None):
-        n = W * H - pix_base if n_lanes is None else n_lanes
-        acc = torch.zeros((n, 3), dtype=torch.float32, device=tab.device)
-        for samp_base, chunk in chunks:
-            rec = bvh_whitted_deferred(
-                nodes, tab, lights, cam, seed, W, H, chunk, samp_base,
-                max_depth, with_em, leaf_width=leaf_width, copies=octants,
-                pix_base=pix_base, n_lanes=n)
-            acc = acc + deferred_epilogue(scene, rec, chunk, max_depth)
-            del rec
-        out = acc * _f32(1.0 / samples, tab.device)
+        out = bvh_whitted_textured(
+            scene, nodes, tab, lights, cam, seed, W, H, samples, max_depth,
+            with_em, leaf_width=leaf_width, copies=octants,
+            pix_base=pix_base, n_lanes=n_lanes, texels=texels,
+            sample_chunk=sample_chunk)
         if pix_base == 0 and n_lanes is None:
             return out.reshape(H, W, 3)
         return out
 
     render_deferred.data = dict(nodes=nodes, tab=tab, lights=lights, cam=cam,
                                 leaf_width=leaf_width, copies=octants,
-                                with_emissive=with_em, chunks=chunks,
-                                max_depth=max_depth)
+                                with_emissive=with_em, texels=texels,
+                                chunks=chunks, max_depth=max_depth)
     return render_deferred

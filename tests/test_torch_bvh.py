@@ -35,6 +35,7 @@ from orion_tpu_torch.ops import reorder
 from orion_tpu_torch.ops.bvh_traverse import (make_bvh_intersect, traverse,
                                               walk_plain)
 from orion_tpu_torch.ops.intersect import intersect_brute
+from orion_tpu_torch.ops.woop import BIG, woop_t
 
 from chip_smoke import random_rays, write_cornell
 from torch_port_util import jax_bvh_fields, to_torch
@@ -347,3 +348,85 @@ def test_walk_plain_octant_copies_and_cap(scenes):
     t2, row2 = walk_plain(lo, hi, skip, start, tab, o, d, leaf_width=8,
                           cap=float(t[row >= 0].min()), flagged_starts=True)
     assert (row2 == -1).all()
+
+
+def _tie_scene():
+    """A 6x6 grid of unit quads on the plane y = 0 (two triangles each, so
+    edges are shared), every third quad listed twice (coplanar copies that
+    tie exactly), and a box standing on the grid (its bottom coplanar with
+    the floor): (v0, e1, e2) float32."""
+    tris = []
+    for i in range(6):
+        for k in range(6):
+            a = np.array([i, 0, k], np.float64)
+            quad = [(a, a + (1, 0, 0), a + (1, 0, 1)),
+                    (a, a + (1, 0, 1), a + (0, 0, 1))]
+            tris += quad * (2 if (6 * i + k) % 3 == 0 else 1)
+    lo, hi = np.array([2.0, 0.0, 2.0]), np.array([3.5, 1.5, 3.5])
+    c = [lo + (hi - lo) * np.array(b) for b in np.ndindex(2, 2, 2)]
+    for f in ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+              (0, 2, 6, 4), (1, 5, 7, 3)):
+        q = [c[j] for j in f]
+        tris += [(q[0], q[1], q[2]), (q[0], q[2], q[3])]
+    t = np.asarray(tris, np.float32)
+    return t[:, 0], t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]
+
+
+@pytest.mark.parametrize("leaf", [2, 4])
+def test_plain_walk_is_the_lexicographic_min_over_rows(leaf):
+    """The walk's (t, row) is the least (t, row) over every bundled row,
+    ties to the smallest row, on rays aimed at shared edges and vertices
+    of a grid, at coplanar copies and at a box's bottom on the floor: what
+    a walk in another order must compare to give the same winners. Leaves
+    are in row order and the slab cull is strict, so the walk meets the
+    least row of a tie first and keeps it. Where it does not give that
+    winner, the float32 slab test of the winner's leaf or of one of its
+    ancestors turned the ray away: a ray through a box's edge (tmax
+    rounding below tmin), or a box whose tmin rounds up to the t the walk
+    holds while the winner's t lies an ulp below it. Those rays are
+    counted, and every one of them is such a ray."""
+    v0, e1, e2 = _tie_scene()
+    bvh, _ = build_bvh(v0, e1, e2, builder="numpy", leaf_size=leaf)
+    nodes, tri = bx._bvh_device_layout(bvh, "cpu")
+    rng = np.random.default_rng(3)
+    n = 4096
+    # targets on the grid's lines and vertices (half of them), or anywhere
+    tgt = rng.uniform(0.0, 6.0, (n, 3))
+    snap = rng.uniform(size=(n, 2)) < 0.5
+    tgt[:, 0] = np.where(snap[:, 0], np.round(tgt[:, 0]), tgt[:, 0])
+    tgt[:, 2] = np.where(snap[:, 1], np.round(tgt[:, 2]), tgt[:, 2])
+    tgt[:, 1] = 0.0
+    o = tgt + rng.uniform((-2.0, 2.0, -2.0), (2.0, 4.0, 2.0), (n, 3))
+    o[: n // 4, 1] = -1.0            # a quarter from below (the box's bottom)
+    o32 = torch.as_tensor(o, dtype=torch.float32)
+    d32 = torch.as_tensor(tgt, dtype=torch.float32) - o32
+    alive = torch.ones((n,), dtype=torch.bool)
+    t, row = bx.bvh_walk_plain(nodes, tri, o32, d32, alive, leaf_width=leaf)
+    # every row's t (misses and padding rows: BIG), then the least (t, row)
+    w = tuple(tri[None, :, k] for k in range(13))
+    t_all = woop_t((o32[:, 0:1], o32[:, 1:2], o32[:, 2:3]),
+                   (d32[:, 0:1], d32[:, 1:2], d32[:, 2:3]), w)   # [n, B]
+    t_min = t_all.min(dim=1).values
+    first = torch.argmax((t_all == t_min[:, None]).to(torch.int8), dim=1)
+    hit = t_min < BIG
+    ties = ((t_all == t_min[:, None]).sum(dim=1) > 1) & hit
+    assert int(ties.sum()) > n // 10        # the scene does tie
+    ref = torch.where(hit, first, -1)
+    same = row.long() == ref
+    assert bool(torch.equal(t[same & hit], t_min[same & hit]))
+    assert bool(torch.isinf(t[same & ~hit]).all())
+    # each other ray: a box on the path to the winner's leaf turns it away
+    lo, hi, skip, start = bx.unpack_nodes(nodes)
+    for i in (~same).nonzero().flatten().tolist():
+        leaf_node = int(((start >= 0) & (start <= ref[i])
+                         & (ref[i] < start + leaf)).nonzero()[0])
+        path = [k for k in range(leaf_node + 1)
+                if k == leaf_node or int(skip[k]) > leaf_node]
+        inv = 1.0 / d32[i]
+        t0, t1 = (lo[path] - o32[i]) * inv, (hi[path] - o32[i]) * inv
+        tmin = torch.minimum(t0, t1).max(dim=1).values
+        tmax = torch.maximum(t0, t1).min(dim=1).values
+        t_walk = float(t[i]) if int(row[i]) >= 0 else BIG
+        passes = (tmax >= tmin) & (tmax > 0.0) & (tmin < t_walk)
+        assert not bool(passes.all()), i
+    assert int((~same).sum()) < n // 10, int((~same).sum())

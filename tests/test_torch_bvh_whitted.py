@@ -258,8 +258,8 @@ def test_records_layout_and_wrapper_checks(soup):
                                       bvh=soup["tree"])
     dd = fn.data
     args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 9, 48, 32)
-    rec = bw.bvh_whitted_deferred(*args, 2, 3, 1, False,
-                                  leaf_width=jw.LEAF_WIDTH)
+    rec = bw.bvh_whitted_deferred_plain(*args, 2, 3, 1, False,
+                                        leaf_width=jw.LEAF_WIDTH)
     assert rec.shape == (2 * 2 * bw.REC_ROWS, 48 * 32)
     r = rec.reshape(2, 2, bw.REC_ROWS, -1)
     hit0 = r[:, 0, 6:9].sum(dim=1) > 0                # lit primary hits
@@ -268,11 +268,12 @@ def test_records_layout_and_wrapper_checks(soup):
     assert bool((r[:, 1].abs().sum(dim=1)[~(r[:, 0, 0:2].abs().sum(1) > 0)]
                  == 0).all())                           # no bounce past a miss
     with pytest.raises(ValueError):                   # the Whitted table
-        bw.bvh_whitted_deferred(dd["nodes"], dd["tab"][:, :40],
-                                *args[2:], 1, 0, 1, False, leaf_width=128)
+        bw.bvh_whitted_textured(soup["ttex"], dd["nodes"], dd["tab"][:, :40],
+                                *args[2:], 1, 1, False, leaf_width=128)
     with pytest.raises(ValueError):                   # lanes past the image
-        bw.bvh_whitted_deferred(*args, 1, 0, 1, False, leaf_width=128,
-                                pix_base=48 * 32 - 3, n_lanes=4)
+        bw.bvh_whitted_textured(soup["ttex"], *args, 1, 1, False,
+                                leaf_width=128, pix_base=48 * 32 - 3,
+                                n_lanes=4)
     with pytest.raises(ValueError, match="gate"):
         bw.make_bvh_whitted_deferred(soup["ttex"], soup["cam"], samples=1,
                                      max_depth=bw.MAX_DEFERRED_DEPTH + 1)
@@ -309,3 +310,48 @@ def test_cli_whitted_routes_past_the_fused_gate(tmp_path, case):
         rep = _cli([str(solid), "-o", str(tmp_path / "s.hdr"), "-p", "1"])
         assert rep["backend"] == "fused-whitted-kernel"
         assert not np.allclose(load_hdr(tmp_path / "s.hdr"), img, atol=1e-3)
+
+
+@pytest.mark.parametrize("spec_map", [False, True])
+@pytest.mark.parametrize("depth", [0, 3])
+def test_front_to_back_fold_equals_epilogue(soup, spec_map, depth):
+    """Kernel 7b's order over the plain records (fold_front_to_back: the
+    chain from the first bounce with the throughput T = prod ks(uv)) gives
+    deferred_epilogue's back-to-front sum within TOL, with the checker as
+    the diffuse map alone and as the specular map too (a red or green
+    texel zeroes T's other channels, and two of them T itself)."""
+    f = _checker(scene_to_numpy(soup["ts"]))
+    if spec_map:
+        f["mat_map_specular"] = np.zeros(f["mat_diffuse"].shape[0], np.int32)
+    sc = scene_from_numpy(f, "cpu")
+    S = 3
+    dd = bw.make_bvh_whitted_deferred(sc, soup["cam"], samples=S,
+                                      max_depth=depth,
+                                      leaf_width=jw.LEAF_WIDTH,
+                                      bvh=soup["tree"]).data
+    rec = bw.bvh_whitted_deferred_plain(
+        dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 5, 48, 32, S, 0,
+        depth, dd["with_emissive"], leaf_width=jw.LEAF_WIDTH)
+    back = bw.deferred_epilogue(sc, rec, S, depth)
+    front = bw.fold_front_to_back(sc, rec, S, depth)
+    np.testing.assert_allclose(front.numpy(), back.numpy(), **TOL)
+    assert float(front.max()) > 0.01
+    if depth:           # the chain reaches the second bounce's texels
+        first = bw.fold_front_to_back(sc, rec.reshape(
+            S, depth + 1, bw.REC_ROWS, -1)[:, :1].reshape(
+                S * bw.REC_ROWS, -1), S, 0)
+        assert float((front - first).abs().max()) > 1e-4
+
+
+def test_texel_table_of_the_maps(soup):
+    """pack_texels: per material the diffuse, then the specular map's (h, w,
+    y0, x0) in the atlas, zeros where the material has no such map."""
+    f = _checker(scene_to_numpy(soup["ts"]))
+    mat_tex, atlas = bw.pack_texels(scene_from_numpy(f, "cpu"))
+    assert mat_tex.dtype == torch.int32 and mat_tex.shape == (1, 8)
+    assert mat_tex.tolist() == [[8, 8, 0, 0, 0, 0, 0, 0]]
+    assert atlas.shape == (8, 8, 3)
+    f["mat_map_specular"] = np.zeros(1, np.int32)
+    f["tex_off"] = np.array([[2, 5]], np.int32)
+    mat_tex, _ = bw.pack_texels(scene_from_numpy(f, "cpu"))
+    assert mat_tex.tolist() == [[8, 8, 2, 5, 8, 8, 2, 5]]

@@ -28,6 +28,7 @@ replay's tolerances.
 """
 
 import ctypes
+import dataclasses
 import hashlib
 import subprocess
 
@@ -35,10 +36,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (agreeing_lanes, binned_round_agree,
+from chip_smoke import (SECOND, agreeing_lanes, binned_round_agree,
                         bounce_kernels_agree, brute_agree, draws_agree,
-                        mask_agree, random_rays, shade_agree, two_emitter,
-                        walk_agree, write_cornell, write_cornell_whitted)
+                        mask_agree, random_rays, record_sweeps, shade_agree,
+                        two_emitter, walk_agree, write_cornell,
+                        write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import binned as bn
@@ -305,6 +307,72 @@ def test_bvh_walk_kernel_equals_plain(tmp_path, cuda_device, leaf, any_hit):
     assert (r_k >= 0).any()
     if any_hit:
         assert (t_k[r_k >= 0] == 1.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_walk_kernel_refills_and_walks_recorded_sweeps(
+        tmp_path, cuda_device, any_hit):
+    """Kernel 5 on 2^21 random rays, more than the card's resident threads
+    (so warps refill their lanes from the lane counter), and on every sweep
+    of one 256x256 wavefront sample (a thread a ray, no counter): (t, row)
+    of the plain walk bit for bit."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-4", xres=256, yres=256)
+    bvh, _ = build_scene_bvh(sc, leaf_size=2)
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    kernel = bx.ANY_HIT_KERNEL if any_hit else bx.KERNEL
+    kernel._load()
+    info = (ctypes.c_int * 4)()
+    lib = ctypes.CDLL(str(cuda_build.lib_path("bvh_intersect")))
+    assert lib.bvh_intersect_info(int(any_hit) + 2, info) == 0   # counted
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (1 << 21) > info[0] * sms * 128 > 0
+    rays = [random_rays(1 << 21, 5, cuda_device)]
+    rays += record_sweeps(sc, cam, bx.make_bvh_intersect_kernel(bvh, sc),
+                          SECOND)
+    for o, d, alive in rays:
+        before = kernel.launches
+        t_k, r_k = bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=2,
+                               any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        t_p, r_p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=2,
+                                     any_hit=any_hit)
+        assert torch.equal(r_k, r_p) and torch.equal(t_k, t_p)
+        assert (r_k[~alive] == -1).all() and (r_k >= 0).any()
+
+
+@pytest.mark.gpu
+def test_bvh_walk_kernel_on_a_refitted_tree(tmp_path, cuda_device):
+    """A refit step's layout (accel/refit.RefitPlan over moved vertices,
+    what a vertex fit walks every step) walked by kernel 5: the plain
+    walk's (t, row) bit for bit, nearest and any-hit, and the moved
+    triangles' hits (t against the brute sweep of the moved scene)."""
+    from orion_tpu_torch.accel.refit import RefitPlan
+
+    sc, _ = _scene(tmp_path, cuda_device, "levels-3")
+    bvh, _ = build_scene_bvh(sc, leaf_size=2)
+    rng = np.random.default_rng(2)
+    moved = sc.tri_v0 + torch.as_tensor(
+        rng.normal(0.0, 0.02, tuple(sc.tri_v0.shape)), dtype=torch.float32,
+        device=cuda_device)
+    nodes, tri = RefitPlan(bvh).refit(moved, sc.tri_e1, sc.tri_e2,
+                                      device=cuda_device)
+    o, d, alive = random_rays(1 << 18, 8, cuda_device)
+    for any_hit in (False, True):
+        t_k, r_k = bx.bvh_walk(nodes, tri, o, d, alive, leaf_width=2,
+                               any_hit=any_hit)
+        t_p, r_p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=2,
+                                     any_hit=any_hit)
+        assert torch.equal(r_k, r_p) and torch.equal(t_k, t_p)
+    moved_sc = dataclasses.replace(sc, tri_v0=moved)
+    h_w = bx.make_bvh_intersect_kernel(bvh, sc, layout=(nodes, tri))(
+        moved_sc, o, d, alive=alive)
+    h_b = bi.intersect_brute_kernel(moved_sc, o, d, alive=alive)
+    both = h_w.mask & h_b.mask
+    same_t = (~h_w.mask & ~h_b.mask) | (
+        both & ((h_w.t - h_b.t).abs() <= 1e-5 * h_b.t.abs() + 1e-6))
+    assert float(same_t.float().mean()) >= 0.999
 
 
 @pytest.mark.gpu
@@ -696,32 +764,57 @@ def test_bvh_whitted_kernel_matches_plain(tmp_path, cuda_device, leaf,
 @pytest.mark.parametrize("checker", [False, True])
 def test_bvh_whitted_deferred_kernel_matches_plain(tmp_path, cuda_device,
                                                    checker):
+    """Kernel 7b's image, one launch a render, against the plain version's
+    records and their epilogue (back to front) and against the same
+    records folded in the kernel's order (front to back)."""
     sc, cam = _whitted_scene(tmp_path, cuda_device, levels=2,
                              checker=checker)
     fn = bw.make_bvh_whitted_deferred(sc, cam, samples=3, max_depth=2)
     dd = fn.data
-    args = (dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 99, 32, 24, 2,
-            1, 2, dd["with_emissive"])
     before = bw.DEFERRED_KERNEL.launches
-    rec_k = bw.bvh_whitted_deferred(*args, leaf_width=2)
+    img = fn(99).reshape(-1, 3)
     torch.cuda.synchronize()
     assert bw.DEFERRED_KERNEL.launches == before + 1
-    rec_p = bw.bvh_whitted_deferred_plain(*args, leaf_width=2)
-    assert rec_k.shape == rec_p.shape == (2 * 3 * bw.REC_ROWS, 32 * 24)
-
-    def rows(r):        # one row of 12 record floats per (group, lane)
-        return r.reshape(6, bw.REC_ROWS, -1).permute(0, 2, 1).reshape(
-            -1, bw.REC_ROWS)
-
-    _images_agree(rows(rec_k), rows(rec_p))
-    img = fn(99)
-    assert bw.DEFERRED_KERNEL.launches == before + 2
-    acc = bw.deferred_epilogue(sc, bw.bvh_whitted_deferred_plain(
-        *args[:7], 3, 0, *args[9:], leaf_width=2), 3, 2)
-    _images_agree(img.reshape(-1, 3), acc / 3.0)
-    if not checker:     # the untextured records give the BVH Whitted image
-        _images_agree(img.reshape(-1, 3), bw.make_bvh_whitted_renderer(
+    rec = bw.bvh_whitted_deferred_plain(
+        dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 99, 32, 24, 3, 0, 2,
+        dd["with_emissive"], leaf_width=2)
+    _images_agree(img, bw.deferred_epilogue(sc, rec, 3, 2) / 3.0)
+    _images_agree(img, bw.fold_front_to_back(sc, rec, 3, 2) / 3.0)
+    if not checker:     # untextured, it is the BVH Whitted image
+        _images_agree(img, bw.make_bvh_whitted_renderer(
             sc, cam, samples=3, max_depth=2)(99).reshape(-1, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 4])
+@pytest.mark.parametrize("maps", ["kd", "kd+ks"])
+def test_bvh_whitted_textured_kernel_maps_tiles_depths(tmp_path, cuda_device,
+                                                       depth, maps):
+    """Kernel 7b on the checker as the diffuse map, and as the specular
+    map too (the mirror chain's throughput then comes from the texels and
+    reaches zero), at depth 0 and 4, against its plain version (records and
+    epilogue); a tile renders the whole image's pixels."""
+    sc, cam = _whitted_scene(tmp_path, cuda_device, levels=2, checker=True)
+    if maps == "kd+ks":
+        f = scene_to_numpy(sc)
+        f["mat_map_specular"] = f["mat_map_diffuse"].copy()
+        sc = scene_from_numpy(f, cuda_device)
+    fn = bw.make_bvh_whitted_deferred(sc, cam, samples=4, max_depth=depth)
+    dd = fn.data
+    img = fn(7).reshape(-1, 3)
+    p = bw.bvh_whitted_textured_plain(
+        sc, dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 7, 32, 24, 4,
+        depth, dd["with_emissive"], leaf_width=2)
+    _images_agree(img, p)
+    tile = fn(7, pix_base=100, n_lanes=300)
+    torch.cuda.synchronize()
+    assert torch.equal(tile, img[100:400])
+    if maps == "kd+ks" and depth:     # the texels' Ks, not the solid one
+        solid = bw.make_bvh_whitted_deferred(
+            _whitted_scene(tmp_path / "s", cuda_device, levels=2,
+                           checker=True)[0], cam, samples=4,
+            max_depth=depth)(7).reshape(-1, 3)
+        assert float((img - solid).abs().max()) > 1e-3
 
 
 @pytest.mark.gpu
@@ -871,8 +964,8 @@ def test_bvh_whitted_and_prb_wrappers_reject_bad_inputs(tmp_path,
         bw.bvh_whitted(dd["nodes"], dd["tab"], dd["lights"].repeat(9, 1),
                        *args[1:], leaf_width=2)
     with pytest.raises(ValueError):          # the Whitted table's width
-        bw.bvh_whitted_deferred(dd["nodes"], dd["tab"], dd["lights"],
-                                dd["cam"], 0, 32, 24, 1, 0, 1, True,
+        bw.bvh_whitted_textured(sc, dd["nodes"], dd["tab"], dd["lights"],
+                                dd["cam"], 0, 32, 24, 1, 1, True,
                                 leaf_width=2)
     psc, pcam = _scene(tmp_path / "p", cuda_device, "levels-1")
     nodes, _, update = bvp.make_bvh_tab_updater(psc)

@@ -287,16 +287,18 @@ def test_prb_ab_cornell_case_on_cpu(tmp_path):
 
 
 def test_sass_diff_lists_every_instantiation():
-    """sass_diff's kernels: 1, 8, 9a, 9b, 10, both G8 walks (any hit or
-    not), 6a, 6b's two kernels and the four shade instantiations, each
-    picked by a string that one mangled name alone contains; 3a and 3b,
-    which this redesign changes, are not listed."""
+    """sass_diff's kernels: 1, 2, 3a, 3b, 4, 7a, 8, 9a, 9b, 10, both G8
+    walks (any hit or not), 6a, 6b's two kernels and the four shade
+    instantiations, each picked by a string that one mangled name alone
+    contains (3a's and 3b's with the length before the name, which 9a's
+    and 9b's do not share); kernel 5 and 7b, which this redesign changes,
+    are not listed."""
     from tools import sass_diff
 
     names = {(s, k, a) for s, k, a in sass_diff.KERNELS}
-    assert len(names) == len(sass_diff.KERNELS) == 14
-    assert not {k for _, k, _ in names} & {"prb_fwd_ls_kernel",
-                                           "prb_replay_kernel"}
+    assert len(names) == len(sass_diff.KERNELS) == 19
+    assert not {k for _, k, _ in names} & {"bvh_intersect_kernel",
+                                           "bvh_whitted_textured_kernel"}
     assert ("bounce", "bounce_walk_kernel", ()) in names
     assert ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)) in names
     funcs = {f"_ZN12_GLOBAL__N_119bounce_shade_kernelILb{a}ELb{v}EEEvN5o"
@@ -304,7 +306,13 @@ def test_sass_diff_lists_every_instantiation():
              for a in (0, 1) for v in (0, 1)}
     funcs.update({f"_ZN12_GLOBAL__N_113bvh_g8_kernelILb{a}EEEvPKf": [str(a)]
                   for a in (0, 1)})
+    funcs.update({f"_ZN12_GLOBAL__N_1{len(k)}{k}EN5orion5PathPiPdi": [k]
+                  for k in ("prb_replay_kernel", "bvh_prb_replay_kernel",
+                            "prb_fwd_ls_kernel", "bvh_prb_fwd_kernel")})
     for src, kernel, also in sass_diff.KERNELS:
         if kernel in ("bounce_shade_kernel", "bvh_g8_kernel"):
             got = sass_diff.pick(funcs, kernel, also)
             assert got == ["".join(c for c in also[0] if c.isdigit())]
+        elif src == "prb":
+            got = sass_diff.pick(funcs, kernel, also)
+            assert got is not None and kernel.endswith(got[0])
