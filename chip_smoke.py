@@ -22,7 +22,9 @@ Phases (any failure raises and the script exits non-zero):
   6. each kernel against its plain version at the shapes and inputs of
      the path that runs it, with times: the fused kernel at the main
      path's 1920x1080, 16 spp, depth 8; the brute sweep on every sweep
-     of one 256x256 wavefront sample (recorded from `render`). CUDA-event
+     of one 256x256 wavefront sample and of one 1920x1080 sample
+     (recorded from `render`; (t, id) equal to the plain version's bit
+     for bit on each, both timed by CUDA-graph replay). CUDA-event
      medians of each kernel and of its plain version, with the roofline
      bound of the same work.
   7. the training path at full width (bench.py's cornell_prb_train_fhd_4spp):
@@ -134,9 +136,11 @@ of a 64x64 render of Cornell, levels-2 and levels-5 at leaf widths 2 and
 plain versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths
 2 and 128.
 
-The line before the last is a JSON object with one record per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script fails before printing either.
+Every phase prints its wall seconds on a line of its own ("[phase n]
+... s wall"). The line before the last is a JSON object with one record
+per kernel (kernel 2's also carries its 1920x1080 time and bound,
+`hd_ms` and `hd_bound_ms`); the last line is {"ok": true, "device":
+{...}}. Without a CUDA device the script fails before printing either.
 """
 
 from __future__ import annotations
@@ -377,6 +381,27 @@ def two_emitter(scene):
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+class PhaseClock:
+    """Prints each phase's wall seconds on a line of its own."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase {phase}] {now - self.t:.1f} s wall", flush=True)
+        self.t = now
+
+
+def brute_equal(name: str, kernel, plain) -> None:
+    """The brute kernel's (t, id) equal the plain version's bit for bit."""
+    import torch
+
+    check(torch.equal(kernel[1], plain[1]) and torch.equal(kernel[0],
+                                                           plain[0]),
+          f"brute {name}: (t, id) differ from the plain version's")
 
 
 def corr(a, b) -> float:
@@ -764,6 +789,18 @@ def bound_ms(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def brute_bound_ms(n_rays: int, n_alive: int, rows: int, n_sweeps: int):
+    """bound_ms of one brute sweep on average over n_sweeps sweeps of
+    n_rays rays in all, n_alive of them live: a Woop test of every live ray
+    against every row, against the bytes a launch must move. A live ray
+    reads its origin, direction and alive byte and writes (t, id): 33
+    bytes. A dead ray reads only its alive byte and writes (t, id): 9
+    bytes. The [rows, 16] f32 table is read once."""
+    return bound_ms(
+        n_alive * rows * WOOP_TEST_FLOPS / n_sweeps,
+        (n_alive * 33 + (n_rays - n_alive) * 9) / n_sweeps + rows * 16 * 4)
+
+
 def random_rays(n: int, seed: int, device):
     """Rays from inside the box in random directions; ~10% dead."""
     import torch
@@ -827,6 +864,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # 1. device and build ---------------------------------------------------
+    clock = PhaseClock()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -844,6 +882,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1] {name}: {line.strip()}")
+    clock.lap("1")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -870,6 +909,7 @@ def main() -> int:
               f"), levels-4 {lv4.num_triangles}, two-emitter "
               f"{em2.num_emissive} emitters, Whitted {wsc64.num_lights} "
               f"light(s)")
+        clock.lap("2")
 
         # 3. kernels against their plain versions --------------------------
         brute_err = 0.0
@@ -924,6 +964,7 @@ def main() -> int:
             (("cornell", cornell), ("levels-2", lv2),
              (f"levels-{BIG_LEVELS}", lv5)), cam64)
         slice5_errs = _phase_slice5_checks(tmp, dev, cornell, lv2, lv5, cam64)
+        clock.lap("3")
 
         # 4. main path ------------------------------------------------------
         fp.KERNEL.launches = 0
@@ -940,6 +981,7 @@ def main() -> int:
         check(img.shape == (MAIN["yres"], MAIN["xres"], 3), "main shape")
         check(np.isfinite(img).all() and img.mean() > 0, "main image")
         check(fused_launches > 0, "main path never launched the fused kernel")
+        clock.lap("4")
 
         # 5. second entry point: brute wavefront ---------------------------
         fp.KERNEL.launches = 0
@@ -957,6 +999,7 @@ def main() -> int:
         check(np.isfinite(img_w).all(), "wavefront image non-finite")
         check(c > 0.93, f"corr {c}")
         check(mrel < 0.15, f"mean rel {mrel}")
+        clock.lap("5")
 
         # 6. times at the main-path shapes ----------------------------------
         cam_main = camera_from_rtc(_resized(parse_rtc(rtc_path), MAIN),
@@ -989,9 +1032,8 @@ def main() -> int:
         for i, (o, d, alive) in enumerate(calls):
             k = bi.brute_sweep(tab, o, d, alive)
             torch.cuda.synchronize()
-            brute_err = max(brute_err, brute_agree(
-                f"wavefront sweep {i}", k,
-                bi.brute_sweep_plain(tab, o, d, alive)))
+            brute_equal(f"256x256 wavefront sweep {i}", k,
+                        bi.brute_sweep_plain(tab, o, d, alive))
 
         def sweeps(fn):
             return lambda: [fn(tab, o, d, alive) for o, d, alive in calls]
@@ -1005,9 +1047,8 @@ def main() -> int:
         b_eager_ms, b_plain_ms = b_eager_ms / n_calls, b_plain_ms / n_calls
         n_rays = sum(o.shape[0] for o, _, _ in calls)
         n_alive = sum(int(a.sum()) for _, _, a in calls)
-        b_bound, b_by = bound_ms(
-            n_alive * tab.shape[0] * WOOP_TEST_FLOPS / n_calls,
-            (n_rays * 25 + n_calls * tab.numel() * 4 + n_rays * 8) / n_calls)
+        b_bound, b_by = brute_bound_ms(n_rays, n_alive, tab.shape[0],
+                                       n_calls)
         print(f"[6] brute, per launch over the {n_calls} sweeps of one "
               f"wavefront sample ({n_rays} rays, {n_alive} alive, x "
               f"{tab.shape[0]} rows): {b_ms:.6f} ms kernel (median of 21 "
@@ -1015,19 +1056,51 @@ def main() -> int:
               f"(max-min)/median {b_spread:.4f}), {b_eager_ms:.5f} ms "
               f"launched eagerly, {b_plain_ms:.4f} ms plain, bound "
               f"{b_bound:.6f} ms ({b_by})")
+        # and on a 1920x1080 sample's sweeps (2,073,600 rays each: the
+        # card full), bit for bit against the plain version on each
+        hd = record_sweeps(cornell, camera_from_rtc(
+            _resized(parse_rtc(rtc_path), HD), device=dev),
+            bi.intersect_brute_kernel, SECOND)
+        for i, (o, d, alive) in enumerate(hd):
+            brute_equal(f"1080p wavefront sweep {i}",
+                        bi.brute_sweep(tab, o, d, alive),
+                        bi.brute_sweep_plain(tab, o, d, alive))
+        hd_ms, hd_spread = graph_ms(
+            lambda: [bi.brute_sweep(tab, o, d, a) for o, d, a in hd], 3, 7)
+        hd_rays = sum(o.shape[0] for o, _, _ in hd)
+        hd_alive = sum(int(a.sum()) for _, _, a in hd)
+        hd_bound, hd_by = brute_bound_ms(hd_rays, hd_alive, tab.shape[0],
+                                         len(hd))
+        print(f"[6] brute, per launch over the {len(hd)} sweeps of one "
+              f"{HD['xres']}x{HD['yres']} wavefront sample ({hd_rays} rays, "
+              f"{hd_alive} alive): {hd_ms:.6f} ms kernel (median of 7 "
+              f"replays of a CUDA graph of 3 passes; spread {hd_spread:.4f}),"
+              f" bound {hd_bound:.6f} ms ({hd_by}); (t, id) equal to the "
+              f"plain version's on every sweep at both sizes")
+        del hd
+        clock.lap("6")
 
         train = _phase_train(tmp, dev, card, fwd_err, replay_err)
+        clock.lap("7")
         whit = _phase_whitted(tmp, dev, whitted_err)
+        clock.lap("8")
         big = _phase_big_path(tmp, dev, card, lv5, float(img.mean()),
                               path_err)
+        clock.lap("9")
         walk = _phase_bvh_wavefront(tmp, dev, walk_sweeps, walk_err)
+        clock.lap("10")
         bounce = _phase_bounce(tmp, dev, card, lv5, bounce_errs)
+        clock.lap("11")
         big_whitted = _phase_big_whitted(tmp, dev, card, slice5_errs)
+        clock.lap("12 (a, b)")
         bvh_train = _phase_bvh_train(tmp, dev, card, slice5_errs)
+        clock.lap("12 (c)")
         walk["launches"] += _phase_refit(tmp, dev)
+        clock.lap("12 (d)")
         binned = _phase_binned(
             tmp, dev, card, lv5, big_rtc, walk_sweeps,
             _phase_binned_checks(dev, cornell, lv2, lv5, cam64, walk_sweeps))
+        clock.lap("13")
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -1041,7 +1114,8 @@ def main() -> int:
          "replaces": "orion_tpu/ops/pallas_intersect.py:87",
          "launches": brute_launches, "max_abs_err": brute_err,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
-         "bound_by": b_by, "library_ms": None},
+         "bound_by": b_by, "library_ms": None, "hd_ms": hd_ms,
+         "hd_bound_ms": hd_bound},
         {"name": "prb_fwd_ls", "route": "cuda",
          "source": "orion_tpu_torch/csrc/prb.cu",
          "replaces": "orion_tpu/ops/pallas_prb.py:90", **train["fwd"]},

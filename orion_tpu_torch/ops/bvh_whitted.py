@@ -25,8 +25,9 @@ Replaces `orion_tpu.ops.pallas_bvh_whitted` (the Pallas `_make_kernel` and
   + Cd kd + ks (Cs + contrib); `fold_front_to_back` is the kernel's order
   over the same records.
 
-The kernels are `csrc/bvh_whitted.cu` (the Whitted lane of
-`csrc/whitted_common.cuh` over a tree, 7b with its texel hook). Their
+The kernels are `csrc/bvh_whitted.cu` (the persistent Whitted lane loop
+of `csrc/whitted_common.cuh` over a tree, each launch handed a zeroed
+int32 pixel counter; 7b with its texel hook). Their
 plain versions are ops/whitted.py's `_whitted_plain`, the one Whitted
 estimator of the package, over the walk of ops/bvh_traverse.py (for 7b
 its records, then `deferred_epilogue`). The wrappers take the plain
@@ -76,9 +77,9 @@ TEXEL_COLS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("bvh_whitted", "bvh_whitted_launch",
-                    [_P] * 5 + [_I] * 12 + [_P])
+                    [_P] * 5 + [_I] * 12 + [_P, _P])
 DEFERRED_KERNEL = CudaKernel("bvh_whitted", "bvh_whitted_textured_launch",
-                             [_P] * 6 + [_I, _P] + [_I] * 12 + [_P])
+                             [_P] * 6 + [_I, _P] + [_I] * 12 + [_P, _P])
 
 
 def bvh_whitted_supported(scene: Scene) -> bool:
@@ -200,11 +201,12 @@ def bvh_whitted(nodes, tab, lights, cam, seed: int, W: int, H: int,
     _check("bvh_whitted", nodes, tab, lights, cam, _W_COLS, copies, W, H,
            pix_base, n_lanes)
     out = torch.empty((n_lanes, 3), dtype=torch.float32, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
                   lights.data_ptr(), out.data_ptr(), nodes.shape[0] // copies,
                   int(leaf_width), copies, lights.shape[0], W, H, samples,
                   max_depth, int(bool(with_emissive)), _seed32(seed),
-                  pix_base, n_lanes, stream_ptr(tab.device))
+                  pix_base, n_lanes, nxt.data_ptr(), stream_ptr(tab.device))
     return out
 
 
@@ -388,13 +390,14 @@ def bvh_whitted_textured(scene: Scene, nodes, tab, lights, cam, seed: int,
                   ("atlas", atlas, (atlas.shape[0], atlas.shape[1], 3),
                    torch.float32)))
     out = torch.empty((n_lanes, 3), dtype=torch.float32, device=tab.device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     DEFERRED_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
                            lights.data_ptr(), mat_tex.data_ptr(),
                            atlas.data_ptr(), atlas.shape[1], out.data_ptr(),
                            nodes.shape[0] // copies, int(leaf_width), copies,
                            lights.shape[0], W, H, samples, max_depth,
                            int(bool(with_emissive)), _seed32(seed), pix_base,
-                           n_lanes, stream_ptr(tab.device))
+                           n_lanes, nxt.data_ptr(), stream_ptr(tab.device))
     return out
 
 

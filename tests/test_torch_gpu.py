@@ -30,6 +30,7 @@ replay's tolerances.
 import ctypes
 import dataclasses
 import hashlib
+import re
 import subprocess
 
 import numpy as np
@@ -88,6 +89,97 @@ def test_brute_kernel_equals_plain(tmp_path, cuda_device, name):
     assert torch.equal(id_k, id_p)
     assert torch.equal(t_k, t_p)
     assert (id_k[~alive] == -1).all()
+
+
+def _brute_table(tmp_path, device, rows: int, ties: bool = False):
+    """A [rows, 16] Woop table: the box's (36 rows), its levels-2
+    subdivision's (546) or its levels-4 subdivision's (8,706), whichever
+    is the first to hold `rows`, cut to `rows`, or repeated up to them
+    past 8,706; `ties`: the table, a row that misses, and the table again,
+    so row r ties with row r + rows + 1."""
+    name = ("cornell" if rows <= 36 else "levels-2" if rows <= 546
+            else "levels-4")
+    sc, _ = _scene(tmp_path, device, name)
+    tab = bi.pack_tri_rows16(sc)
+    tab = tab.repeat(-(-rows // tab.shape[0]), 1)[:rows].contiguous()
+    if ties:
+        tab = torch.cat([tab, torch.zeros_like(tab[:1]), tab]).contiguous()
+    return tab
+
+
+def _brute_which(n: int) -> int:
+    """The instantiation the brute launch takes for n rays: 1 << which
+    lanes a ray."""
+    lib = ctypes.CDLL(str(cuda_build.lib_path("brute_intersect")))
+    return lib.brute_intersect_which(n)
+
+
+def _brute_equal(tab, o, d, alive):
+    before = bi.KERNEL.launches
+    t_k, id_k = bi.brute_sweep(tab, o, d, alive)
+    torch.cuda.synchronize()
+    assert bi.KERNEL.launches == before + 1
+    t_p, id_p = bi.brute_sweep_plain(tab, o, d, alive)
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(t_k, t_p)
+    assert bool((id_k[~alive] == -1).all())
+    assert bool(torch.isinf(t_k[id_k < 0]).all())
+    return id_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4099, 1 << 18])
+@pytest.mark.parametrize("rows", [1, 36, 257, 576, 9216])
+def test_brute_kernel_rows_and_instantiations(tmp_path, cuda_device, rows,
+                                              n):
+    """The most lanes a ray (4,099 rays: not a whole number of blocks or
+    groups) and one lane a ray (2^18 rays, more than a wave) at every
+    table size around the tile, bit for bit against the plain version."""
+    tab = _brute_table(tmp_path, cuda_device, rows)
+    o, d, alive = random_rays(n, 21, cuda_device)
+    bi.brute_sweep(tab, o, d, alive)        # builds the kernel
+    most = int(re.search(r"constexpr int kMaxSplit = (\d+);",
+                         (cuda_build.CSRC / "brute_intersect.cu")
+                         .read_text()).group(1)).bit_length() - 1
+    assert _brute_which(n) == (most if n < 100_000 else 0)
+    ids = _brute_equal(tab, o, d, alive)
+    assert int((ids >= 0).sum()) > (n // 10 if rows >= 36 else 0)
+
+
+@pytest.mark.gpu
+def test_brute_kernel_every_instantiation(tmp_path, cuda_device):
+    """Sweeps of 4,099 to 140,001 rays (none a whole number of blocks)
+    take every instantiation the launch has, 1 to kMaxSplit lanes a ray,
+    each bit for bit against the plain version."""
+    tab = _brute_table(tmp_path, cuda_device, 576)
+    bi.brute_sweep(tab, *random_rays(64, 1, cuda_device))
+    most = int(re.search(r"constexpr int kMaxSplit = (\d+);",
+                         (cuda_build.CSRC / "brute_intersect.cu")
+                         .read_text()).group(1)).bit_length() - 1
+    taken = set()
+    for k, n in enumerate((4099, 20011, 40009, 70001, 140001)):
+        o, d, alive = random_rays(n, 30 + k, cuda_device)
+        taken.add(_brute_which(n))
+        _brute_equal(tab, o, d, alive)
+    assert taken == set(range(most + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4099, 1 << 18])
+@pytest.mark.parametrize("rows", [36, 576])
+def test_brute_kernel_ties_and_dead_sweeps(tmp_path, cuda_device, rows, n):
+    """Planted ties (every row twice, rows + 1 apart: the twins fall to
+    different lanes of a group) go to the smaller row; an all-dead sweep
+    answers (+inf, -1) everywhere; a sweep with one live ray."""
+    tab = _brute_table(tmp_path, cuda_device, rows, ties=True)
+    o, d, alive = random_rays(n, 22, cuda_device)
+    ids = _brute_equal(tab, o, d, alive)
+    hit = ids >= 0
+    assert int(hit.sum()) > n // 10 and bool((ids[hit] < rows).all())
+    _brute_equal(tab, o, d, torch.zeros_like(alive))
+    one = torch.zeros_like(alive)
+    one[n // 2] = True
+    _brute_equal(tab, o, d, one)
 
 
 @pytest.mark.gpu
@@ -758,6 +850,52 @@ def test_bvh_whitted_kernel_matches_plain(tmp_path, cuda_device, leaf,
     # the Whitted kernel over the brute sweep (kernel 4): the same estimator
     _images_agree(k.reshape(-1, 3), wh.fused_whitted(
         *wh.whitted_args(sc, cam), 99, 32, 24, 4, 4, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("textured", [False, True])
+def test_bvh_whitted_kernels_any_grid(tmp_path, cuda_device, textured):
+    """Kernels 7a and 7b take pixels from a counter: one block of 128
+    threads renders every pixel of the image (several a thread) the same,
+    bit for bit, as the full grid, and so does a tile."""
+    sc, cam = _whitted_scene(tmp_path, cuda_device, levels=2,
+                             checker=textured)
+    if textured:
+        fn = bw.make_bvh_whitted_deferred(sc, cam, samples=3, max_depth=4)
+        dd = fn.data
+
+        def run(**kw):
+            return bw.bvh_whitted_textured(
+                sc, dd["nodes"], dd["tab"], dd["lights"], dd["cam"], 11, 32,
+                24, 3, 4, dd["with_emissive"], leaf_width=dd["leaf_width"],
+                texels=dd["texels"], **kw)
+        kernel = bw.DEFERRED_KERNEL
+    else:
+        fn = bw.make_bvh_whitted_renderer(sc, cam, samples=3, max_depth=4)
+        dd = fn.data
+
+        def run(**kw):
+            return bw.bvh_whitted(dd["nodes"], dd["tab"], dd["lights"],
+                                  dd["cam"], 11, 32, 24, 3, 4,
+                                  dd["with_emissive"],
+                                  leaf_width=dd["leaf_width"], **kw)
+        kernel = bw.KERNEL
+    before = kernel.launches
+    full = run()
+    # the library's test entry point: both launchers take one block
+    grid = ctypes.CDLL(str(cuda_build.lib_path("bvh_whitted")))
+    grid.bvh_whitted_set_grid(1)
+    try:
+        one = run()
+        tile = run(pix_base=5, n_lanes=700)
+        torch.cuda.synchronize()
+    finally:
+        grid.bvh_whitted_set_grid(0)
+    assert kernel.launches == before + 3
+    assert torch.equal(one, full)
+    assert torch.equal(tile, full[5:705])
+    assert torch.equal(full, fn(11).reshape(-1, 3))
+    assert float(full.mean()) > 0
 
 
 @pytest.mark.gpu

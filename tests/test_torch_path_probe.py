@@ -154,13 +154,13 @@ def test_report_of_recorded_replay_counters(capsys):
 
 
 @pytest.mark.parametrize("argv,kernels,root", [
-    ([], {"1", "8", "9", "3"}, None),
+    ([], {"1", "8", "9", "3", "w"}, None),
     (["3"], {"3"}, None),
     (["9", "3", "--root", "_archive/old"], {"9", "3"}, "_archive/old"),
 ])
 def test_parse_args_names_kernels_and_a_checkout(argv, kernels, root):
-    """`path_probe.py [1] [8] [9] [3] [--root CHECKOUT]`: the kernels
-    named, all four when none is; the checkout to probe, or this one."""
+    """`path_probe.py [1] [8] [9] [3] [w] [--root CHECKOUT]`: the kernels
+    named, all five when none is; the checkout to probe, or this one."""
     args = path_probe.parse_args(argv)
     assert args.kernels == kernels
     assert (args.root is None if root is None else str(args.root) == root)
@@ -287,18 +287,26 @@ def test_prb_ab_cornell_case_on_cpu(tmp_path):
 
 
 def test_sass_diff_lists_every_instantiation():
-    """sass_diff's kernels: 1, 2, 3a, 3b, 4, 7a, 8, 9a, 9b, 10, both G8
-    walks (any hit or not), 6a, 6b's two kernels and the four shade
-    instantiations, each picked by a string that one mangled name alone
-    contains (3a's and 3b's with the length before the name, which 9a's
-    and 9b's do not share); kernel 5 and 7b, which this redesign changes,
-    are not listed."""
+    """sass_diff's kernels: 1, 3a, 3b, 4, the four instantiations of 5,
+    8, 9a, 9b, 10, both G8 walks (any hit or not), 6a, 6b's two kernels
+    and the four shade instantiations, each picked by a string that one
+    mangled name alone contains (3a's and 3b's with the length before the
+    name, which 9a's and 9b's do not share); kernels 2, 7a and 7b, which
+    this redesign changes, are not listed."""
     from tools import sass_diff
 
     names = {(s, k, a) for s, k, a in sass_diff.KERNELS}
-    assert len(names) == len(sass_diff.KERNELS) == 19
-    assert not {k for _, k, _ in names} & {"bvh_intersect_kernel",
+    assert len(names) == len(sass_diff.KERNELS) == 21
+    assert not {k for _, k, _ in names} & {"brute_intersect_kernel",
+                                           "bvh_whitted_kernel",
                                            "bvh_whitted_textured_kernel"}
+    assert ("whitted", "whitted_kernel", ()) in names
+    walks = {f"_ZN12_GLOBAL__N_120bvh_intersect_kernelILb{a}ELb{c}EEEvPKf":
+             [f"{a}{c}"] for a in (0, 1) for c in (0, 1)}
+    for src, kernel, also in sass_diff.KERNELS:
+        if src == "bvh_intersect":
+            got = sass_diff.pick(walks, kernel, also)
+            assert got == ["".join(c for c in also[0] if c.isdigit())]
     assert ("bounce", "bounce_walk_kernel", ()) in names
     assert ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)) in names
     funcs = {f"_ZN12_GLOBAL__N_119bounce_shade_kernelILb{a}ELb{v}EEEvN5o"

@@ -1,6 +1,7 @@
-"""Resources, occupancy and lane-loop counters of the path megakernels.
+"""Resources, occupancy and lane-loop counters of the path megakernels
+and of the BVH Whitted kernels.
 
-    python3 tools/path_probe.py [1] [8] [9] [3] [--root CHECKOUT]
+    python3 tools/path_probe.py [1] [8] [9] [3] [w] [--root CHECKOUT]
 
 Kernel 1 (csrc/fused_path.cu) runs on the Cornell box and kernel 8
 (csrc/bvh_path.cu) on the 34,818-triangle subdivided box, both at the main
@@ -10,14 +11,18 @@ training forward, 9b the replay) on the same box at chip_smoke.py phase
 12 (c)'s 1920x1080, 4 spp, depth 8, 2 light samples, red wall x 0.6,
 together with the whole `make_bvh_train_step`; the path-replay pair over
 the swept table (`3`: 3a, 3b) on the Cornell box at phase 7's same
-shapes, with the whole `make_fused_train_step`. With no argument the
-probe runs all four. `--root CHECKOUT` probes another checkout's package
+shapes, with the whole `make_fused_train_step`; the BVH Whitted kernels
+(`w`: csrc/bvh_whitted.cu, 7a untextured and 7b with its checker) on the
+levels-5 point-light box at chip_smoke.py phase 12's 1920x1080, 4 spp,
+depth 4, one light. With no argument the probe runs all five. `--root CHECKOUT` probes another checkout's package
 and kernel sources (its `orion_tpu_torch` and `chip_smoke` come first on
 sys.path): a checkout whose 3a/3b still run fused_common.cuh's
 one-thread-a-pixel `path_lane`, which has no counter hooks, is built
 from copies of its sources with the hooks put in (`hook_path_lane`) and
 a `prb_info` added; its port build is the same code, the hooks being
-macros of the instrumented build. For each kernel it prints:
+macros of the instrumented build; a checkout whose 7a/7b still run
+whitted_common.cuh's one-thread-a-pixel `whitted_lane` gets the hooks the
+same way (`hook_whitted_lane`). For each kernel it prints:
 
 - ptxas's registers, shared memory and spill lines of the port's build
   (ops/cuda_build.NVCC_FLAGS), and what the built kernel reports
@@ -42,6 +47,11 @@ macros of the instrumented build. For each kernel it prints:
   with the pair's `constexpr int` (BLOCKS_CONSTANT: kTableBlocks,
   kTreeBlocks) rewritten (`with_constant`), one nvcc each, all started
   together; and the train step's time;
+- for 7a and 7b (persistent lanes), builds of copies of
+  csrc/bvh_whitted.cu with its `kWhittedBlocks` rewritten
+  (WHITTED_BUILDS), both kernels timed in each build (median of
+  WHITTED_REPS); their counters' "NEE" is the Whitted lane's shadow
+  walks and light terms;
 - for kernel 8, the nodes and leaves a walk of the plain version
   (`bvh_path_plain`, the skip-pointer walk) visits at 256x256, 16 spp,
   depth 8, the yardstick of the walk's work.
@@ -74,7 +84,7 @@ RES, SAMPLES, DEPTH, LIGHT_SAMPLES = (1920, 1080), 16, 8, 2
 PLAIN_RES = (256, 256)
 REPS = 5
 TRAIN_SEED = 3
-KERNELS = ("1", "8", "9", "3")
+KERNELS = ("1", "8", "9", "3", "w")
 # each pair's kernels in prb.cu's ptxas report and SASS: the names and the
 # strings their mangled names contain (the table pair's parameters are
 # PathParamsT<RGeo>, or <Geo> in a checkout of path_lane; the tree pair's
@@ -87,6 +97,11 @@ TABLE_ALSO = ("Geo",)
 # (prb.cu's constexpr BLOCKS_CONSTANT[pair])
 BLOCKS_CONSTANT = {"3": "kTableBlocks", "9": "kTreeBlocks"}
 TRAIN_BLOCKS = (6, 7, 8, 9, 10, 11, 12)
+# the copies of csrc/bvh_whitted.cu that the Whitted sweep builds (its
+# resident blocks), and the median of WHITTED_REPS launches each (a
+# Whitted render's times spread by ~10% from launch to launch)
+WHITTED_BUILDS = [{"kWhittedBlocks": b} for b in TRAIN_BLOCKS]
+WHITTED_REPS = 11
 COUNTERS = ("lane_cycles", "nearest_cycles", "nee_cycles", "iters",
             "iter_lanes", "nee_iters", "nee_lanes", "warp_tail", "warps",
             "block_tail", "blocks", "lanes", "acc_cycles", "acc_entries",
@@ -151,12 +166,12 @@ def _cuobjdump(so: Path) -> str:
     return res.stdout
 
 
-def _median_ms(fn) -> tuple:
+def _median_ms(fn, reps: int = REPS) -> tuple:
     import torch
 
     out = fn()                                # warm-up
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -167,7 +182,7 @@ def _median_ms(fn) -> tuple:
     return statistics.median(times), times, out
 
 
-def _report_counters(name: str, c: dict) -> None:
+def _report_counters(name: str, c: dict, nee: str = "NEE") -> None:
     lanes = max(c["lanes"], 1)
     cyc = max(c["lane_cycles"], 1)
     print(f"[{name}] counters: {c}")
@@ -175,13 +190,13 @@ def _report_counters(name: str, c: dict) -> None:
         return
     split = c["nearest_cycles"] + c["nee_cycles"] + c["acc_cycles"]
     print(f"[{name}] a thread: {c['lane_cycles'] / lanes:.6g} cycles; "
-          f"nearest-hit queries {c['nearest_cycles'] / cyc:.4f}, NEE "
+          f"nearest-hit queries {c['nearest_cycles'] / cyc:.4f}, {nee} "
           f"{c['nee_cycles'] / cyc:.4f}, the rest (shading, RNG, bounce, "
           f"loop) {1 - split / cyc:.4f}")
     print(f"[{name}] SIMT efficiency: loop "
           f"{c['iter_lanes'] / max(32 * c['iters'], 1):.4f} over "
           f"{c['iters']} warp iterations ({c['iters'] / max(c['warps'], 1):.1f}"
-          f" a warp), NEE entries "
+          f" a warp), {nee} entries "
           f"{c['nee_lanes'] / max(32 * c['nee_iters'], 1):.4f}")
     wt = c["warp_tail"] / max(c["warps"], 1)
     bt = c["block_tail"] / max(c["blocks"], 1)
@@ -229,7 +244,8 @@ def _swapped(mod, attr: str, lib, symbol: str):
 
 
 def _run(name, src, symbol, kernel_name, info, launch, tmp: Path,
-         attr: str = "KERNEL", also=(), tag: str | None = None) -> None:
+         attr: str = "KERNEL", also=(), tag: str | None = None,
+         nee: str = "NEE") -> None:
     """Time `launch()` on the port's build, then run it once on the
     instrumented build of `src` (the kernel of `launch.module` named
     `attr` swapped for the instrumented library's `symbol`) and print the
@@ -271,7 +287,7 @@ def _run(name, src, symbol, kernel_name, info, launch, tmp: Path,
             raise RuntimeError("path_counters_read failed")
     print(f"[{name}] instrumented kernel {a.elapsed_time(b):.3f} ms, output "
           f"{_same(img_c, img)} to the port's build")
-    _report_counters(name, dict(zip(COUNTERS, buf)))
+    _report_counters(name, dict(zip(COUNTERS, buf)), nee)
 
 
 def _probe_path_kernels(tmp: Path, dev) -> None:
@@ -558,6 +574,198 @@ def _probe_pair(pair: str, tmp: Path, dev) -> None:
           f"{ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in times)})")
 
 
+# ---------------------------------------------------------------------------
+# the BVH Whitted kernels
+# ---------------------------------------------------------------------------
+
+# A checkout whose 7a/7b run whitted_common.cuh's one-thread-a-pixel
+# `whitted_lane` has no counter hooks in it.
+# hook_whitted_lane includes render_lane.cuh (the counters) in
+# whitted_common.cuh, puts the hooks of whitted_lanes into whitted_lane
+# (from WHITTED_LANE_START to the end of the function), each text of
+# WHITTED_LANE_HOOKS found there exactly once, and the kernel hooks of
+# WHITTED_KERNEL_HOOKS into bvh_whitted.cu, which gains WHITTED_INFO. The
+# uninstrumented build of the copy is the checkout's own code.
+WHITTED_LANE_START = ("// One pixel lane, until its sample index reaches "
+                      "p.samples; writes the")
+WHITTED_INCLUDE = ('#include "fused_common.cuh"\n',
+                   '#include "render_lane.cuh"\n')
+WHITTED_LANE_HOOKS = (
+    ("                                             const Tex& tex = Tex()) {\n",
+     "                                             const Tex& tex = Tex()\n"
+     "                                 ORION_PC(, LaneCounters* pcp = "
+     "nullptr)) {\n  ORION_PC(LaneCounters& pc = *pcp;)\n"),
+    ("  while (samp < p.samples) {\n    float t;\n"
+     "    const int row = nearest<kStride>(p.geo, sgeo, r, kBig, t);\n",
+     "  while (samp < p.samples) {\n"
+     "    ORION_PC(pc_warp_vote(pc.iters, pc.iter_lanes);\n"
+     "             const long long pc0 = clock64();)\n    float t;\n"
+     "    const int row = nearest<kStride>(p.geo, sgeo, r, kBig, t);\n"
+     "    ORION_PC(pc.nearest += clock64() - pc0;)\n"),
+    ("      for (int li = 0; li < p.n_lights; ++li) {\n",
+     "      ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);\n"
+     "               const long long pc1 = clock64();)\n"
+     "      for (int li = 0; li < p.n_lights; ++li) {\n"),
+    ("      }\n#pragma unroll\n"
+     "      for (int ch = 0; ch < 3; ++ch) acc[ch] += T[ch] * r3[ch];\n",
+     "      }\n      ORION_PC(pc.nee += clock64() - pc1;)\n#pragma unroll\n"
+     "      for (int ch = 0; ch < 3; ++ch) acc[ch] += T[ch] * r3[ch];\n"),
+    ("  const float inv_s = static_cast<float>(1.0 / p.samples);\n",
+     "  ORION_PC(pc.t_done = clock64();)\n"
+     "  const float inv_s = static_cast<float>(1.0 / p.samples);\n"),
+)
+_OLD_GUARD = "  if (lane >= n_lanes || pix >= p.W * p.H) return;\n"
+
+
+def _whitted_kernel_hook(call: str, counted: str) -> tuple:
+    """(text, replacement) of a kernel body that runs `call` per pixel:
+    the instrumented build runs `counted` in every thread instead."""
+    return (_OLD_GUARD + call,
+            "#ifdef ORION_PATH_COUNTERS\n"
+            "  LaneCounters pc;\n  pc.t_start = pc.t_done = clock64();\n"
+            "  if (lane < n_lanes && pix < p.W * p.H)\n" + counted
+            + "  pc_flush(pc);\n  __syncwarp();\n  pc_exit(pc.t_done);\n"
+            "#else\n" + _OLD_GUARD + call + "#endif\n")
+
+
+WHITTED_KERNEL_HOOKS = (
+    _whitted_kernel_hook(
+        "  whitted_lane(p, nullptr, pix);\n",
+        "    whitted_lane(p, nullptr, pix, NoTexel(), &pc);\n"),
+    _whitted_kernel_hook(
+        "  whitted_lane<Tree, kDCols>(p, nullptr, pix, tex);\n",
+        "    whitted_lane<Tree, kDCols>(p, nullptr, pix, tex, &pc);\n"),
+)
+WHITTED_INFO = """
+// out = render_lane.cuh's kernel_info of 7a (which 0) or 7b (which 1)
+// (path_probe.py)
+extern "C" int bvh_whitted_info(int which, int* out) {
+  return which == 0 ? kernel_info(bvh_whitted_kernel, 0, out)
+                    : kernel_info(bvh_whitted_textured_kernel, 0, out);
+}
+"""
+
+
+def hook_whitted_lane(files: dict) -> dict:
+    """{name: text} of whitted_common.cuh and bvh_whitted.cu of a checkout
+    whose 7a/7b run `whitted_lane`, rewritten with the counter hooks (see
+    WHITTED_LANE_HOOKS); ValueError where a text to replace is not found
+    exactly once."""
+    wc = files["whitted_common.cuh"]
+    a = wc.find(WHITTED_LANE_START)
+    b = wc.find("\n}\n", a)
+    if a < 0 or b < 0:
+        raise ValueError("whitted_common.cuh: no whitted_lane")
+    lane = wc[a:b + 3]
+    for old, new in WHITTED_LANE_HOOKS:
+        lane = _sub_once(lane, old, new, "whitted_lane")
+    wc = _sub_once(wc[:a] + lane + wc[b + 3:], *WHITTED_INCLUDE,
+                   "whitted_common.cuh")
+    bw = files["bvh_whitted.cu"]
+    for old, new in WHITTED_KERNEL_HOOKS:
+        bw = _sub_once(bw, old, new, "bvh_whitted.cu")
+    return {"whitted_common.cuh": wc, "bvh_whitted.cu": bw + WHITTED_INFO}
+
+
+def whitted_sources(csrc: Path, out: Path) -> bool:
+    """Copy `csrc`'s bvh_whitted.cu and headers into `out`, the copies
+    rewritten by hook_whitted_lane where 7a/7b run `whitted_lane` (then
+    True)."""
+    out.mkdir(parents=True, exist_ok=True)
+    files = {f.name: f.read_text()
+             for f in [csrc / "bvh_whitted.cu", *sorted(csrc.glob("*.cuh"))]}
+    per_pixel = "whitted_lanes<" not in files["bvh_whitted.cu"]
+    if per_pixel:
+        files.update(hook_whitted_lane(files))
+    for name, text in files.items():
+        (out / name).write_text(text)
+    return per_pixel
+
+
+def whitted_sweep_sources(src: Path) -> dict:
+    """{tag: path} of copies of src/bvh_whitted.cu beside it, one for each
+    set of constants of WHITTED_BUILDS."""
+    text = (src / "bvh_whitted.cu").read_text()
+    out = {}
+    for consts in WHITTED_BUILDS:
+        tag = ",".join(f"{k}={v}" for k, v in consts.items())
+        body = text
+        for name, v in consts.items():
+            body = with_constant(body, name, v)
+        out[tag] = src / f"bvh_whitted_sweep_{len(out)}.cu"
+        out[tag].write_text(body)
+    return out
+
+
+def _probe_whitted(tmp: Path, dev) -> None:
+    """Kernels 7a and 7b at chip_smoke.py phase 12's shapes, and the sweep
+    of their resident blocks."""
+    from chip_smoke import BIG_LEVELS, WHITTED, write_cornell_whitted
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import octant_signs
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import cuda_build
+    from orion_tpu_torch.scene import load_scene
+
+    W, H, S, D = (WHITTED["xres"], WHITTED["yres"], WHITTED["samples"],
+                  WHITTED["depth"])
+    src = tmp / "whitted_src"
+    per_pixel = whitted_sources(cuda_build.CSRC, src)
+    sweep = {} if per_pixel else whitted_sweep_sources(src)
+    builds = [(src / "bvh_whitted.cu", tmp / "bw.so", ()),
+              (src / "bvh_whitted.cu", tmp / "bw_counters.so",
+               ("-DORION_PATH_COUNTERS",))]
+    builds += [(cu, tmp / f"bw_sweep_{k}.so", ())
+               for k, cu in enumerate(sweep.values())]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: _nvcc(*b), builds))
+    if per_pixel:
+        print("[kernels 7a/7b] whitted_lane: counter hooks put into a copy "
+              "of the sources")
+
+    renders = {}
+    for textured in (False, True):
+        rtc = write_cornell_whitted(tmp / f"w{int(textured)}", xres=W,
+                                    yres=H, depth=D, levels=BIG_LEVELS,
+                                    checker=textured)
+        scene, r = load_scene(rtc, device=dev)
+        cam = camera_from_rtc(r, device=dev)
+        make = (bw.make_bvh_whitted_deferred if textured
+                else bw.make_bvh_whitted_renderer)
+        renders[textured] = make(scene, cam, samples=S, max_depth=D,
+                                 order_signs=octant_signs(cam.front))
+    runs = []
+    for textured, name, attr, symbol, kernel, which in (
+            (False, "7a", "KERNEL", "bvh_whitted_launch",
+             "bvh_whitted_kernel", 0),
+            (True, "7b", "DEFERRED_KERNEL", "bvh_whitted_textured_launch",
+             "bvh_whitted_textured_kernel", 1)):
+        fn = renders[textured]
+
+        def launch(fn=fn):
+            return fn(0)
+
+        launch.module = bw.__name__
+        runs.append((name, launch, attr, symbol, kernel, which))
+        _run(f"kernel {name}", src / "bvh_whitted.cu", symbol, kernel,
+             lambda lib, out, which=which: lib.bvh_whitted_info(which, out),
+             launch, tmp, attr=attr, tag="bw", nee="shadow walks")
+    for k, (tag, cu) in enumerate(sweep.items()):
+        so = tmp / f"bw_sweep_{k}.so"
+        log = _nvcc(cu, so)
+        lib = ctypes.CDLL(str(so))
+        for name, fn, attr, symbol, kernel, which in runs:
+            out = (ctypes.c_int * 4)()
+            lib.bvh_whitted_info(which, out)
+            spill = " ".join(_ptxas_lines(log, kernel)[1:2])
+            with _swapped(bw, attr, lib, symbol):
+                ms, times, _ = _median_ms(fn, WHITTED_REPS)
+            print(f"[kernel {name}] built with {tag}: {out[1]} "
+                  f"registers, {out[0]} resident ({spill}); {ms:.3f} ms "
+                  f"(runs {', '.join(f'{t:.3f}' for t in times)})",
+                  flush=True)
+
+
 def parse_args(argv) -> argparse.Namespace:
     """`kernels`: the set of KERNELS named (all when none is), `root`:
     the checkout to probe (None: this one)."""
@@ -588,6 +796,8 @@ def main(argv) -> int:
         for pair in ("9", "3"):
             if pair in args.kernels:
                 _probe_pair(pair, tmp, dev)
+        if "w" in args.kernels:
+            _probe_whitted(tmp, dev)
     return 0
 
 
