@@ -37,8 +37,10 @@ Phases (any failure raises and the script exits non-zero):
      (c) a 10-step optim.fit on the PRB route whose loss and red wall's
      albedo error fall.
   8. Whitted: the point-light Cornell through the CLI at 1920x1080, 4 spp,
-     depth 4 on the Whitted kernel; the kernel against its plain version
-     at those shapes, with times; the kernel against the wavefront
+     depth 4 on the Whitted kernel; its registers, spills and resident
+     blocks as built; the kernel against its plain version at those
+     shapes, with times and the image's digest; the kernel against the
+     wavefront
      render(mode="whitted") at 256x256, 16 spp, depth 2 (means within
      2.5%, error under 3x the wavefront's own seed-to-seed error + 1e-4);
      a 5-step Whitted optim.fit (mat_diffuse, mat_specular) on the brute
@@ -116,8 +118,10 @@ Phases (any failure raises and the script exits non-zero):
      rounds a sweep, kernel 10's summed CUDA-event time a render and its
      bound, the render's time in turns with the bounce pipeline's and the
      two images held together; kernel 10 per launch over the recorded
-     rounds of a 256x256 render, against its plain version on each round,
-     timed by CUDA-graph replay; (c) one binned train step at 1920x1080, 4
+     rounds of a 256x256 render and over those of one 1920x1080 sweep (the
+     nearest sweep of the render's depth-1 rays), (t, row) bit for bit its
+     plain version's on each round, timed by CUDA-graph replay, each set
+     with its bound; (c) one binned train step at 1920x1080, 4
      spp, depth 8 (red wall x 0.6), and a 3-step SGD fit of the red wall's
      albedo at 256x256 whose loss and error fall; (d) the 256x256, 16 spp,
      depth 4 wavefront over G8 (launches; the image against kernel 5's on
@@ -138,7 +142,7 @@ plain versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths
 
 Every phase prints its wall seconds on a line of its own ("[phase n]
 ... s wall"). The line before the last is a JSON object with one record
-per kernel (kernel 2's also carries its 1920x1080 time and bound,
+per kernel (kernels 2 and 10 also carry their 1920x1080 time and bound,
 `hd_ms` and `hd_bound_ms`); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device the script fails before printing either.
 """
@@ -146,6 +150,8 @@ per kernel (kernel 2's also carries its 1920x1080 time and bound,
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import hashlib
 import io
 import json
 import math
@@ -587,10 +593,11 @@ def shade_agree(name: str, k, p, rows: int = 13) -> float:
 
 def binned_round_agree(name: str, st, key, sweep) -> float:
     """Hold kernel 10 against its plain version on one round's inputs (st
-    [8, n], key [n] sorted) over `sweep`'s bins and table: winner rows
-    equal on >= 99.9% of lanes, t within rel 1e-5 where they are (the
-    kernel's Woop test is written without FMA contraction: both should be
-    bit for bit). Returns the largest absolute t difference there."""
+    [8, n], key [n] sorted) over `sweep`'s bins and table: (t, row) bit
+    for bit (the kernel's Woop test is written without FMA contraction),
+    which implies winner rows equal on >= 99.9% of lanes and t within rel
+    1e-5 where they are (checked too). Returns the largest absolute t
+    difference there."""
     from orion_tpu_torch.ops import binned as bn
 
     k = bn.binned_round(st, key, sweep.row0, sweep.nb, sweep.tab)
@@ -605,6 +612,7 @@ def binned_round_agree(name: str, st, key, sweep) -> float:
           f"{rel:.3g}, winners {int(real.sum())}")
     check(frac >= 0.999, f"binned round {name}: rows equal on {frac}")
     check(rel <= 1e-5, f"binned round {name}: t rel {rel}")
+    check(bool((k == p).all()), f"binned round {name}: not bit for bit")
     return float(dt.max()) if dt.numel() else 0.0
 
 
@@ -1321,6 +1329,7 @@ def _phase_whitted(tmp: Path, dev, whitted_err: float) -> dict:
     from orion_tpu_torch.engine import prepare
     from orion_tpu_torch.io.rtc import parse_rtc
     from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.ops import whitted as wh
     from orion_tpu_torch.optim import fit
     from orion_tpu_torch.render import render
@@ -1341,16 +1350,25 @@ def _phase_whitted(tmp: Path, dev, whitted_err: float) -> dict:
     scene, r = load_scene(rtc, device=dev)
     args = wh.whitted_args(scene, camera_from_rtc(r, device=dev))
     cfg = (W, H, S, D, scene.num_emissive > 0)
-    ms, times, k = event_ms(lambda: wh.fused_whitted(*args, 0, *cfg), 3)
+    info = (ctypes.c_int * 4)()
+    rc = ctypes.CDLL(str(cuda_build.lib_path("whitted"))).whitted_info(
+        args[0].shape[0], info)
+    check(rc == 0, f"whitted_info failed: CUDA error {rc}")
+    print(f"[8] Whitted kernel as built: {info[1]} registers, {info[2]} B "
+          f"of local memory (spills) a thread, {info[0]} resident blocks "
+          f"of 128 threads an SM ({args[0].shape[0]} table rows staged)")
+    ms, times, k = event_ms(lambda: wh.fused_whitted(*args, 0, *cfg), 7)
     stats = {}
     plain_ms, p = once_ms(
         lambda: wh.fused_whitted_plain(*args, 0, *cfg, stats=stats))
     whitted_err = max(whitted_err, fused_agree("whitted 1080p", k, p))
     bound, by = bound_ms(stats["tests"] * WOOP_TEST_FLOPS,
                          args[0].numel() * 4 + W * H * 12)
-    print(f"[8] whitted: {ms:.3f} ms kernel (runs "
+    digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"[8] whitted: {ms:.3f} ms kernel (median of 7; runs "
           f"{', '.join(f'{x:.3f}' for x in times)}), {plain_ms:.1f} ms plain, "
-          f"{stats['tests']:.6g} Woop tests, bound {bound:.4f} ms ({by})")
+          f"{stats['tests']:.6g} Woop tests, bound {bound:.4f} ms ({by}); "
+          f"image digest {digest}")
 
     # statistically against the wavefront (tests/test_whitted_fused.py)
     cam = camera_from_rtc(_resized(parse_rtc(rtc), dict(xres=256, yres=256)),
@@ -2794,6 +2812,30 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
           f"bound {q_bound:.5f} ms ({q_by})")
     del rounds, fn_q
 
+    # and on the rounds of one 1080p sweep (the nearest sweep of the
+    # render's depth-1 rays), each against its plain version, timed alike
+    st1 = rec1[0]
+    sweep.record = []
+    sweep.closest((st1[0], st1[1], st1[2]), (st1[3], st1[4], st1[5]),
+                  st1[9] > 0.0)
+    hd_rounds, sweep.record = sweep.record, None
+    for i, (st, key) in enumerate(hd_rounds):
+        errs["10"] = max(errs["10"], binned_round_agree(
+            f"1080p round {i}", st, key, sweep))
+    hd_ms, hd_spread = graph_ms(lambda: [
+        bn.binned_round(st, key, sweep.row0, sweep.nb, sweep.tab)
+        for st, key in hd_rounds], 3, 7)
+    h_flops, h_bytes = _round_bound(hd_rounds, sweep)
+    hd_bound, hd_by = bound_ms(h_flops / len(hd_rounds),
+                               h_bytes / len(hd_rounds))
+    print(f"[13] (b) kernel 10 per launch over the {len(hd_rounds)} rounds "
+          f"of one {W}x{H} sweep ({sum(k.numel() for _, k in hd_rounds)} "
+          f"lanes): {hd_ms:.5f} ms (median of 7 replays of a CUDA graph of "
+          f"3 passes; spread {hd_spread:.4f}), bound {hd_bound:.5f} ms "
+          f"({hd_by}); (t, row) bit for bit the plain version's on every "
+          f"round at both sizes")
+    del hd_rounds
+
     # (c) the trainer --------------------------------------------------------
     kd_true = lv5.mat_diffuse.clone()
     red = int(torch.argmax(kd_true[:, 0] - kd_true[:, 1]))
@@ -2889,7 +2931,8 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
           f"{g_bound:.5f} ms ({g_by})")
     return {"10": {"launches": launches, "max_abs_err": errs["10"],
                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": q_bound,
-                   "bound_by": q_by, "library_ms": None},
+                   "bound_by": q_by, "library_ms": None, "hd_ms": hd_ms,
+                   "hd_bound_ms": hd_bound},
             "11": {"launches": g8_launches, "max_abs_err": errs["11"],
                    "ms": out["phase 10's wavefront sweeps"]["G8"],
                    "plain_ms": g_plain, "bound_ms": g_bound,

@@ -3,8 +3,9 @@
 // (whitted.cu, bvh_whitted.cu, through whitted_common.cuh) and the
 // wavefront's walk kernels (bvh_intersect.cu, bvh_g8.cu, binned.cu): PCG4D,
 // the Woop test, the nearest-hit and any-hit sweeps over a triangle table
-// (`Geo`, Whitted's kernel 4), the skip-pointer walk over a flattened tree
-// (`Tree`: nearest and any hit), primary rays, and what the path lane loop
+// (`Geo`: the chunked sweeps of kernel 4's `WGeo`, whitted.cu), the
+// skip-pointer walk over a flattened tree (`Tree`: nearest and any hit),
+// primary rays, and what the path lane loop
 // (render_lane.cuh's `render_lanes`) computes at a path vertex: the NEE
 // (`nee`, fast-shadow and legacy forms) and a bounce's contribution
 // (`bounce_contrib`).
@@ -28,7 +29,6 @@ namespace orion {
 constexpr int kThreads = 128;
 constexpr int kChunk = 512;          // FUSED_CHUNK
 constexpr int kCols = 32;            // path table row width
-constexpr int kGeo = 16;             // staged Woop row stride
 constexpr int kEmStride = 160;       // emitter record (see fused_path.py)
 constexpr int kEmHeader = 8;
 constexpr int kEmTri = 19;
@@ -144,15 +144,12 @@ __device__ __forceinline__ float dot3_rn(float a, float b, float c, float x,
                    __fmul_rn(c, z));
 }
 
-template <bool kGlobal>
-__device__ __forceinline__ float woop_t_rn(const float4* row, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz) {
-  const float4 a = kGlobal ? __ldg(row) : row[0];
-  const float4 b = kGlobal ? __ldg(row + 1) : row[1];
-  const float4 c = kGlobal ? __ldg(row + 2) : row[2];
-  const float4 e = kGlobal ? __ldg(row + 3) : row[3];
-  // a = w0..3, b = w4..7, c = w8..11, e.x = w12
+// the test on a row's four float4 a = w0..3, b = w4..7, c = w8..11,
+// e.x = w12 (binned.cu holds them in four planes)
+__device__ __forceinline__ float woop_t_rn(const float4 a, const float4 b,
+                                           const float4 c, const float4 e,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz) {
   const float ou = __fadd_rn(dot3_rn(a.x, a.y, a.z, ox, oy, oz), c.y);
   const float ov = __fadd_rn(dot3_rn(a.w, b.x, b.y, ox, oy, oz), c.z);
   const float ow = __fadd_rn(dot3_rn(b.z, b.w, c.x, ox, oy, oz), c.w);
@@ -166,6 +163,17 @@ __device__ __forceinline__ float woop_t_rn(const float4* row, float ox,
                   (u <= 1.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) &&
                   (t >= 0.0f);
   return ok ? t : kBig;
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ float woop_t_rn(const float4* row, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz) {
+  const float4 a = kGlobal ? __ldg(row) : row[0];
+  const float4 b = kGlobal ? __ldg(row + 1) : row[1];
+  const float4 c = kGlobal ? __ldg(row + 2) : row[2];
+  const float4 e = kGlobal ? __ldg(row + 3) : row[3];
+  return woop_t_rn(a, b, c, e, ox, oy, oz, dx, dy, dz);
 }
 
 template <bool kGlobal, bool kF4 = false>
@@ -198,21 +206,18 @@ __device__ __forceinline__ bool box_reachable(const Geo& g, int k,
   return (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_best);
 }
 
-// nearest row with t < cap (ties -> min row), or -1. Resident tables are
-// read from the block's shared copy `sgeo`, larger ones chunk by chunk.
+// nearest row with t < cap (ties -> min row), or -1, chunk by chunk from
+// global memory (a table past one chunk; kernel 4 sweeps a resident one
+// from shared memory, whitted.cu)
 template <int kStride>
-__device__ __forceinline__ int nearest(const Geo& g, const float* sgeo,
-                                       const Ray& r, float cap, float& t) {
+__device__ __forceinline__ int nearest(const Geo& g, const Ray& r, float cap,
+                                       float& t) {
   float t_best = cap;
   int row = -1;
-  if (g.resident()) {
-    sweep_rows<false>(sgeo, kGeo, 0, g.T_pad, r, t_best, row);
-  } else {
-    for (int k = 0; k < g.n_chunks; ++k) {
-      if (box_reachable(g, k, r, t_best))
-        sweep_rows<true>(g.tab, kStride, k * kChunk, (k + 1) * kChunk, r,
-                         t_best, row);
-    }
+  for (int k = 0; k < g.n_chunks; ++k) {
+    if (box_reachable(g, k, r, t_best))
+      sweep_rows<true>(g.tab, kStride, k * kChunk, (k + 1) * kChunk, r,
+                       t_best, row);
   }
   t = t_best;
   return row;
@@ -228,9 +233,7 @@ __device__ __forceinline__ bool any_rows(const float* geo, int stride, int lo,
 }
 
 template <int kStride>
-__device__ __forceinline__ bool any_hit(const Geo& g, const float* sgeo,
-                                        const Ray& r) {
-  if (g.resident()) return any_rows<false>(sgeo, kGeo, 0, g.T_pad, r);
+__device__ __forceinline__ bool any_hit(const Geo& g, const Ray& r) {
   for (int k = 0; k < g.n_chunks; ++k) {
     if (box_reachable(g, k, r, kBig) &&
         any_rows<true>(g.tab, kStride, k * kChunk, (k + 1) * kChunk, r))
@@ -356,21 +359,6 @@ template <int kStride>
 __device__ __forceinline__ bool any_hit(const TreeF4& g, const float* sgeo,
                                         const Ray& r) {
   return any_hit<kStride, true>(static_cast<const Tree&>(g), sgeo, r);
-}
-
-// nothing is staged for a tree
-template <int kStride>
-__device__ __forceinline__ void stage_geo(const Tree&, float*) {}
-
-// stage a resident table's 13 Woop floats per row into shared memory
-template <int kStride>
-__device__ __forceinline__ void stage_geo(const Geo& g, float* sgeo) {
-  if (!g.resident()) return;
-  for (int k = threadIdx.x; k < g.T_pad * 13; k += blockDim.x) {
-    const int row = k / 13, col = k - row * 13;
-    sgeo[row * kGeo + col] = __ldg(g.tab + row * kStride + col);
-  }
-  __syncthreads();
 }
 
 // the camera ray of `pix` for sample `samp` (one jitter per sample)

@@ -27,17 +27,16 @@
 // hit's uv; the defaults (40, `NoTexel`) are the untextured kernels'
 // (4 and 7a), whose machine code the hook leaves alone.
 //
-// Two lane loops run the estimator's vertex (`ORION_WHITTED_VERTEX`):
-// `whitted_lane`, one thread a pixel (kernel 4), and `whitted_lanes`,
-// persistent lanes (kernels 7a and 7b):
-// a thread renders one pixel's samples in sample order, writes the pixel
+// One lane loop runs the estimator, `whitted_lanes`, persistent lanes
+// (kernels 4, 7a and 7b): a thread renders one pixel's samples in sample
+// order, writes the pixel
 // and takes the next one from a global counter (render_lane.cuh's
 // `take_lane`), and leaves the loop only at its test, as the path kernels'
 // `render_lanes`. A pixel's radiance is the same whichever thread renders
 // it, so the image is a pure function of the seed and a tile renders the
 // whole image's pixels. Its counter hooks (-DORION_PATH_COUNTERS,
 // render_lane.cuh) count the loop's iterations and active lanes, the
-// cycles in the nearest walk and in the lights' shadow walks and terms
+// cycles in the nearest query and in the lights' shadow queries and terms
 // (the `nee` counters), and the warps' and blocks' tails.
 
 #pragma once
@@ -94,139 +93,17 @@ struct NoTexel {
                                              float*, float*) const {}
 };
 
-// One vertex of a Whitted sample, in a lane loop whose locals are p, sgeo,
-// tex, r, depth, T[3] and acc[3] (and the counters pc where they are
-// built): the nearest hit of r and, at a hit, its emission (depth 0) and
-// every light's Phong term, added to acc at the throughput T; then the
-// mirror continuation scaled by Ks (r, T and depth move to the mirror's
-// ray), or, where the ray does not go on, the loop's statements given as
-// the macro's arguments. `tex(g, u, v, kd, ks)` sees the winner's table
-// row and its barycentrics once Kd and Ks are read from the row. A macro
-// and not a function: the per-pixel lane of kernel 4 then compiles to the
-// same machine code as with the vertex written out in it (an inlined
-// function, or one that takes the end of a sample as a callback, moved
-// registers in kernel 4: tools/sass_diff.py).
-#define ORION_WHITTED_VERTEX(...)                                             \
-  ORION_PC(const long long pc0 = clock64();)                                  \
-  float t;                                                                    \
-  const int row = nearest<kStride>(p.geo, sgeo, r, kBig, t);                  \
-  ORION_PC(pc.nearest += clock64() - pc0;)                                    \
-  const bool hit = row >= 0;                                                  \
-  float ks[3] = {0.f, 0.f, 0.f};                                              \
-  float hx = 0.f, hy = 0.f, hz = 0.f, snx = 0.f, sny = 0.f, snz = 0.f;        \
-  if (hit) {                                                                  \
-    const float* g = p.geo.tab + row * kStride;                               \
-    float u, v, gnx, gny, gnz;                                                \
-    hit_frame(g, r, t, hx, hy, hz, snx, sny, snz, gnx, gny, gnz, u, v);       \
-    float kd[3], ka[3];                                                       \
-_Pragma("unroll")                                                             \
-    for (int ch = 0; ch < 3; ++ch) {                                          \
-      kd[ch] = __ldg(g + C_KD + ch);                                          \
-      ka[ch] = __ldg(g + C_KA + ch);                                          \
-      ks[ch] = __ldg(g + C_KS + ch);                                          \
-    }                                                                         \
-    tex(g, u, v, kd, ks);                                                     \
-    const float shin = __ldg(g + C_SHIN);                                     \
-                                                                              \
-    float r3[3] = {0.f, 0.f, 0.f};                                            \
-    if (p.with_emissive) {                                                    \
-      float ndx = r.dx, ndy = r.dy, ndz = r.dz;                               \
-      norm3(ndx, ndy, ndz);                                                   \
-      const float cosv = -(ndx * snx + ndy * sny + ndz * snz);                \
-      const float em_scale = depth == 0 ? __ldg(g + C_AREA) * cosv : 0.0f;    \
-_Pragma("unroll")                                                             \
-      for (int ch = 0; ch < 3; ++ch)                                          \
-        r3[ch] += __ldg(g + C_KE + ch) * em_scale;                            \
-    }                                                                         \
-                                                                              \
-    float vdx = -r.dx, vdy = -r.dy, vdz = -r.dz;                              \
-    norm3(vdx, vdy, vdz);                                                     \
-    Ray sr;                                                                   \
-    sr.ox = hx + kBias * gnx;                                                 \
-    sr.oy = hy + kBias * gny;                                                 \
-    sr.oz = hz + kBias * gnz;                                                 \
-    ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);                        \
-             const long long pc1 = clock64();)                                \
-    for (int li = 0; li < p.n_lights; ++li) {                                 \
-      const float* Lr = p.lights + li * kLightCols;                           \
-      const float tlx = __ldg(Lr + 0) - hx, tly = __ldg(Lr + 1) - hy,         \
-                  tlz = __ldg(Lr + 2) - hz;                                   \
-      sr.dx = tlx; sr.dy = tly; sr.dz = tlz;                                  \
-      if (any_hit<kStride>(p.geo, sgeo, sr)) continue;  /* scale 0 */         \
-      const float d2 = tlx * tlx + tly * tly + tlz * tlz;                     \
-      float ldx = tlx, ldy = tly, ldz = tlz;                                  \
-      norm3(ldx, ldy, ldz);                                                   \
-      const float ndotl = fmaxf(snx * ldx + sny * ldy + snz * ldz, 0.0f);     \
-      /* reflect(-light_dir, n), then its cosine against the view dir */      \
-      const float dot_ln = -(ldx * snx + ldy * sny + ldz * snz);              \
-      const float rx = -ldx - 2.0f * dot_ln * snx;                            \
-      const float ry = -ldy - 2.0f * dot_ln * sny;                            \
-      const float rz = -ldz - 2.0f * dot_ln * snz;                            \
-      const float spec_cos = fmaxf(vdx * rx + vdy * ry + vdz * rz, 0.0f);     \
-      const float spec = 0.5f * pow_like_c(spec_cos, shin);                   \
-      const float scale = __ldg(Lr + 6) / fmaxf(d2, 1e-20f);                  \
-_Pragma("unroll")                                                             \
-      for (int ch = 0; ch < 3; ++ch)                                          \
-        r3[ch] += __ldg(Lr + 3 + ch) * (ka[ch] + ndotl * kd[ch] +             \
-                                        spec * ks[ch]) * scale;               \
-    }                                                                         \
-    ORION_PC(pc.nee += clock64() - pc1;)                                      \
-_Pragma("unroll")                                                             \
-    for (int ch = 0; ch < 3; ++ch) acc[ch] += T[ch] * r3[ch];                 \
-  }                                                                           \
-                                                                              \
-  /* mirror continuation scaled by Ks; zero-throughput rays retire */         \
-  const float n0 = T[0] * ks[0], n1 = T[1] * ks[1], n2 = T[2] * ks[2];        \
-  const bool nonzero = (n0 > 0.0f) || (n1 > 0.0f) || (n2 > 0.0f);             \
-  if (hit && depth < p.max_depth && nonzero) {                                \
-    const float dot_dn = r.dx * snx + r.dy * sny + r.dz * snz;                \
-    r.dx = r.dx - 2.0f * dot_dn * snx;                                        \
-    r.dy = r.dy - 2.0f * dot_dn * sny;                                        \
-    r.dz = r.dz - 2.0f * dot_dn * snz;                                        \
-    r.ox = hx + snx * kBias;                                                  \
-    r.oy = hy + sny * kBias;                                                  \
-    r.oz = hz + snz * kBias;                                                  \
-    T[0] = n0; T[1] = n1; T[2] = n2;                                          \
-    ++depth;                                                                  \
-  } else {                                                                    \
-    __VA_ARGS__                                                               \
-  }
-
-// One pixel lane, until its sample index reaches p.samples; writes the
-// lane's radiance / spp to out row pix - pix_base. `tex` as in
-// ORION_WHITTED_VERTEX.
-template <class G, int kStride = kWCols, class Tex = NoTexel>
-__device__ __forceinline__ void whitted_lane(const WhittedParamsT<G>& p,
-                                             const float* sgeo, int pix,
-                                             const Tex& tex = Tex()) {
-  ORION_PC(LaneCounters pc;)  // counted only by whitted_lanes
-  float cam[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) cam[k] = __ldg(p.cam + k);
-
-  Ray r;
-  int samp = 0, depth = 0;
-  primary(cam, p.seed, p.W, p.H, pix, 0, r);
-  float T[3] = {1.f, 1.f, 1.f};
-  float acc[3] = {0.f, 0.f, 0.f};
-
-  while (samp < p.samples) {
-    ORION_WHITTED_VERTEX(
-      ++samp;
-      depth = 0;
-      T[0] = T[1] = T[2] = 1.0f;
-      if (samp < p.samples) primary(cam, p.seed, p.W, p.H, pix, samp, r);
-    )
-  }
-  const float inv_s = static_cast<float>(1.0 / p.samples);
-  float* out = p.out + 3 * (pix - p.pix_base);
-  out[0] = acc[0] * inv_s;
-  out[1] = acc[1] * inv_s;
-  out[2] = acc[2] * inv_s;
-}
-
 // Persistent lanes: run pixels p.pix_base + [0, n_lanes), each taken from
-// *next (zero at launch), with ORION_WHITTED_VERTEX; `tex` as there.
+// *next (zero at launch). `tex(g, u, v, kd, ks)` sees the winner's table
+// row and its barycentrics once Kd and Ks are read from the row.
+//
+// One iteration is one vertex of a Whitted sample: the nearest hit of r
+// and, at a hit, its emission (depth 0) and every light's Phong term,
+// added to acc at the throughput T; then the mirror continuation scaled by
+// Ks (r, T and depth move to the mirror's ray), or, where the ray does not
+// go on, the end of the sample. The vertex is written out in the loop, as
+// it was when two loops expanded it as one macro: 7a and 7b compile to the
+// same machine code (tools/sass_diff.py).
 template <class G, int kStride, class Tex>
 __device__ __forceinline__ void whitted_lanes(const WhittedParamsT<G>& p,
                                               const float* sgeo, int n_lanes,
@@ -249,9 +126,90 @@ __device__ __forceinline__ void whitted_lanes(const WhittedParamsT<G>& p,
   // stay rejoin there and start every vertex together
   while (lane < n_lanes) {
     ORION_PC(pc_warp_vote(pc.iters, pc.iter_lanes);)
-    // a sample that ends regenerates as the pixel's next sample, or writes
-    // the pixel and takes the next one
-    ORION_WHITTED_VERTEX(
+    ORION_PC(const long long pc0 = clock64();)
+    float t;
+    const int row = nearest<kStride>(p.geo, sgeo, r, kBig, t);
+    ORION_PC(pc.nearest += clock64() - pc0;)
+    const bool hit = row >= 0;
+    float ks[3] = {0.f, 0.f, 0.f};
+    float hx = 0.f, hy = 0.f, hz = 0.f, snx = 0.f, sny = 0.f, snz = 0.f;
+    if (hit) {
+      const float* g = p.geo.tab + row * kStride;
+      float u, v, gnx, gny, gnz;
+      hit_frame(g, r, t, hx, hy, hz, snx, sny, snz, gnx, gny, gnz, u, v);
+      float kd[3], ka[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        kd[ch] = __ldg(g + C_KD + ch);
+        ka[ch] = __ldg(g + C_KA + ch);
+        ks[ch] = __ldg(g + C_KS + ch);
+      }
+      tex(g, u, v, kd, ks);
+      const float shin = __ldg(g + C_SHIN);
+
+      float r3[3] = {0.f, 0.f, 0.f};
+      if (p.with_emissive) {
+        float ndx = r.dx, ndy = r.dy, ndz = r.dz;
+        norm3(ndx, ndy, ndz);
+        const float cosv = -(ndx * snx + ndy * sny + ndz * snz);
+        const float em_scale = depth == 0 ? __ldg(g + C_AREA) * cosv : 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          r3[ch] += __ldg(g + C_KE + ch) * em_scale;
+      }
+
+      float vdx = -r.dx, vdy = -r.dy, vdz = -r.dz;
+      norm3(vdx, vdy, vdz);
+      Ray sr;
+      sr.ox = hx + kBias * gnx;
+      sr.oy = hy + kBias * gny;
+      sr.oz = hz + kBias * gnz;
+      ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);
+               const long long pc1 = clock64();)
+      for (int li = 0; li < p.n_lights; ++li) {
+        const float* Lr = p.lights + li * kLightCols;
+        const float tlx = __ldg(Lr + 0) - hx, tly = __ldg(Lr + 1) - hy,
+                    tlz = __ldg(Lr + 2) - hz;
+        sr.dx = tlx; sr.dy = tly; sr.dz = tlz;
+        if (any_hit<kStride>(p.geo, sgeo, sr)) continue;  // scale 0
+        const float d2 = tlx * tlx + tly * tly + tlz * tlz;
+        float ldx = tlx, ldy = tly, ldz = tlz;
+        norm3(ldx, ldy, ldz);
+        const float ndotl = fmaxf(snx * ldx + sny * ldy + snz * ldz, 0.0f);
+        // reflect(-light_dir, n), then its cosine against the view dir
+        const float dot_ln = -(ldx * snx + ldy * sny + ldz * snz);
+        const float rx = -ldx - 2.0f * dot_ln * snx;
+        const float ry = -ldy - 2.0f * dot_ln * sny;
+        const float rz = -ldz - 2.0f * dot_ln * snz;
+        const float spec_cos = fmaxf(vdx * rx + vdy * ry + vdz * rz, 0.0f);
+        const float spec = 0.5f * pow_like_c(spec_cos, shin);
+        const float scale = __ldg(Lr + 6) / fmaxf(d2, 1e-20f);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          r3[ch] += __ldg(Lr + 3 + ch) * (ka[ch] + ndotl * kd[ch] +
+                                          spec * ks[ch]) * scale;
+      }
+      ORION_PC(pc.nee += clock64() - pc1;)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) acc[ch] += T[ch] * r3[ch];
+    }
+
+    // mirror continuation scaled by Ks; zero-throughput rays retire
+    const float n0 = T[0] * ks[0], n1 = T[1] * ks[1], n2 = T[2] * ks[2];
+    const bool nonzero = (n0 > 0.0f) || (n1 > 0.0f) || (n2 > 0.0f);
+    if (hit && depth < p.max_depth && nonzero) {
+      const float dot_dn = r.dx * snx + r.dy * sny + r.dz * snz;
+      r.dx = r.dx - 2.0f * dot_dn * snx;
+      r.dy = r.dy - 2.0f * dot_dn * sny;
+      r.dz = r.dz - 2.0f * dot_dn * snz;
+      r.ox = hx + snx * kBias;
+      r.oy = hy + sny * kBias;
+      r.oz = hz + snz * kBias;
+      T[0] = n0; T[1] = n1; T[2] = n2;
+      ++depth;
+    } else {
+      // the sample ends: it regenerates as the pixel's next sample, or
+      // writes the pixel and takes the next one
       ++samp;
       depth = 0;
       T[0] = T[1] = T[2] = 1.0f;
@@ -266,11 +224,9 @@ __device__ __forceinline__ void whitted_lanes(const WhittedParamsT<G>& p,
         pix = p.pix_base + lane;
       }
       if (lane < n_lanes) primary(cam, p.seed, p.W, p.H, pix, samp, r);
-    )
+    }
   }
   ORION_PC(pc.t_done = clock64();)
 }
-
-#undef ORION_WHITTED_VERTEX
 
 }  // namespace orion

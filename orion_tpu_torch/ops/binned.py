@@ -57,11 +57,14 @@ from orion_tpu_torch.scene import Scene
 MAX_ROWS = 512                  # bin size: 4 bundles
 NO_ROW = float(1 << 22)         # winner-row sentinel (exact in float32)
 ROUND_ROWS = 8                  # the round's lane rows: o, d, t, row
+ROUND_THREADS = 128             # kernel 10's block (csrc/binned.cu kLanes)
+ROUND_MAX_SPLIT = 32            # threads a lane at most (kMaxSplit)
+ROUND_FILL = 1 << 17            # lane threads a round aims at (kFillThreads)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("binned", "binned_round_launch",
-                    [_P, _P, _P, _P, _P, _I, _I, _P, _P])
+                    [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P])
 
 
 @dataclasses.dataclass
@@ -200,10 +203,47 @@ def binned_round_plain(st, key, row0, nb, tab, budget: int = 1 << 24):
     return torch.stack([t, row])
 
 
+def round_split(c: int, n: int, fill: int = ROUND_FILL) -> int:
+    """Threads that share a lane of a bin of c > 0 lanes in a round of n
+    lanes in kernel 10: the most, up to ROUND_MAX_SPLIT, whose lanes fit
+    one block, and no fewer than the most (up to ROUND_MAX_SPLIT) that keep
+    n x split <= fill."""
+    s = ROUND_MAX_SPLIT
+    while s > 1 and c * s > ROUND_THREADS:
+        s >>= 1
+    least = 1
+    while least < ROUND_MAX_SPLIT and 2 * least * n <= fill:
+        least <<= 1
+    return max(s, least)
+
+
+def round_schedule(key, K: int, fill: int = ROUND_FILL) -> list:
+    """Kernel 10's blocks for one round's sorted keys, in block order:
+    (bin, first lane, lanes, threads a lane). Bin by bin, each present
+    bin's lanes are cut into tiles of ROUND_THREADS // split lanes; lanes
+    keyed K belong to no block (the kernel copies their (t, row)
+    through). `fill`: the kernel's kFillThreads (another value models a
+    build with another)."""
+    k = np.asarray(key.cpu() if torch.is_tensor(key) else key)
+    starts = np.searchsorted(k, np.arange(K + 1), side="left")
+    blocks = []
+    for b in range(K):
+        lo, hi = int(starts[b]), int(starts[b + 1])
+        if hi == lo:
+            continue
+        split = round_split(hi - lo, len(k), fill)
+        per = ROUND_THREADS // split
+        blocks += [(b, s, min(per, hi - s), split)
+                   for s in range(lo, hi, per)]
+    return blocks
+
+
 def binned_round(st, key, row0, nb, tab) -> torch.Tensor:
     """One round of the sweep (binned_round_plain's contract): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. Lanes
-    sorted by key keep each block of the kernel on one or two bins."""
+    kernel for CUDA tensors, the plain version for CPU tensors. The
+    kernel's blocks are bin-major (`round_schedule` models them): it finds
+    each bin's lanes in the sorted keys itself, in 2K + 2 int32 of
+    scratch."""
     n = st.shape[1] if st.dim() == 2 else -1
     dev = st.device
     check_inputs("binned_round", dev,
@@ -216,10 +256,12 @@ def binned_round(st, key, row0, nb, tab) -> torch.Tensor:
         return binned_round_plain(st, key, row0, nb, tab)
     if dev.type != "cuda":
         raise ValueError(f"binned_round: unsupported device {dev}")
+    K = row0.shape[0] - 1
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    sched = torch.empty((2 * K + 2,), dtype=torch.int32, device=dev)
     KERNEL.launch(st.data_ptr(), key.data_ptr(), row0.data_ptr(),
-                  nb.data_ptr(), tab.data_ptr(), row0.shape[0] - 1, n,
-                  out.data_ptr(), stream_ptr(dev))
+                  nb.data_ptr(), tab.data_ptr(), K, n, out.data_ptr(),
+                  sched.data_ptr(), stream_ptr(dev))
     return out
 
 
@@ -244,6 +286,11 @@ class BinnedSweep:
     "lanes" (summed over rounds) and "tests" (Woop tests of real rows, a
     device tensor). When `timings` is
     a list on a CUDA table, each round appends its CUDA-event pair; when
+    `phases` is a list on a CUDA table, `closest` appends (name, event)
+    at the end of each of its steps ("start", "order", then a round's
+    "select" (the live filter and its host sync), "key sort", "gather",
+    "kernel", "scatter", and "finish"): the time between an event and
+    the one before it is that step's; when
     `record` is a list, each round appends its inputs (st, key).
     `round_fn` replaces kernel 10's wrapper by a function of its signature:
     a check on the card passes binned_round_plain; no entry point does."""
@@ -269,7 +316,7 @@ class BinnedSweep:
         self.round_fn = round_fn or binned_round
         self.counts = dict(sweeps=0, rounds=0, lanes=0, tests=torch.zeros(
             (), dtype=torch.int64, device=dev))
-        self.timings = self.record = None
+        self.timings = self.record = self.phases = None
 
     def with_tab(self, tab) -> "BinnedSweep":
         """The same bins over a table with other material columns (the
@@ -298,9 +345,16 @@ class BinnedSweep:
             ord_s[s:s + step] = idx.to(ord_s.dtype)
         return e_s, ord_s
 
+    def _lap(self, name: str) -> None:
+        if self.phases is not None and self.tab.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.phases.append((name, ev))
+
     def closest(self, o, d, alive=None, cap: float = BIG):
         dev = o[0].device
         N = o[0].shape[0]
+        self._lap("start")
         t = torch.full((N,), cap, dtype=torch.float32, device=dev)
         row = torch.full((N,), NO_ROW, dtype=torch.float32, device=dev)
         self.counts["sweeps"] += 1
@@ -315,6 +369,7 @@ class BinnedSweep:
         if n == 0 or K == 0:
             return t, row
         e_s, ord_s = self._order(o, d, cap)
+        self._lap("order")
         tl = torch.full((n,), cap, dtype=torch.float32, device=dev)
         rl = torch.full((n,), NO_ROW, dtype=torch.float32, device=dev)
         done = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -323,22 +378,29 @@ class BinnedSweep:
             nxt_i = done[act]
             nxt = e_s[act, torch.clamp(nxt_i, max=K - 1)]
             act = act[(nxt_i < K) & (nxt < tl[act])]    # one host sync
+            self._lap("select")
             if act.numel() == 0:
                 break
             key = ord_s[act, done[act]].to(torch.int32)
             key, perm = torch.sort(key, stable=True)
             ln = act[perm]
+            self._lap("key sort")
             st = torch.stack([o[0][ln], o[1][ln], o[2][ln], d[0][ln],
                               d[1][ln], d[2][ln], tl[ln], rl[ln]])
+            self._lap("gather")
             out = self._round(st, key)
+            self._lap("kernel")
             tl[ln], rl[ln] = out[0], out[1]
             done[act] += 1
+            self._lap("scatter")
             self.counts["rounds"] += 1
             self.counts["lanes"] += key.numel()
             self.counts["tests"] += self.real_rows[key.to(torch.int64)].sum()
         if lanes is None:
+            self._lap("finish")
             return tl, rl
         t[lanes], row[lanes] = tl, rl
+        self._lap("finish")
         return t, row
 
     def _round(self, st, key):

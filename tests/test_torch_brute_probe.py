@@ -158,3 +158,81 @@ def test_whitted_sweep_rewrites_its_constants(tmp_path):
         assert len(diff) <= len(consts)
         for name, v in consts.items():
             assert f"constexpr int {name} = {v};" in out
+
+
+def _per_pixel_kernel4():
+    """whitted_common.cuh and whitted.cu shaped as those of a checkout
+    whose kernel 4 runs the one-thread-a-pixel `whitted_lane` around the
+    ORION_WHITTED_VERTEX macro: each text that the hooks replace, in the
+    lane's order, and a kernel that calls the lane a pixel a thread."""
+    olds = [old for old, _ in path_probe.WHITTED4_LANE_HOOKS]
+    wc = ("#pragma once\n#include \"render_lane.cuh\"\nnamespace orion {\n"
+          + path_probe.WHITTED_LANE_START + " lane's radiance.\n"
+          "template <class G, int kStride = kWCols, class Tex = NoTexel>\n"
+          "__device__ __forceinline__ void whitted_lane(\n"
+          "    const WhittedParamsT<G>& p, const float* sgeo, int pix,\n"
+          + olds[0] + "  float acc[3] = {0.f, 0.f, 0.f};\n" + olds[1]
+          + "      ++samp;\n    )\n  }\n" + olds[2] + "}\n\n"
+          "}  // namespace orion\n")
+    wt = ("#include \"whitted_common.cuh\"\nnamespace {\n"
+          "void whitted_kernel() {\n  const int pix = 0;\n"
+          + path_probe.WHITTED4_KERNEL_HOOK[0] + "}\n}  // namespace\n")
+    return {"whitted_common.cuh": wc, "whitted.cu": wt}
+
+
+def test_hook_whitted4_puts_in_the_lane_loops_hooks(tmp_path):
+    """A checkout whose kernel 4 runs `whitted_lane`: the copy's lane
+    takes a counter pointer (defaulted) and counts the loop's warp votes
+    and its exit time, the kernel counts, flushes and records the tails
+    in the instrumented build only, and whitted.cu gains whitted_info. A
+    text not found once raises. whitted4_sources applies it to such a
+    checkout, not to this one (persistent lanes)."""
+    files = _per_pixel_kernel4()
+    out = path_probe.hook_whitted4(files)
+    wc = out["whitted_common.cuh"]
+    lane = wc[wc.index(path_probe.WHITTED_LANE_START):]
+    for hook in ("LaneCounters* pcp = nullptr", "LaneCounters& pc = *pcp;",
+                 "pc_warp_vote(pc.iters, pc.iter_lanes)",
+                 "pc.t_done = clock64()"):
+        assert lane.count(hook) == 1, hook
+    wt = out["whitted.cu"]
+    assert wt.count("pc_exit(pc.t_done)") == 1
+    assert "whitted_lane(p, sgeo, pix, NoTexel(), &pc);" in wt
+    assert wt.index("#else") < wt.index("  whitted_lane(p, sgeo, pix);\n")
+    assert 'extern "C" int whitted_info(int T_pad, int* out)' in wt
+    src = tmp_path / "old"
+    src.mkdir()
+    for name, text in files.items():
+        (src / name).write_text(text)
+    assert path_probe.whitted4_sources(src, tmp_path / "copy")
+    assert (tmp_path / "copy" / "whitted.cu").read_text() == wt
+    assert not path_probe.whitted4_sources(cuda_build.CSRC, tmp_path / "new")
+    assert ((tmp_path / "new" / "whitted.cu").read_text()
+            == (cuda_build.CSRC / "whitted.cu").read_text())
+    files["whitted.cu"] = files["whitted.cu"].replace(
+        "whitted_lane(p, sgeo, pix);", "")
+    with pytest.raises(ValueError, match="whitted.cu: 0 matches"):
+        path_probe.hook_whitted4(files)
+
+
+def test_binned_probe_splits_by_the_later_event():
+    """tools/binned_probe.py's split of BinnedSweep.phases: the time from
+    each event to the next goes to the later one's step, summed over
+    rounds and sweeps; the time from a sweep's last event to the next
+    sweep's "start" goes to no step."""
+    from tools import binned_probe
+
+    class Ev:
+        def __init__(self, t):
+            self.t = t
+
+        def elapsed_time(self, other):
+            return other.t - self.t
+
+    names = ["start", "order", "select", "key sort", "gather", "kernel",
+             "scatter", "select", "finish", "start", "order", "select",
+             "finish"]
+    times = [0, 5, 6, 8, 9, 12, 13, 14, 15, 20, 22, 23, 24]
+    split = binned_probe._split([(n, Ev(t)) for n, t in zip(names, times)])
+    assert split == {"order": 7, "select": 3, "key sort": 2, "gather": 1,
+                     "kernel": 3, "scatter": 1, "finish": 2}

@@ -351,6 +351,36 @@ def test_whitted_kernel_matches_plain(tmp_path, cuda_device):
 
 
 @pytest.mark.gpu
+def test_whitted_kernel_any_grid_and_tiles(tmp_path, cuda_device):
+    """Kernel 4 takes pixels from a counter: one block of 128 threads
+    renders every pixel the same, bit for bit, as the full grid, and a
+    tile renders the whole image's pixels; the image and the tile agree
+    with the plain version's (the fused tolerance)."""
+    sc, rtc = load_scene(write_cornell_whitted(tmp_path, xres=32, yres=24),
+                         device=cuda_device)
+    args = wh.whitted_args(sc, camera_from_rtc(rtc, device=cuda_device))
+    cfg = (32, 24, 3, 4, True)
+    before = wh.KERNEL.launches
+    full = wh.fused_whitted(*args, 11, *cfg)
+    grid = ctypes.CDLL(str(cuda_build.lib_path("whitted")))
+    grid.whitted_set_grid(1)
+    try:
+        one = wh.fused_whitted(*args, 11, *cfg)
+        tile = wh.fused_whitted(*args, 11, *cfg, pix_base=5, n_lanes=700)
+        torch.cuda.synchronize()
+    finally:
+        grid.whitted_set_grid(0)
+    assert wh.KERNEL.launches == before + 3
+    assert torch.equal(one, full)
+    assert torch.equal(tile, full[5:705])
+    _images_agree(full, wh.fused_whitted_plain(*args, 11, *cfg))
+    _images_agree(tile, wh._whitted_plain(
+        args[0], args[3], args[4], 11, *cfg, pix_base=5, n_lanes=700))
+    with pytest.raises(ValueError, match="outside"):
+        wh.fused_whitted(*args, 11, *cfg, pix_base=700, n_lanes=100)
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     o, d, alive = random_rays(64, 1, cuda_device)
     tab = torch.zeros((8, 16), device=cuda_device)
@@ -1155,6 +1185,90 @@ def test_binned_round_kernel_equals_plain(tmp_path, cuda_device, name):
     st[7] = bn.NO_ROW
     st[6, ::7], st[7, ::7] = 0.8, 3.0
     binned_round_agree(name, st, key, sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,max_rows", [
+    ("many-bins", 256), ("one-lane", 512), ("four-lanes", 512),
+    ("every-split", 256), ("keyed-K", 512), ("wide-bins", 1024)])
+def test_binned_round_schedules_equal_plain(tmp_path, cuda_device, case,
+                                            max_rows):
+    """Kernel 10's bin-major blocks, bit for bit against the plain round:
+    lanes spread thin over every bin, a round of 1 lane and one of 4,
+    rounds of 300 to 70,000 lanes whose bins take every split the launch
+    picks (1 to 32 threads a lane; bins past one block), lanes keyed K
+    copied through, and bins of up to 8 bundles (staged 512 rows at a
+    time)."""
+    sc, _ = _scene(tmp_path, cuda_device, "levels-3")
+    bins, tab, _ = bn.binned_device_data(sc, max_rows=max_rows)
+    K = bins.k
+    rng = np.random.default_rng(len(case) + max_rows)
+    if case == "many-bins":
+        keys = rng.integers(0, K, 3 * K)
+    elif case == "one-lane":
+        keys = np.array([K // 2])
+    elif case == "four-lanes":
+        keys = rng.integers(0, K, 4)
+    elif case == "every-split":
+        rounds = [rng.integers(0, K, n) for n in
+                  (70000, 40000, 20000, 9000, 5000, 2000, 300)]
+        rounds.append(np.repeat(np.arange(K), [(1, 3, 5, 9, 17, 33, 65)[
+            b % 7] for b in range(K)]))
+    elif case == "wide-bins":
+        assert int(bins.n_bundles.max()) > 4
+        keys = np.repeat(np.arange(K), 50)
+    else:
+        keys = np.where(rng.uniform(size=3000) < 0.7,
+                        rng.integers(0, K, 3000), K)
+    if case != "every-split":
+        rounds = [keys]
+    row0 = torch.as_tensor(bins.row0, device=cuda_device)
+    nb = torch.as_tensor(bins.n_bundles, device=cuda_device)
+    splits = set()
+    for keys in rounds:
+        n = len(keys)
+        key = torch.as_tensor(np.sort(keys).astype(np.int32),
+                              device=cuda_device)
+        o, d, _ = random_rays(n, 5, cuda_device)
+        st = torch.zeros((8, n), device=cuda_device)
+        st[0:3], st[3:6] = o.t(), d.t()
+        st[6], st[7] = bn.BIG, bn.NO_ROW
+        st[6, ::5], st[7, ::5] = 0.9, 7.0
+        splits |= {s for *_, s in bn.round_schedule(key, K)}
+        before = bn.KERNEL.launches
+        k = bn.binned_round(st, key, row0, nb, tab)
+        torch.cuda.synchronize()
+        assert bn.KERNEL.launches == before + 1
+        p = bn.binned_round_plain(st, key, row0, nb, tab)
+        assert torch.equal(k, p)
+        assert int((p[1] < bn.NO_ROW).sum()) > 0
+    if case == "every-split":
+        assert splits == {1, 2, 4, 8, 16, 32}
+
+
+@pytest.mark.gpu
+def test_binned_sweep_phases_on_card(tmp_path, cuda_device):
+    """BinnedSweep.phases (what tools/binned_probe.py splits a render by):
+    a sweep on the card appends an event at the end of each of its steps,
+    in order, a round's five steps once a kernel-10 launch; nothing when
+    phases is None."""
+    sc, _ = _scene(tmp_path, cuda_device, "levels-3")
+    bins, tab, _ = bn.binned_device_data(sc)
+    sw = bn.BinnedSweep(bins, tab)
+    o, d, alive = random_rays(1 << 12, 4, cuda_device)
+    o3, d3 = tuple(o[:, c] for c in range(3)), tuple(d[:, c] for c in range(3))
+    sw.closest(o3, d3, alive)
+    sw.phases = []
+    sw.closest(o3, d3, alive)
+    torch.cuda.synchronize()
+    rounds = sw.counts["rounds"] // 2
+    assert rounds > 0
+    assert [n for n, _ in sw.phases] == (
+        ["start", "order"]
+        + ["select", "key sort", "gather", "kernel", "scatter"] * rounds
+        + ["select", "finish"])
+    assert all(a.elapsed_time(b) >= 0.0
+               for (_, a), (_, b) in zip(sw.phases, sw.phases[1:]))
 
 
 @pytest.mark.gpu

@@ -287,20 +287,21 @@ def test_prb_ab_cornell_case_on_cpu(tmp_path):
 
 
 def test_sass_diff_lists_every_instantiation():
-    """sass_diff's kernels: 1, 3a, 3b, 4, the four instantiations of 5,
-    8, 9a, 9b, 10, both G8 walks (any hit or not), 6a, 6b's two kernels
-    and the four shade instantiations, each picked by a string that one
-    mangled name alone contains (3a's and 3b's with the length before the
-    name, which 9a's and 9b's do not share); kernels 2, 7a and 7b, which
-    this redesign changes, are not listed."""
+    """sass_diff's kernels: 1, 3a, 3b, the four instantiations of 5, 8,
+    9a, 9b, both G8 walks (any hit or not), 6a, 6b's two kernels and the
+    four shade instantiations, each picked by a string that one mangled
+    name alone contains (3a's and 3b's with the length before the name,
+    which 9a's and 9b's do not share); kernels 2, 4, 7a, 7b and 10, which
+    the redesigns changed, are not listed."""
     from tools import sass_diff
 
     names = {(s, k, a) for s, k, a in sass_diff.KERNELS}
-    assert len(names) == len(sass_diff.KERNELS) == 21
+    assert len(names) == len(sass_diff.KERNELS) == 19
     assert not {k for _, k, _ in names} & {"brute_intersect_kernel",
                                            "bvh_whitted_kernel",
-                                           "bvh_whitted_textured_kernel"}
-    assert ("whitted", "whitted_kernel", ()) in names
+                                           "bvh_whitted_textured_kernel",
+                                           "whitted_kernel",
+                                           "binned_round_kernel"}
     walks = {f"_ZN12_GLOBAL__N_120bvh_intersect_kernelILb{a}ELb{c}EEEvPKf":
              [f"{a}{c}"] for a in (0, 1) for c in (0, 1)}
     for src, kernel, also in sass_diff.KERNELS:
@@ -324,3 +325,50 @@ def test_sass_diff_lists_every_instantiation():
         elif src == "prb":
             got = sass_diff.pick(funcs, kernel, also)
             assert got is not None and kernel.endswith(got[0])
+
+
+def test_sass_loops_finds_backward_branches():
+    """path_probe.sass_loops: each backward branch's body, from its
+    target to the branch, with its opcodes (predicates and modifiers
+    dropped), shortest first; a forward branch is no loop."""
+    sass = ("\t\tFunction : _ZN12_GLOBAL__N_114whitted_kernelEv\n"
+            "        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+            "        /*0010*/                   LDS.128 R4, [R2] ;\n"
+            "        /*0020*/                   FFMA R5, R4, R6, R7 ;\n"
+            "        /*0030*/              @!P0 BRA 0x10 ;\n"
+            "        /*0040*/                   FSETP.GT.AND P1, PT, R5, "
+            "RZ, PT ;\n"
+            "        /*0050*/               @P1 BRA 0x70 ;\n"
+            "        /*0060*/                   BRA 0x0 ;\n"
+            "        /*0070*/                   EXIT ;\n"
+            "\t\tFunction : _ZN12_GLOBAL__N_111other_kernelEv\n"
+            "        /*0000*/                   BRA 0x0 ;\n")
+    loops = path_probe.sass_loops(sass, "whitted_kernel")
+    assert loops == [
+        (0x10, 0x30, 3, {"LDS": 1, "FFMA": 1, "BRA": 1}),
+        (0x0, 0x60, 7, {"BRA": 3, "MOV": 1, "LDS": 1, "FFMA": 1,
+                        "FSETP": 1})]
+    assert path_probe.sass_loops(sass, "no_such_kernel") == []
+
+
+def test_table_whitted_sweep_rewrites_its_constants(tmp_path):
+    """Kernel 4 is built for kTableWhittedBlocks resident blocks an SM, a
+    constexpr that the probe's sweep rewrites: one copy a value of
+    TABLE_WHITTED_BUILDS (6-10), each differing from the source in that
+    line alone."""
+    from orion_tpu_torch.ops import cuda_build
+    from tools import brute_probe
+
+    src = (cuda_build.CSRC / "whitted.cu").read_text()
+    assert "__launch_bounds__(kThreads, kTableWhittedBlocks)" in src
+    (tmp_path / "whitted.cu").write_text(src)
+    copies = path_probe.table_whitted_sweep_sources(tmp_path)
+    assert len(copies) == len(path_probe.TABLE_WHITTED_BUILDS) == 5
+    for tag, cu in copies.items():
+        consts = brute_probe.parse_set(tag)
+        out = cu.read_text()
+        diff = [(a, c) for a, c in zip(src.splitlines(), out.splitlines())
+                if a != c]
+        assert len(diff) <= len(consts)
+        for name, v in consts.items():
+            assert f"constexpr int {name} = {v};" in out

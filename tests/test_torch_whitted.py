@@ -220,3 +220,21 @@ def test_wrapper_rejects_other_devices(whitted):
     tab = torch.as_tensor(wh.pack_whitted_tri_table(ts), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         wh.fused_whitted(tab, tab, tab, tab, tab, 0, 4, 4, 1, 1, True)
+
+
+def test_wrapper_tile_is_the_image_rows(whitted):
+    """fused_whitted's tile (pix_base, n_lanes): the whole image's rows
+    [pix_base, pix_base + n_lanes), as kernel 4's persistent lanes render
+    a tile; lanes outside the image raise."""
+    ts = to_torch(whitted[0])
+    cam = camera_from_rtc(whitted[1], device="cpu")
+    args = wh.whitted_args(ts, cam)
+    W, H = cam.xres, cam.yres
+    full = wh.fused_whitted(*args, 5, W, H, 2, 3, True)
+    tile = wh.fused_whitted(*args, 5, W, H, 2, 3, True, pix_base=7,
+                            n_lanes=W + 3)
+    assert full.shape == (W * H, 3)
+    assert torch.equal(tile, full[7:7 + W + 3])
+    with pytest.raises(ValueError, match="outside"):
+        wh.fused_whitted(*args, 5, W, H, 2, 3, True, pix_base=W * H - 2,
+                         n_lanes=3)

@@ -14,7 +14,9 @@ the swept table (`3`: 3a, 3b) on the Cornell box at phase 7's same
 shapes, with the whole `make_fused_train_step`; the BVH Whitted kernels
 (`w`: csrc/bvh_whitted.cu, 7a untextured and 7b with its checker) on the
 levels-5 point-light box at chip_smoke.py phase 12's 1920x1080, 4 spp,
-depth 4, one light. With no argument the probe runs all five. `--root CHECKOUT` probes another checkout's package
+depth 4, one light, and with them the Whitted kernel over the swept table
+(kernel 4, csrc/whitted.cu) on the point-light Cornell box at phase 8's
+same shapes. With no argument the probe runs all five. `--root CHECKOUT` probes another checkout's package
 and kernel sources (its `orion_tpu_torch` and `chip_smoke` come first on
 sys.path): a checkout whose 3a/3b still run fused_common.cuh's
 one-thread-a-pixel `path_lane`, which has no counter hooks, is built
@@ -22,7 +24,8 @@ from copies of its sources with the hooks put in (`hook_path_lane`) and
 a `prb_info` added; its port build is the same code, the hooks being
 macros of the instrumented build; a checkout whose 7a/7b still run
 whitted_common.cuh's one-thread-a-pixel `whitted_lane` gets the hooks the
-same way (`hook_whitted_lane`). For each kernel it prints:
+same way (`hook_whitted_lane`), and so does one whose kernel 4 runs it
+(`hook_whitted4`). For each kernel it prints:
 
 - ptxas's registers, shared memory and spill lines of the port's build
   (ops/cuda_build.NVCC_FLAGS), and what the built kernel reports
@@ -52,6 +55,11 @@ same way (`hook_whitted_lane`). For each kernel it prints:
   (WHITTED_BUILDS), both kernels timed in each build (median of
   WHITTED_REPS); their counters' "NEE" is the Whitted lane's shadow
   walks and light terms;
+- for kernel 4, its image's digest, the loops of its SASS (`sass_loops`:
+  each backward branch's body, its instructions and their opcodes; the
+  row loops of the nearest and shadow sweeps are the short ones), and,
+  where it runs persistent lanes, builds of copies of csrc/whitted.cu
+  with `kTableWhittedBlocks` rewritten (TABLE_WHITTED_BUILDS);
 - for kernel 8, the nodes and leaves a walk of the plain version
   (`bvh_path_plain`, the skip-pointer walk) visits at 256x256, 16 spp,
   depth 8, the yardstick of the walk's work.
@@ -102,6 +110,10 @@ TRAIN_BLOCKS = (6, 7, 8, 9, 10, 11, 12)
 # Whitted render's times spread by ~10% from launch to launch)
 WHITTED_BUILDS = [{"kWhittedBlocks": b} for b in TRAIN_BLOCKS]
 WHITTED_REPS = 11
+# the copies of csrc/whitted.cu that kernel 4's sweep builds
+TABLE_WHITTED_BUILDS = [{"kTableWhittedBlocks": b} for b in (6, 7, 8, 9, 10)]
+# loops of kernel 4's SASS printed, shortest first
+SASS_LOOPS = 8
 COUNTERS = ("lane_cycles", "nearest_cycles", "nee_cycles", "iters",
             "iter_lanes", "nee_iters", "nee_lanes", "warp_tail", "warps",
             "block_tail", "blocks", "lanes", "acc_cycles", "acc_entries",
@@ -766,6 +778,199 @@ def _probe_whitted(tmp: Path, dev) -> None:
                   flush=True)
 
 
+# ---------------------------------------------------------------------------
+# kernel 4, the Whitted kernel over a swept table
+# ---------------------------------------------------------------------------
+
+# A checkout whose kernel 4 runs whitted_common.cuh's one-thread-a-pixel
+# `whitted_lane` (its vertex the ORION_WHITTED_VERTEX macro, its counters
+# never flushed) gets whitted_lanes' counters in a copy: hook_whitted4 puts
+# each (text, replacement) of WHITTED4_LANE_HOOKS into whitted_lane (from
+# WHITTED_LANE_START to the end of the function) and WHITTED4_KERNEL_HOOK
+# into whitted.cu, which gains WHITTED4_INFO. The uninstrumented build of
+# the copy is the checkout's own code.
+WHITTED4_LANE_HOOKS = (
+    ("                                             const Tex& tex = Tex()) {\n"
+     "  ORION_PC(LaneCounters pc;)  // counted only by whitted_lanes\n",
+     "                                             const Tex& tex = Tex()\n"
+     "                                 ORION_PC(, LaneCounters* pcp = "
+     "nullptr)) {\n  ORION_PC(LaneCounters& pc = *pcp;)\n"),
+    ("  while (samp < p.samples) {\n    ORION_WHITTED_VERTEX(\n",
+     "  while (samp < p.samples) {\n"
+     "    ORION_PC(pc_warp_vote(pc.iters, pc.iter_lanes);)\n"
+     "    ORION_WHITTED_VERTEX(\n"),
+    ("  const float inv_s = static_cast<float>(1.0 / p.samples);\n"
+     "  float* out = p.out + 3 * (pix - p.pix_base);\n",
+     "  ORION_PC(pc.t_done = clock64();)\n"
+     "  const float inv_s = static_cast<float>(1.0 / p.samples);\n"
+     "  float* out = p.out + 3 * (pix - p.pix_base);\n"),
+)
+WHITTED4_KERNEL_HOOK = (
+    "  if (pix >= p.W * p.H) return;\n  whitted_lane(p, sgeo, pix);\n",
+    "#ifdef ORION_PATH_COUNTERS\n"
+    "  LaneCounters pc;\n  pc.t_start = pc.t_done = clock64();\n"
+    "  if (pix < p.W * p.H) {\n"
+    "    whitted_lane(p, sgeo, pix, NoTexel(), &pc);\n"
+    "    pc_flush(pc);\n  }\n"
+    "  __syncwarp();\n  pc_exit(pc.t_done);\n"
+    "#else\n"
+    "  if (pix >= p.W * p.H) return;\n  whitted_lane(p, sgeo, pix);\n"
+    "#endif\n")
+WHITTED4_INFO = """
+// out = render_lane.cuh's kernel_info of the kernel at the shared memory of
+// a resident table of T_pad rows (path_probe.py)
+extern "C" int whitted_info(int T_pad, int* out) {
+  return orion::kernel_info(whitted_kernel,
+                            sizeof(float) * T_pad * orion::kGeo, out);
+}
+"""
+
+
+def hook_whitted4(files: dict) -> dict:
+    """{name: text} of whitted_common.cuh and whitted.cu of a checkout
+    whose kernel 4 runs `whitted_lane`, rewritten with the counter hooks
+    (see WHITTED4_LANE_HOOKS); ValueError where a text to replace is not
+    found exactly once."""
+    wc = files["whitted_common.cuh"]
+    a = wc.find(WHITTED_LANE_START)
+    b = wc.find("\n}\n", a)
+    if a < 0 or b < 0:
+        raise ValueError("whitted_common.cuh: no whitted_lane")
+    lane = wc[a:b + 3]
+    for old, new in WHITTED4_LANE_HOOKS:
+        lane = _sub_once(lane, old, new, "whitted_lane")
+    wt = _sub_once(files["whitted.cu"], *WHITTED4_KERNEL_HOOK, "whitted.cu")
+    return {"whitted_common.cuh": wc[:a] + lane + wc[b + 3:],
+            "whitted.cu": wt + WHITTED4_INFO}
+
+
+def whitted4_sources(csrc: Path, out: Path) -> bool:
+    """Copy `csrc`'s whitted.cu and headers into `out`, the copies
+    rewritten by hook_whitted4 where kernel 4 runs `whitted_lane` (then
+    True)."""
+    out.mkdir(parents=True, exist_ok=True)
+    files = {f.name: f.read_text()
+             for f in [csrc / "whitted.cu", *sorted(csrc.glob("*.cuh"))]}
+    per_pixel = "whitted_lanes<" not in files["whitted.cu"]
+    if per_pixel:
+        files.update(hook_whitted4(files))
+    for name, text in files.items():
+        (out / name).write_text(text)
+    return per_pixel
+
+
+def table_whitted_sweep_sources(src: Path) -> dict:
+    """{tag: path} of copies of src/whitted.cu beside it, one for each set
+    of constants of TABLE_WHITTED_BUILDS."""
+    text = (src / "whitted.cu").read_text()
+    out = {}
+    for consts in TABLE_WHITTED_BUILDS:
+        tag = ",".join(f"{k}={v}" for k, v in consts.items())
+        body = text
+        for name, v in consts.items():
+            body = with_constant(body, name, v)
+        out[tag] = src / f"whitted_sweep_{len(out)}.cu"
+        out[tag].write_text(body)
+    return out
+
+
+def _opcode(text: str) -> str:
+    """The opcode of one SASS instruction, its predicate and modifiers
+    dropped ('@!P0 LDS.128 R4, [R2]' -> 'LDS')."""
+    return re.sub(r"^@!?U?P[T0-9]+\s+", "", text.strip()).split()[0] \
+        .split(".")[0]
+
+
+def sass_loops(sass: str, kernel: str, *also: str) -> list:
+    """The loops of a kernel's SASS (cuobjdump -sass's text): for each
+    backward branch, (first address, last address, instructions,
+    {opcode: count}) of the instructions from its target to the branch,
+    shortest first."""
+    body = None
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if kernel in name and all(a in name for a in also):
+            body = part
+            break
+    if body is None:
+        return []
+    ins = []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            ins.append((int(m[1], 16), m[2]))
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", text)
+        if m and int(m[1], 16) <= addr:
+            first = int(m[1], 16)
+            ops = [_opcode(t) for a, t in ins if first <= a <= addr]
+            loops.append((first, addr, len(ops),
+                          dict(collections.Counter(ops).most_common())))
+    return sorted(loops, key=lambda lp: lp[2])
+
+
+def _probe_whitted4(tmp: Path, dev) -> None:
+    """Kernel 4 at chip_smoke.py phase 8's shapes, the loops of its SASS,
+    and (persistent lanes) the sweep of its resident blocks."""
+    from chip_smoke import WHITTED, write_cornell_whitted
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.ops import cuda_build
+    from orion_tpu_torch.ops import whitted as wh
+    from orion_tpu_torch.scene import load_scene
+    from tools.walk_ab import digest
+
+    W, H, S, D = (WHITTED["xres"], WHITTED["yres"], WHITTED["samples"],
+                  WHITTED["depth"])
+    src = tmp / "whitted4_src"
+    per_pixel = whitted4_sources(cuda_build.CSRC, src)
+    sweep = {} if per_pixel else table_whitted_sweep_sources(src)
+    builds = [(src / "whitted.cu", tmp / "wh.so", ()),
+              (src / "whitted.cu", tmp / "wh_counters.so",
+               ("-DORION_PATH_COUNTERS",))]
+    builds += [(cu, tmp / f"wh_sweep_{k}.so", ())
+               for k, cu in enumerate(sweep.values())]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: _nvcc(*b), builds))
+    if per_pixel:
+        print("[kernel 4] whitted_lane: counter hooks put into a copy of "
+              "the sources")
+    rtc = write_cornell_whitted(tmp / "w4", xres=W, yres=H, depth=D)
+    scene, r = load_scene(rtc, device=dev)
+    args = wh.whitted_args(scene, camera_from_rtc(r, device=dev))
+    cfg = (W, H, S, D, scene.num_emissive > 0)
+    T_pad = args[0].shape[0]
+
+    def launch():
+        return wh.fused_whitted(*args, 0, *cfg)
+
+    launch.module = wh.__name__
+    _run("kernel 4", src / "whitted.cu", "whitted_launch", "whitted_kernel",
+         lambda lib, out: lib.whitted_info(T_pad, out), launch, tmp,
+         tag="wh", nee="shadow sweeps")
+    with _swapped(wh, "KERNEL", ctypes.CDLL(str(tmp / "wh.so")),
+                  "whitted_launch"):
+        img = launch()
+    print(f"[kernel 4] {T_pad} table rows; image digest {digest(img)}, mean "
+          f"{float(img.double().mean()):.9g}")
+    for first, last, n, ops in sass_loops(_cuobjdump(tmp / "wh.so"),
+                                          "whitted_kernel")[:SASS_LOOPS]:
+        print(f"[kernel 4] SASS loop {first:#x}-{last:#x}: {n} "
+              f"instructions, {ops}")
+    for k, (tag, cu) in enumerate(sweep.items()):
+        so = tmp / f"wh_sweep_{k}.so"
+        log = _nvcc(cu, so)
+        lib = ctypes.CDLL(str(so))
+        out = (ctypes.c_int * 4)()
+        lib.whitted_info(T_pad, out)
+        spill = " ".join(_ptxas_lines(log, "whitted_kernel")[1:2])
+        with _swapped(wh, "KERNEL", lib, "whitted_launch"):
+            ms, times, _ = _median_ms(launch, WHITTED_REPS)
+        print(f"[kernel 4] built with {tag}: {out[1]} registers, {out[0]} "
+              f"resident ({spill}); {ms:.3f} ms (runs "
+              f"{', '.join(f'{t:.3f}' for t in times)})", flush=True)
+
+
 def parse_args(argv) -> argparse.Namespace:
     """`kernels`: the set of KERNELS named (all when none is), `root`:
     the checkout to probe (None: this one)."""
@@ -797,6 +1002,7 @@ def main(argv) -> int:
             if pair in args.kernels:
                 _probe_pair(pair, tmp, dev)
         if "w" in args.kernels:
+            _probe_whitted4(tmp, dev)
             _probe_whitted(tmp, dev)
     return 0
 

@@ -11,12 +11,12 @@ the same, encodings included, addresses aside (and, where they are not,
 the first lines that differ). A kernel whose shared
 headers or source changed around it but whose code did not prints
 "same": what a redesign of other kernels must leave alone (kernels 1
-and 8, both training pairs 3a/3b and 9a/9b, the Whitted kernel 4, the
-four instantiations of the wavefront's walk 5 (nearest and any-hit,
-spread and counted), the binned round 10, both instantiations of the G8
-walk 11, and the bounce pipeline's walk 6a, its visibility and draw
-kernels 6b and the four instantiations of its shade kernel 6c; kernels 2,
-7a and 7b, redesigned since, are not in the list). More kernels may
+and 8, both training pairs 3a/3b and 9a/9b, the four instantiations of
+the wavefront's walk 5 (nearest and any-hit, spread and counted), both
+instantiations of the G8 walk 11, and the bounce pipeline's walk 6a, its
+visibility and draw kernels 6b and the four instantiations of its shade
+kernel 6c; kernels 2, 4, 7a, 7b and 10, redesigned since, are not in the
+list). More kernels may
 be named after the two checkouts, as `source:kernel` or
 `source:kernel:also`. Exit code 1 if a kernel differs or is missing.
 """
@@ -39,13 +39,11 @@ sys.path.insert(0, str(ROOT))
 KERNELS = (("fused_path", "fused_path_kernel", ()),
            ("prb", "17prb_fwd_ls_kernel", ()),
            ("prb", "17prb_replay_kernel", ()),
-           ("whitted", "whitted_kernel", ()),
            *(("bvh_intersect", "bvh_intersect_kernel", (f"ILb{a}ELb{c}E",))
              for a in (0, 1) for c in (0, 1)),
            ("bvh_path", "bvh_path_kernel", ()),
            ("prb", "bvh_prb_fwd_kernel", ()),
            ("prb", "bvh_prb_replay_kernel", ()),
-           ("binned", "binned_round_kernel", ()),
            ("bvh_g8", "bvh_g8_kernel", ("ILb0E",)),
            ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)),
            ("bounce", "bounce_walk_kernel", ()),
