@@ -72,7 +72,9 @@ Phases (any failure raises and the script exits non-zero):
      make_big_path_renderer(order=("bounce",)): launches
      and CUDA-event times per bounce of the walk and shade kernels and of
      the sort, lanes per bounce; the same render with split_vis=True (the
-     vis kernel); the image against the BVH path kernel's of the same seed;
+     vis kernel: its registers and resident blocks, its time a render and
+     at depth 0, vis + shade-given-vis against the fused shade); the image
+     against the BVH path kernel's of the same seed;
      both candidates timed in turns; the same render through the CLI's
      default route (the first candidate of engine.BIG_PATH_ORDER: its
      backend, its launches, the renderer's image bit for bit once both are
@@ -112,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
      kernel's draw-only mode against its plain version, the image against
      bounce_reference_render, the binned trainer's gradients against the
      plain rounds'; G8 against kernel 5's plain walk of the leaf-128 tree
-     on random rays and phase 3's recorded sweeps (the three scenes);
+     on random rays and phase 3's recorded sweeps (the three scenes),
+     (t, row) bit for bit, nearest and any hit;
      (b) make_big_path_renderer(order=("binned",)) on the levels-5 box at
      1920x1080, 4 spp, depth 8: backend binned-kernel, kernel-10 launches,
      rounds a sweep, kernel 10's summed CUDA-event time a render and its
@@ -125,9 +128,12 @@ Phases (any failure raises and the script exits non-zero):
      spp, depth 8 (red wall x 0.6), and a 3-step SGD fit of the red wall's
      albedo at 256x256 whose loss and error fall; (d) the 256x256, 16 spp,
      depth 4 wavefront over G8 (launches; the image against kernel 5's on
-     the same leaf-128 tree), and G8 and kernel 5 timed per launch on that
-     tree by CUDA-graph replay of phase 3's recorded sweeps and of the
-     1080p render's depth-1 bounce wavefront.
+     the same leaf-128 tree), G8's registers and resident blocks as
+     built, G8 against the plain walk bit for bit (nearest and any hit)
+     on the 1080p render's depth-1 bounce wavefront (phase 10's sweeps
+     are held in (a)), and G8 and kernel 5 timed per launch on that tree
+     by CUDA-graph replay of phase 10's recorded sweeps and of that
+     wavefront.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
@@ -1565,6 +1571,7 @@ def _phase_bounce(tmp: Path, dev, card: str, lv5, errs3: list) -> dict:
     from orion_tpu_torch.ops import bounce as bo
     from orion_tpu_torch.ops import bounce_prb as bpr
     from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.optim import fit
 
     W, H, S, D, LS = (MAIN["xres"], MAIN["yres"], MAIN["samples"],
@@ -1635,6 +1642,19 @@ def _phase_bounce(tmp: Path, dev, card: str, lv5, errs3: list) -> dict:
           f", shade "
           f"{sum(ms for (nm, _), (_, ms) in st_split.items() if nm == 'shade'):.3f}"
           f" ms; max abs difference from the fused render {d_split:.3g}")
+    info = (ctypes.c_int * 4)()
+    rc = ctypes.CDLL(str(cuda_build.lib_path("bounce"))).bounce_info(5, info)
+    check(rc == 0, f"bounce_info failed: CUDA error {rc}")
+    vis_sum = sum(ms for (nm, _), (_, ms) in st_split.items() if nm == "vis")
+    given = sum(ms for (nm, _), (_, ms) in st_split.items() if nm == "shade")
+    print(f"[11] vis kernel (6b) as built: {info[1]} registers, {info[2]} B "
+          f"of local memory a thread, {info[0]} resident blocks of 128 "
+          f"threads an SM; {vis_sum:.3f} ms a render, "
+          f"{st_split[('vis', 0)][1]:.3f} at depth 0; vis + shade given vis "
+          f"{vis_sum + given:.3f} ms against the fused shade "
+          f"{per['shade']:.3f} a render, at depth 0 "
+          f"{st_split[('vis', 0)][1] + st_split[('shade', 0)][1]:.3f} "
+          f"against {stage[('shade', 0)][1]:.3f}")
     check(split_counts[1] == split_counts[0] > 0, "split_vis never launched "
           "the vis kernel")
     check(bool(torch.allclose(img_s, img_b, rtol=1e-6, atol=1e-7)),
@@ -2567,20 +2587,18 @@ def _phase_refit(tmp: Path, dev) -> int:
     return launches
 
 
-def g8_mask_agree(name: str, kernel, plain) -> None:
-    """Any-hit masks of G8 against kernel 5's plain walk: equal on >=
-    99.99% of rays. A G8 lane also tests the leaves its warp opened, so a
-    hit that its own slab test misses at a box face (a ray grazing the box
-    of a triangle's own edge) may count there; t is 1.0 on a hit."""
+def g8_equal(name: str, kernel, plain) -> None:
+    """G8's (t, row) equal the plain walk's (leaf 128) bit for bit: a lane
+    walks exactly its own path (nearest; any hit settles at the plain
+    walk's first leaf with a hit)."""
     import torch
 
-    (t_k, r_k), (_, r_p) = kernel, plain
-    same = float(((r_k >= 0) == (r_p >= 0)).float().mean())
-    print(f"[g8 any-hit {name}] {r_p.numel()} rays, masks equal "
-          f"{same:.6f}, hits {int((r_p >= 0).sum())}")
-    check(same >= 0.9999, f"g8 any-hit {name}: masks equal on {same}")
-    check(bool((t_k[r_k >= 0] == 1.0).all())
-          and bool(torch.isinf(t_k[r_k < 0]).all()), f"g8 any-hit {name}: t")
+    (t_k, r_k), (t_p, r_p) = kernel, plain
+    off = int((~((r_k == r_p) & ((t_k == t_p) | (r_p < 0)))).sum())
+    print(f"[g8 {name}] {r_p.numel()} rays, (t, row) differ from the plain "
+          f"walk's on {off}, hits {int((r_p >= 0).sum())}")
+    check(torch.equal(r_k, r_p) and torch.equal(t_k, t_p),
+          f"g8 {name}: (t, row) differ from the plain walk's on {off} rays")
 
 
 def _rows_as_ids(t, row):
@@ -2603,8 +2621,8 @@ def _phase_binned_checks(dev, cornell, lv2, lv5, cam64, sweeps) -> dict:
     image against bounce_reference_render, the trainer's gradients against
     the plain rounds'; G8 against kernel 5's plain walk of the same
     leaf-128 tree on random rays and phase 3's recorded wavefront sweeps
-    (the same box at every level). Returns {"10": max t error, "11": max
-    t error}."""
+    (the same box at every level), (t, row) bit for bit, nearest and any
+    hit. Returns {"10": max t error, "11": max t error}."""
     import torch
 
     from orion_tpu_torch.accel.bvh import build_scene_bvh
@@ -2662,13 +2680,8 @@ def _phase_binned_checks(dev, cornell, lv2, lv5, cam64, sweeps) -> dict:
                 p = bx.bvh_walk_plain(nodes, tri, o, d, alive,
                                       leaf_width=g8.LEAF_WIDTH,
                                       any_hit=any_hit)
-                name = f"{sname} leaf 128 {rname}"
-                if any_hit:
-                    g8_mask_agree(name, k, p)
-                else:
-                    errs["11"] = max(errs["11"], brute_agree(
-                        f"g8 {name}", (k[0], k[1].long()),
-                        (p[0], p[1].long())))
+                g8_equal(f"{sname} leaf 128 {rname}"
+                         f"{' any-hit' if any_hit else ''}", k, p)
     return errs
 
 
@@ -2702,6 +2715,7 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
     from orion_tpu_torch.ops import bounce as bo
     from orion_tpu_torch.ops import bvh_g8 as g8
     from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.ops import prb_wavefront as pw
     from orion_tpu_torch.render import render
 
@@ -2897,6 +2911,22 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
                 st1[9] > 0.0)]
     del rec1, st1
     nodes, tri = layout
+    info = (ctypes.c_int * 4)()
+    lib = ctypes.CDLL(str(cuda_build.lib_path("bvh_g8")))
+    for which, label in ((0, "nearest"), (1, "any-hit")):
+        rc = lib.bvh_g8_info(which, info)
+        check(rc == 0, f"bvh_g8_info failed: CUDA error {rc}")
+        print(f"[13] (d) G8 {label} as built: {info[1]} registers, "
+              f"{info[2]} B of local memory a thread, {info[0]} resident "
+              f"blocks of 128 threads an SM")
+    # G8 bit for bit on the bounce wavefront (phase 10's sweeps: in (a))
+    o, d, a = bounce1[0]
+    for any_hit in (False, True):
+        g8_equal(f"1080p depth-1 bounce wavefront"
+                 f"{' any-hit' if any_hit else ''}",
+                 g8.bvh_g8(nodes, tri, o, d, a, any_hit=any_hit),
+                 bx.bvh_walk_plain(nodes, tri, o, d, a,
+                                   leaf_width=g8.LEAF_WIDTH, any_hit=any_hit))
     out = {}
     for rname, rs in (("phase 10's wavefront sweeps", sweeps),
                       ("the 1080p depth-1 bounce wavefront", bounce1)):

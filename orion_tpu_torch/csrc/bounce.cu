@@ -9,10 +9,11 @@
 //       n lanes -> hitdata [8, n]: t, u, v, global winner row, hit flag,
 //       three zero rows. The walk body is pallas_bvh_path.py's `lean`.
 //   bounce_vis_kernel   <- _make_vis_kernel   (:285): both light samples'
-//       visibility of one emitter in one dual-carry walk (`shadow_em2`),
-//       standalone -> [8, n], rows 0-1 the 0/1 visibility planes; its
-//       draw-only mode (bounce_draw_kernel, the same launch entry) writes
-//       every site's shadow ray instead, for the binned renderer's sweep.
+//       visibility of one emitter in one dual-carry walk (`shadow_em2`'s,
+//       in steps), standalone -> [8, n], rows 0-1 the 0/1 visibility
+//       planes; its draw-only mode (bounce_draw_kernel, the same launch
+//       entry) writes every site's shadow ray instead, for the binned
+//       renderer's sweep.
 //   bounce_shade_kernel <- _make_shade_kernel (:359): one bounce of the
 //       estimator over the walk's hit: depth-0 emission, fast-shadow NEE
 //       (its own shadow walks unless the visibility planes are given),
@@ -40,15 +41,16 @@
 // on 52 bytes of a table row; the 34,818-triangle box's tree and table fit
 // in the 50 MB L2); the shade kernel besides moves 2 x 64 bytes of state
 // and 32 bytes of hit data a lane. What the walk and shade kernels do
-// about it (PERF.md): the walk is persistent and refills a warp's
-// lanes as their rays end (a warp ran as long as its longest ray: SIMT
-// 0.55 past depth 0); both are built for more resident warps (12 and 10
-// blocks of 128), which hide more of the walks' latency, and read a Woop
-// row as four float4. The walk reads its node rows from L2 near its rate
-// (~66 GB a 1080p 16 spp render of the 34,818-triangle box), so lane
-// utilisation moves it little. A shadow walk is still each lane's own: a
-// block-wide queue of them and persistent shade lanes were measured and
-// lost.
+// about it (PERF.md): the walk and the vis kernel are persistent and
+// refill a warp's lanes as their rays end (a warp ran as long as its
+// longest ray: SIMT 0.55 past depth 0, the vis kernel's pairs 0.33-0.40);
+// all three read a Woop row as four float4, and the walk and shade are
+// built for more resident warps (12 and 10 blocks of 128), which hide
+// more of the walks' latency. The walk reads its node rows from L2 near
+// its rate (~66 GB a 1080p 16 spp render of the 34,818-triangle box), so
+// lane utilisation moves it little. The shade kernel's shadow walk is
+// still each lane's own: a block-wide queue of them and persistent shade
+// lanes were measured and lost.
 
 #include "render_lane.cuh"
 
@@ -236,9 +238,8 @@ __device__ __forceinline__ bool shadow_em(const Tree& g, const Ray& r,
 // answer starts at t = -kBig and never votes. Bit 0 of a leaf's start says
 // the leaf holds no emitter rows: an improving hit there clears the flag
 // without reading the row's mesh. With eight tree copies r0's octant's
-// copy serves both rays. kF4 is woop's row load (the shade kernel's
-// float4 loads; the vis kernel keeps the scalar ones): the same answers.
-template <bool kF4 = false>
+// copy serves both rays. A row is read as four float4. The vis kernel
+// walks the same pairs in steps, in its own loop.
 __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
                                            const Ray& r1, bool need0,
                                            bool need1, float mesh, bool& vis0,
@@ -269,14 +270,14 @@ __device__ __forceinline__ void shadow_em2(const Tree& g, const Ray& r0,
         const float* w = g.tab + k * kCols;
         ORION_BC(tests += (need0 ? 1u : 0u) + (need1 ? 1u : 0u);)
         if (need0) {
-          const float t = woop<true, kF4>(w, r0);
+          const float t = woop<true, true>(w, r0);
           if (t < tb0) {   // strict: the smallest row, the earlier leaf
             tb0 = t;
             em0 = !no_em && __ldg(w + C_MESH) == mesh;
           }
         }
         if (need1) {
-          const float t = woop<true, kF4>(w, r1);
+          const float t = woop<true, true>(w, r1);
           if (t < tb1) {
             tb1 = t;
             em1 = !no_em && __ldg(w + C_MESH) == mesh;
@@ -399,36 +400,137 @@ bounce_walk_kernel(const Tree g, const float* __restrict__ st,
   ORION_BC(bc_warp_once(kBcWalkWarps);)
 }
 
-__global__ void __launch_bounds__(kThreads)
-bounce_vis_kernel(const BounceParams p, const float* __restrict__ st,
-                  const float* __restrict__ hd, float* __restrict__ vis) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  const Ray r = lane_ray(st, p.N, i);
-  const Frame f = hit_frame(p, hd, i, r);
-  bool v0 = false, v1 = false;
-  if (f.hit) {
-    const uint32_t upix = static_cast<uint32_t>(
-        static_cast<int>(st[14 * p.N + i]));
-    const uint32_t site_sd =
-        static_cast<uint32_t>(static_cast<int>(st[15 * p.N + i])) * 131071u +
-        static_cast<uint32_t>(p.depth);
-    const LightDraw d0 = light_draw(p.em, 0, upix, site_sd, p.seed, 0.5f, f);
-    const LightDraw d1 = light_draw(p.em, 1, upix, site_sd, p.seed, 0.5f, f);
-    if (d0.need || d1.need) {
-      Ray s0, s1;
-      s0.ox = s1.ox = f.hx + kBias * f.gnx;
-      s0.oy = s1.oy = f.hy + kBias * f.gny;
-      s0.oz = s1.oz = f.hz + kBias * f.gnz;
-      s0.dx = d0.sdx; s0.dy = d0.sdy; s0.dz = d0.sdz;
-      s1.dx = d1.sdx; s1.dy = d1.sdy; s1.dz = d1.sdz;
-      shadow_em2(p.geo, s0, s1, d0.need, d1.need, __ldg(p.em), v0, v1);
-    }
-  }
+// Resident blocks an SM that the vis kernel (6b) is built for
+// (__launch_bounds__), the walking lanes below which a warp refills, and
+// the node steps a walking pair takes between two refill votes: 6a's
+// loop, measured on the H100 for 6b's pairs (PERF.md; tools/bounce_probe.py
+// --vis --sweep builds copies with other values).
+constexpr int kVisBlocks = 8;
+constexpr int kVisRefill = 16;
+constexpr int kVisSteps = 32;
+
+// one lane's visibility column: the two samples' 0/1 flags, six zeros
+__device__ __forceinline__ void write_vis(float* vis, int n, int i, bool v0,
+                                          bool v1) {
   vis[i] = v0 ? 1.0f : 0.0f;
-  vis[p.n + i] = v1 ? 1.0f : 0.0f;
+  vis[n + i] = v1 ? 1.0f : 0.0f;
 #pragma unroll
-  for (int k = 2; k < 8; ++k) vis[k * p.n + i] = 0.0f;
+  for (int k = 2; k < 8; ++k) vis[k * n + i] = 0.0f;
+}
+
+// Kernel 6b: both light samples' visibility of the single emitter, the
+// shade kernel's draws and pair walk (`light_draw`, `shadow_em2`) run
+// standalone, persistent and refilled as 6a is (after Aila & Laine, HPG
+// 2009). The grid is as many blocks as stay resident; an idle thread
+// takes lanes of the prefix from the counter *next (zero at launch;
+// take_lane: one atomic for the lanes that take together, consecutive
+// lanes) until one needs a walk: a lane that missed or needs neither
+// sample writes its zeros at once. A warp refills when fewer than
+// kVisRefill of its lanes walk; between two votes a walking lane takes up
+// to kVisSteps node steps of its pair, carrying both rays, their inverse
+// directions, two (t_best, emitter flag) pairs and its pointer. A pair's
+// operations are shadow_em2's in the same order (a node entered when
+// either ray's live segment slab-hits it, the leaf's rows in order,
+// strict <, bit 0 of a leaf's start: no emitter rows), with float4 row
+// loads (woop<true, true>, whose t is the scalar loads' bit for bit), so
+// the planes are the one-thread-a-lane kernel's.
+__global__ void __launch_bounds__(kThreads, kVisBlocks)
+bounce_vis_kernel(const BounceParams p, const float* __restrict__ st,
+                  const float* __restrict__ hd, float* __restrict__ vis,
+                  int* next) {
+  const Tree& g = p.geo;
+  const float mesh = __ldg(p.em);
+  Ray r0{0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, r1 = r0;
+  float ix0 = 0.f, iy0 = 0.f, iz0 = 0.f, ix1 = 0.f, iy1 = 0.f, iz1 = 0.f;
+  float tb0 = -kBig, tb1 = -kBig;
+  bool need0 = false, need1 = false, em0 = false, em1 = false;
+  int ptr = 0, end = 0, lane = 0;
+  bool walking = false, fetch = true;   // fetch: the counter may hold lanes
+  ORION_BC(unsigned steps = 0, tests = 0;)
+  do {
+    if (fetch && __popc(__ballot_sync(kFull, walking)) < kVisRefill) {
+      while (!walking) {
+        lane = take_lane(next);
+        if (lane >= p.n) break;
+        const Ray r = lane_ray(st, p.N, lane);
+        const Frame f = hit_frame(p, hd, lane, r);
+        if (f.hit) {
+          const uint32_t upix = static_cast<uint32_t>(
+              static_cast<int>(st[14 * p.N + lane]));
+          const uint32_t site_sd =
+              static_cast<uint32_t>(static_cast<int>(st[15 * p.N + lane])) *
+                  131071u +
+              static_cast<uint32_t>(p.depth);
+          const LightDraw d0 =
+              light_draw(p.em, 0, upix, site_sd, p.seed, 0.5f, f);
+          const LightDraw d1 =
+              light_draw(p.em, 1, upix, site_sd, p.seed, 0.5f, f);
+          if (d0.need || d1.need) {
+            r0.ox = r1.ox = f.hx + kBias * f.gnx;
+            r0.oy = r1.oy = f.hy + kBias * f.gny;
+            r0.oz = r1.oz = f.hz + kBias * f.gnz;
+            r0.dx = d0.sdx; r0.dy = d0.sdy; r0.dz = d0.sdz;
+            r1.dx = d1.sdx; r1.dy = d1.sdy; r1.dz = d1.sdz;
+            need0 = d0.need;
+            need1 = d1.need;
+            tb0 = need0 ? kNeeTCap : -kBig;
+            tb1 = need1 ? kNeeTCap : -kBig;
+            em0 = em1 = false;
+            ix0 = 1.0f / r0.dx; iy0 = 1.0f / r0.dy; iz0 = 1.0f / r0.dz;
+            ix1 = 1.0f / r1.dx; iy1 = 1.0f / r1.dy; iz1 = 1.0f / r1.dz;
+            ptr = g.first(r0);   // r0's octant's copy serves both rays
+            end = ptr + g.M;
+            walking = true;
+            ORION_BC(bc_add(kBcShadowRays, 1ull); steps = tests = 0;)
+          }
+        }
+        if (!walking) write_vis(vis, p.n, lane, false, false);
+      }
+      // consecutive lanes: once one lane ran past n, so will every take
+      fetch = __ballot_sync(kFull, !walking && lane >= p.n) == 0;
+    }
+    if (walking) {
+      ORION_BC(bc_vote(kBcShadowEntries, kBcShadowEntryLanes);)
+#pragma unroll 1
+      for (int s = 0; ptr < end && s < kVisSteps; ++s) {
+        ORION_BC(bc_vote(kBcShadowIters, kBcShadowIterLanes); ++steps;)
+        const float4 n0 = __ldg(g.nodes + 2 * ptr);
+        const float4 n1 = __ldg(g.nodes + 2 * ptr + 1);
+        const bool hit = slab_hit(n0, n1, r0, ix0, iy0, iz0, tb0) ||
+                         slab_hit(n0, n1, r1, ix1, iy1, iz1, tb1);
+        const int start = __float_as_int(n1.w);
+        if (hit && start >= 0) {
+          const int lo = start & ~1;
+          const bool no_em = (start & 1) != 0;
+          for (int k = lo; k < lo + g.leaf_width; ++k) {
+            const float* w = g.tab + k * kCols;
+            ORION_BC(tests += (need0 ? 1u : 0u) + (need1 ? 1u : 0u);)
+            if (need0) {
+              const float t = woop<true, true>(w, r0);
+              if (t < tb0) {   // strict: the smallest row, the earlier leaf
+                tb0 = t;
+                em0 = !no_em && __ldg(w + C_MESH) == mesh;
+              }
+            }
+            if (need1) {
+              const float t = woop<true, true>(w, r1);
+              if (t < tb1) {
+                tb1 = t;
+                em1 = !no_em && __ldg(w + C_MESH) == mesh;
+              }
+            }
+          }
+        }
+        ptr = (hit && start < 0) ? ptr + 1 : __float_as_int(n1.z);
+      }
+      if (ptr >= end) {
+        write_vis(vis, p.n, lane, need0 && em0, need1 && em1);
+        walking = false;
+        ORION_BC(bc_add(kBcShadowSteps, steps);
+                 bc_add(kBcShadowTests, tests);)
+      }
+    }
+  } while (fetch || __any_sync(kFull, walking));
 }
 
 // The draw-only mode of the vis kernel: the shade kernel's shadow rays of
@@ -573,7 +675,7 @@ bounce_shade_kernel(const BounceParams p, float* __restrict__ st,
           s0.dx = d0.sdx; s0.dy = d0.sdy; s0.dz = d0.sdz;
           s1.dx = d1.sdx; s1.dy = d1.sdy; s1.dz = d1.sdz;
           ORION_BC(const long long c2 = clock64();)
-          shadow_em2<true>(p.geo, s0, s1, d0.need, d1.need, em_mesh, v0, v1);
+          shadow_em2(p.geo, s0, s1, d0.need, d1.need, em_mesh, v0, v1);
           ORION_BC(c_shadow += clock64() - c2;)
         }
         const float sc0 = v0 ? d0.scale : 0.0f, sc1 = v1 ? d1.scale : 0.0f;
@@ -711,10 +813,12 @@ extern "C" int bounce_walk_launch(const float* nodes, const float* tab,
 // draws == 0: the standalone visibility planes of one emitter's two light
 // samples ([8, n]); draws != 0: the shadow rays of every site of n_em
 // emitters x light_samples ([3 + 4 * sites, n]).
+// `next`: one int32, zero, the vis kernel's lane counter (the draws leave
+// it alone)
 extern "C" int bounce_vis_launch(const float* nodes, const float* tab,
                                  const float* em, const float* st,
-                                 const float* hd, float* vis, int M,
-                                 int leaf_width, int copies, int B_pad,
+                                 const float* hd, float* vis, int* next,
+                                 int M, int leaf_width, int copies, int B_pad,
                                  int n_em, int N, int n, int seed, int depth,
                                  int light_samples, int draws, void* stream) {
   if (n > 0) {
@@ -728,7 +832,8 @@ extern "C" int bounce_vis_launch(const float* nodes, const float* tab,
       const BounceParams p = make_params(nodes, tab, em, M, leaf_width,
                                          copies, B_pad, 1, N, n, seed, depth,
                                          0, 2);
-      bounce_vis_kernel<<<grid_of(n), kThreads, 0, s>>>(p, st, hd, vis);
+      bounce_vis_kernel<<<persistent_blocks(bounce_vis_kernel, 0, n),
+                          kThreads, 0, s>>>(p, st, hd, vis, next);
     }
   }
   return static_cast<int>(cudaGetLastError());

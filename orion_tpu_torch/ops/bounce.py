@@ -95,7 +95,7 @@ _F = ctypes.c_float
 WALK_KERNEL = CudaKernel("bounce", "bounce_walk_launch",
                          [_P] * 5 + [_I] * 5 + [_P])
 VIS_KERNEL = CudaKernel("bounce", "bounce_vis_launch",
-                        [_P] * 6 + [_I] * 11 + [_P])
+                        [_P] * 7 + [_I] * 11 + [_P])
 SHADE_KERNEL = CudaKernel("bounce", "bounce_shade_launch",
                           [_P] * 8 + [_F] * 6 + [_I] * 11 + [_P])
 
@@ -445,11 +445,16 @@ def bounce_vis(data: BounceData, st, hitdata, seed: int, depth: int, *,
                                 light_samples=light_samples)
     rows = 3 + 4 * data.em.shape[0] * light_samples if draws else HIT_ROWS
     out = torch.empty((rows, n), dtype=torch.float32, device=st.device)
+    # the persistent vis kernel's lane counter, zero at launch (the draws
+    # need none)
+    nxt = None if draws else torch.zeros((1,), dtype=torch.int32,
+                                         device=st.device)
     VIS_KERNEL.launch(data.nodes.data_ptr(), data.tab.data_ptr(),
                       data.em.data_ptr(), st.data_ptr(), hitdata.data_ptr(),
-                      out.data_ptr(), *_tree_args(data), data.tab.shape[0],
-                      data.em.shape[0], st.shape[1], n, _seed32(seed),
-                      int(depth), int(light_samples if draws else 2),
+                      out.data_ptr(), None if draws else nxt.data_ptr(),
+                      *_tree_args(data), data.tab.shape[0], data.em.shape[0],
+                      st.shape[1], n, _seed32(seed), int(depth),
+                      int(light_samples if draws else 2),
                       int(draws), stream_ptr(st.device))
     return out
 

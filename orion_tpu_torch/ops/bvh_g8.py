@@ -4,17 +4,18 @@ Replaces `orion_tpu.ops.pallas_bvh_g8` (the Pallas `_make_kernel(M,
 any_hit)` and `make_bvh_intersect_g8`): an IntersectFn with the contract
 of the walk kernel (ops/bvh_intersect.py, kernel 5) over a tree of
 128-row leaves, which schedules the walk differently: a warp of 32 lanes
-shares one node pointer and walks the union of its lanes' paths, testing
-each visited leaf's 128 rows from shared memory (`csrc/bvh_g8.cu`). The
-JAX package keeps it as a measured negative result on its TPU and reaches
-it by name only; so does the port (pass `make_bvh_intersect_g8(...)` as a
-wavefront's `intersect`).
+shares one node pointer and walks the union of its lanes' paths, each
+lane on exactly its own path inside it, and the warp's threads split a
+leaf's 128 rows for each lane that needs the leaf (`csrc/bvh_g8.cu`).
+The JAX package keeps it as a measured negative result on its TPU and
+reaches it by name only; so does the port (pass
+`make_bvh_intersect_g8(...)` as a wavefront's `intersect`).
 
 The nearest hit is the same function as kernel 5's, so the plain version
-is kernel 5's: `bvh_walk_plain` on the same leaf-128 tree. An any-hit
-walk may report another hit row than kernel 5's; only its mask is the
-contract. `bvh_g8` takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+is kernel 5's: `bvh_walk_plain` on the same leaf-128 tree, whose (t, row)
+the kernel gives bit for bit, any hit's too (the first leaf with a hit).
+`bvh_g8` takes the plain version only for CPU tensors; for CUDA tensors
+it launches the kernel or raises.
 """
 
 from __future__ import annotations

@@ -129,12 +129,14 @@ def test_compare_hitdata_counts_lanes_by_row():
 
 def test_sass_diff_keeps_every_untouched_kernel():
     """The kernels a redesign of other kernels must leave alone: 1, 3a,
-    3b, 5, 8, 9a, 9b, 11, 6a, 6b's visibility and draw kernels and 6c (2,
-    4, 7a, 7b and 10, redesigned since, are not among them); more are
-    named as source:kernel[:also]."""
+    3b, 5, 8, 9a, 9b, 6a, the draw kernel of 6b's launch entry and 6c (2,
+    4, 7a, 7b, 10, 11 and 6b's vis kernel, redesigned since, are not among
+    them); more are named as source:kernel[:also]."""
     names = {(s, k) for s, k, _ in sass_diff.KERNELS}
     assert not names & {("whitted", "whitted_kernel"),
-                        ("binned", "binned_round_kernel")}
+                        ("binned", "binned_round_kernel"),
+                        ("bvh_g8", "bvh_g8_kernel"),
+                        ("bounce", "bounce_vis_kernel")}
     for want in (("fused_path", "fused_path_kernel"),
                  ("prb", "17prb_fwd_ls_kernel"),
                  ("prb", "17prb_replay_kernel"),
@@ -142,9 +144,7 @@ def test_sass_diff_keeps_every_untouched_kernel():
                  ("bvh_path", "bvh_path_kernel"),
                  ("prb", "bvh_prb_fwd_kernel"),
                  ("prb", "bvh_prb_replay_kernel"),
-                 ("bvh_g8", "bvh_g8_kernel"),
                  ("bounce", "bounce_walk_kernel"),
-                 ("bounce", "bounce_vis_kernel"),
                  ("bounce", "bounce_draw_kernel"),
                  ("bounce", "bounce_shade_kernel")):
         assert want in names

@@ -27,7 +27,7 @@ from orion_tpu_torch.ops import bvh_g8 as g8
 from orion_tpu_torch.ops import bvh_intersect as bx
 
 from chip_smoke import write_cornell
-from torch_port_util import jax_bvh_fields, to_torch
+from torch_port_util import g8_walk_model, jax_bvh_fields, to_torch
 
 
 @pytest.fixture(scope="module", params=[0, 3])
@@ -99,6 +99,42 @@ def test_g8_matches_jax(case, mode):
         ts, torch.as_tensor(o), torch.as_tensor(d),
         alive=None if alive is None else torch.as_tensor(alive))
     assert torch.equal(k5.tri_id, hit.tri_id) and torch.equal(k5.t, hit.t)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "any-hit", "alive"])
+def test_g8_model_matches_jax(case, mode):
+    """The CPU model of the CUDA kernel's schedule (a warp's shared
+    pointer, each lane's resume range, the split leaf and its butterfly;
+    torch_port_util.g8_walk_model) against the JAX G8 in interpret mode,
+    by test_g8_matches_jax's checks: masks equal but at a triangle's edge,
+    t within 1e-5 where both hit; and its (t, row) the plain walk's."""
+    js, jbvh, ts, bvh, o, d = case
+    any_hit = mode == "any-hit"
+    alive = (np.arange(o.shape[0]) % 3 != 0) if mode == "alive" else None
+    ref = jg8.make_bvh_intersect_g8(jbvh, js, interpret=True,
+                                    any_hit=any_hit)(
+        js, jnp.asarray(o), jnp.asarray(d),
+        alive=None if alive is None else jnp.asarray(alive))
+    nodes, tri = bx._bvh_device_layout(bvh, ts.device)
+    hit = bx.rows_to_hits(bvh, ts, lambda oo, dd, aa: g8_walk_model(
+        nodes, tri, oo, dd, aa, any_hit=any_hit))(
+        ts, torch.as_tensor(o), torch.as_tensor(d),
+        alive=None if alive is None else torch.as_tensor(alive))
+    m, mr = hit.mask.numpy(), np.asarray(ref.mask)
+    _masks_agree(ts, o, d, hit, ref)
+    assert 0 < mr.sum() < mr.size
+    if alive is not None:
+        assert not m[~alive].any()
+    plain = g8.make_bvh_intersect_g8(bvh, ts, any_hit=any_hit)(
+        ts, torch.as_tensor(o), torch.as_tensor(d),
+        alive=None if alive is None else torch.as_tensor(alive))
+    assert torch.equal(plain.tri_id, hit.tri_id)
+    assert torch.equal(plain.t, hit.t)
+    if any_hit:
+        return
+    both = m & mr
+    np.testing.assert_allclose(hit.t.numpy()[both], np.asarray(ref.t)[both],
+                               rtol=1e-5, atol=1e-7)
 
 
 def test_leaf_width_and_inputs(case, tmp_path):

@@ -13,18 +13,17 @@ and the image means agree to rel 1e-3. The PRB training forward (image
 and per-sample radiance) and the Whitted kernel are held to the same; the
 replay's gradients (float32 terms summed in double by atomics in an order
 that varies from run to run) to 1e-3 x the largest entry, chip_smoke.py's
-GRAD_TOL. The BVH walk kernel, like the brute sweep, has no multiply-add
-to contract and must equal its plain version bit for bit; the BVH path
-kernel is held to the fused kernel's pixel tolerance. The three bounce
-kernels (walk, vis, shade) are held by chip_smoke.py's `walk_agree`,
-`vis_agree` and `shade_agree` on every bounce of one render: winners and
-visibility planes equal on >= 99.9% of lanes (a tie may break the other
-way), <= 1% of shaded lanes off by more than 1e-4 + 1e-3*|ref|; the
-persistent walk kernel gives the same hitdata from launch to launch. The
-BVH
-Whitted kernel (7a), the deferred kernel's records (7b, per record row)
-and the BVH PRB pair (9a/9b) are held to the fused kernel's and the
-replay's tolerances.
+GRAD_TOL. The BVH walk kernel and G8, like the brute sweep, have no
+multiply-add to contract and must equal their plain version bit for bit
+(G8's any-hit rows too); the BVH path kernel is held to the fused
+kernel's pixel tolerance. The three bounce kernels (walk, vis, shade) are
+held by chip_smoke.py's `walk_agree`, `vis_agree` and `shade_agree` on
+every bounce of one render: winners and visibility planes equal on >=
+99.9% of lanes (a tie may break the other way), <= 1% of shaded lanes off
+by more than 1e-4 + 1e-3*|ref|; the persistent walk and vis kernels give
+the same bits from launch to launch. The BVH Whitted kernel (7a), the
+deferred kernel's records (7b, per record row) and the BVH PRB pair
+(9a/9b) are held to the fused kernel's and the replay's tolerances.
 """
 
 import ctypes
@@ -38,9 +37,9 @@ import pytest
 import torch
 
 from chip_smoke import (SECOND, agreeing_lanes, binned_round_agree,
-                        bounce_kernels_agree, brute_agree, draws_agree,
+                        bounce_kernels_agree, draws_agree,
                         mask_agree, random_rays, record_sweeps, shade_agree,
-                        two_emitter, walk_agree, write_cornell,
+                        two_emitter, vis_agree, walk_agree, write_cornell,
                         write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
@@ -665,9 +664,37 @@ def test_bounce_walk_writes_every_lane(tmp_path, cuda_device, n):
     assert torch.equal(bo.bounce_walk(data, st, n), hd)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 127, 129, 4097])
+def test_bounce_vis_writes_every_lane(tmp_path, cuda_device, n):
+    """The persistent vis kernel takes every lane of the prefix from its
+    counter and writes its column: none left unwritten (a NaN-filled
+    buffer), 0/1 planes equal to the plain version's, rows 2-7 zero, the
+    lanes that missed all zero; two launches give the same bits."""
+    sc, cam = _scene(tmp_path, cuda_device, "levels-3")
+    data = bo.make_bounce_path_renderer(sc, cam, samples=1,
+                                        max_depth=1).ctx["data"]
+    st = _ray_state(n, 3 + n, cuda_device)
+    st[14, :n] = torch.arange(n, device=cuda_device, dtype=torch.float32)
+    hd = bo.bounce_walk(data, st, n)
+    vis = torch.full((8, n), float("nan"), device=cuda_device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    bo.VIS_KERNEL.launch(data.nodes.data_ptr(), data.tab.data_ptr(),
+                         data.em.data_ptr(), st.data_ptr(), hd.data_ptr(),
+                         vis.data_ptr(), nxt.data_ptr(), *bo._tree_args(data),
+                         data.tab.shape[0], data.em.shape[0], st.shape[1], n,
+                         5, 0, 2, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(vis).any())
+    assert int(nxt) >= n                    # the counter ran past the prefix
+    assert not bool(vis[:, hd[4] == 0].any())
+    vis_agree(f"refill n {n}", vis, bo.bounce_vis_plain(data, st, hd, 5, 0))
+    assert torch.equal(bo.bounce_vis(data, st, hd, 5, 0), vis)
+
+
 # Both row loads of fused_common.cuh's Woop test on the same (ray, row)
-# pairs: woop<true> (13 scalar loads; kernels 1, 8, 3a, 3b, 9a, 9b, 6b)
-# and woop<true, true> (four float4 loads; the bounce walk and shade).
+# pairs: woop<true> (13 scalar loads; kernels 1, 8, 3a, 3b, 9a, 9b)
+# and woop<true, true> (four float4 loads; the bounce walk, vis and shade).
 WOOP_PAIR_CU = r"""
 #include "fused_common.cuh"
 using namespace orion;
@@ -1321,9 +1348,9 @@ def test_binned_train_step_on_card_matches_plain(tmp_path, cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_g8_kernel_matches_plain(tmp_path, cuda_device, any_hit):
-    """G8 against kernel 5's plain walk on the same leaf-128 tree: winners
-    on >= 99.9% of rays (a lane also tests the leaves its group opened),
-    masks equal for any hit; one launch a call."""
+    """G8 against kernel 5's plain walk on the same leaf-128 tree: (t, row)
+    bit for bit, nearest and any hit (a lane walks exactly its own path
+    and settles at its first leaf with a hit); one launch a call."""
     sc, _ = _scene(tmp_path, cuda_device, "levels-3")
     bvh, _ = build_scene_bvh(sc, leaf_size=128)
     assert bvh.leaf_width == 128
@@ -1339,5 +1366,33 @@ def test_g8_kernel_matches_plain(tmp_path, cuda_device, any_hit):
     assert (k[1][~alive] == -1).all()
     if any_hit:
         mask_agree("g8", k, p)
-    else:
-        brute_agree("g8", (k[0], k[1].long()), (p[0], p[1].long()))
+    assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["ties", "dead", "n"])
+def test_g8_kernel_ties_dead_lanes_and_sizes(tmp_path, cuda_device, case,
+                                             any_hit):
+    """G8 bit for bit against the plain walk where every leaf meets every
+    ray and rows tie at equal t inside a leaf and across leaves
+    (torch_port_util.g8_tie_layout); on rays of which every third is dead
+    (groups that end part full); and on launches of 1 to 4,099 rays and of
+    2^18 rays, past one wave of the card (groups packed full; the smaller
+    launches spread a block's live rays over its warps)."""
+    from torch_port_util import g8_tie_layout
+
+    sc, _ = _scene(tmp_path, cuda_device, "levels-2")
+    bvh, _ = build_scene_bvh(sc, leaf_size=128)
+    nodes, tri = bx._bvh_device_layout(bvh, cuda_device)
+    if case == "ties":
+        nodes, tri = g8_tie_layout(nodes, tri)
+    sizes = [1, 31, 33, 257, 4099, 1 << 18] if case == "n" else [1 << 15]
+    for n in sizes:
+        o, d, alive = random_rays(n, 17 + n, cuda_device)
+        if case == "dead":
+            alive = torch.arange(n, device=cuda_device) % 3 != 0
+        k = g8.bvh_g8(nodes, tri, o, d, alive, any_hit=any_hit)
+        p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=128,
+                              any_hit=any_hit)
+        assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0]), n

@@ -288,20 +288,22 @@ def test_prb_ab_cornell_case_on_cpu(tmp_path):
 
 def test_sass_diff_lists_every_instantiation():
     """sass_diff's kernels: 1, 3a, 3b, the four instantiations of 5, 8,
-    9a, 9b, both G8 walks (any hit or not), 6a, 6b's two kernels and the
-    four shade instantiations, each picked by a string that one mangled
-    name alone contains (3a's and 3b's with the length before the name,
-    which 9a's and 9b's do not share); kernels 2, 4, 7a, 7b and 10, which
-    the redesigns changed, are not listed."""
+    9a, 9b, 6a, the draw kernel of 6b's launch entry and the four shade
+    instantiations, each picked by a string that one mangled name alone
+    contains (3a's and 3b's with the length before the name, which 9a's
+    and 9b's do not share); kernels 2, 4, 7a, 7b, 10, 11 and 6b's vis
+    kernel, which the redesigns changed, are not listed."""
     from tools import sass_diff
 
     names = {(s, k, a) for s, k, a in sass_diff.KERNELS}
-    assert len(names) == len(sass_diff.KERNELS) == 19
+    assert len(names) == len(sass_diff.KERNELS) == 16
     assert not {k for _, k, _ in names} & {"brute_intersect_kernel",
                                            "bvh_whitted_kernel",
                                            "bvh_whitted_textured_kernel",
                                            "whitted_kernel",
-                                           "binned_round_kernel"}
+                                           "binned_round_kernel",
+                                           "bvh_g8_kernel",
+                                           "bounce_vis_kernel"}
     walks = {f"_ZN12_GLOBAL__N_120bvh_intersect_kernelILb{a}ELb{c}EEEvPKf":
              [f"{a}{c}"] for a in (0, 1) for c in (0, 1)}
     for src, kernel, also in sass_diff.KERNELS:
@@ -309,17 +311,15 @@ def test_sass_diff_lists_every_instantiation():
             got = sass_diff.pick(walks, kernel, also)
             assert got == ["".join(c for c in also[0] if c.isdigit())]
     assert ("bounce", "bounce_walk_kernel", ()) in names
-    assert ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)) in names
+    assert ("bounce", "bounce_draw_kernel", ()) in names
     funcs = {f"_ZN12_GLOBAL__N_119bounce_shade_kernelILb{a}ELb{v}EEEvN5o"
              f"rion12BounceParamsEPf": [f"{a}{v}"]
              for a in (0, 1) for v in (0, 1)}
-    funcs.update({f"_ZN12_GLOBAL__N_113bvh_g8_kernelILb{a}EEEvPKf": [str(a)]
-                  for a in (0, 1)})
     funcs.update({f"_ZN12_GLOBAL__N_1{len(k)}{k}EN5orion5PathPiPdi": [k]
                   for k in ("prb_replay_kernel", "bvh_prb_replay_kernel",
                             "prb_fwd_ls_kernel", "bvh_prb_fwd_kernel")})
     for src, kernel, also in sass_diff.KERNELS:
-        if kernel in ("bounce_shade_kernel", "bvh_g8_kernel"):
+        if kernel == "bounce_shade_kernel":
             got = sass_diff.pick(funcs, kernel, also)
             assert got == ["".join(c for c in also[0] if c.isdigit())]
         elif src == "prb":

@@ -2,6 +2,7 @@
 
     python3 tools/bounce_probe.py [--sweep] [--no-train]
     python3 tools/bounce_probe.py --phase11 [--checks]
+    python3 tools/bounce_probe.py --vis [--sweep] [--root CHECKOUT]
 
 At chip_smoke.py phase 11's shapes (the levels-5 subdivided Cornell box,
 `write_cornell(levels=5)`, 34,818 triangles; 1920x1080, 16 spp, depth 8,
@@ -33,6 +34,18 @@ At chip_smoke.py phase 11's shapes (the levels-5 subdivided Cornell box,
   active lanes below which a warp refills, the node steps between two
   refill votes), the others at the source's values.
 
+--vis probes the visibility kernel (6b) instead, at the same shapes on
+the `split_vis` pipeline: its resources; per bounce the lanes and the
+CUDA-event times of 6b and of 6c given its planes, beside the fused 6c's
+(the default pipeline's), with their sums and depth 0; the shadow-walk
+counters of the instrumented build read after every 6b launch (the share
+of lanes that walk a shadow pair, the active lanes of a warp where it
+enters the walk, the walk loop's SIMT efficiency, node steps and Woop
+tests a pair) and 6b's bounds a bounce; with --sweep, builds of copies
+with VIS_SWEEP's constants (those the source defines) set to each value.
+--root CHECKOUT probes another checkout's package and kernels (first on
+sys.path; the harness is this tree's chip_smoke.py).
+
 --phase11 runs chip_smoke.py's phase 11 alone instead (--checks first runs
 phase 3's 64x64 checks of the three kernels). The card's name and power
 limit and its SM clock come first. The instrumented kernels are slower
@@ -52,6 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402,F401  (this tree's harness, also with --root)
 from tools.ab_turns import (TRAIN_SEED, card,  # noqa: E402
                              red_wall_problem, with_constant)
 
@@ -62,6 +76,11 @@ SWEEP = {"kWalkBlocks": (10, 12),
          "kWalkRefill": (8, 16, 24),
          "kWalkSteps": (16, 32, 64),
          "kShadeBlocks": (8, 10, 12)}
+# constexpr ints of csrc/bounce.cu's vis kernel and the values --vis
+# --sweep builds (a constant the source does not define is left out)
+VIS_SWEEP = {"kVisBlocks": (7, 8, 9, 10, 12),
+             "kVisRefill": (8, 12, 16, 24),
+             "kVisSteps": (16, 32, 64)}
 # bounce_info's kernels: (which, name, a string of the mangled name)
 KERNELS = ((0, "6a walk", "bounce_walk_kernel", ()),
            (1, "6c shade <aux 0, vis 0>", "bounce_shade_kernel", ("Lb0ELb0E",)),
@@ -114,6 +133,55 @@ def shade_report(c: dict) -> dict:
                 simt=_ratio(c["shadow_iter_lanes"], 32 * c["shadow_iters"]),
                 steps=_ratio(c["shadow_steps"], c["shadow_rays"]),
                 tests=_ratio(c["shadow_tests"], c["shadow_rays"]))
+
+
+def vis_report(c: dict, lanes: int) -> dict:
+    """6b's shadow-walk counters over `lanes` lanes as the share of lanes
+    that walk a pair, the active lanes of a warp's entry into the walk /
+    32, the walk loop's SIMT efficiency, and a pair's node steps and Woop
+    tests."""
+    return dict(lanes=lanes, walked=_ratio(c["shadow_rays"], lanes),
+                entry=_ratio(c["shadow_entry_lanes"],
+                             32 * c["shadow_entries"]),
+                simt=_ratio(c["shadow_iter_lanes"], 32 * c["shadow_iters"]),
+                steps=_ratio(c["shadow_steps"], c["shadow_rays"]),
+                tests=_ratio(c["shadow_tests"], c["shadow_rays"]))
+
+
+def vis_bounds(rows, lanes, tree_bytes: int) -> list:
+    """6b's bound a bounce in ms (chip_smoke.bound_ms): its pairs' node
+    steps (12 operations each) and Woop tests (39) from the counters,
+    against the state rows read (9), the hitdata rows read (5) and the
+    planes written (8) a lane, and the tree and the table once."""
+    from chip_smoke import SLAB_TEST_FLOPS, WOOP_TEST_FLOPS, bound_ms
+
+    return [bound_ms(c["shadow_steps"] * SLAB_TEST_FLOPS
+                     + c["shadow_tests"] * WOOP_TEST_FLOPS,
+                     n * (9 + 5 + 8) * 4 + tree_bytes)[0]
+            for c, n in zip(rows, lanes)]
+
+
+def vis_lines(split: dict, fused: dict) -> list:
+    """A table of lanes, 6b, 6c given its planes and the fused 6c's ms per
+    depth, then their sums and vis + shade-given-vis against the fused
+    shade, a render and at depth 0."""
+    depths = sorted(d for (s, d) in split if s == "vis")
+    lines = ["depth | lanes | 6b vis ms | 6c given vis ms | fused 6c ms"]
+    tot = [0.0, 0.0, 0.0]
+    for d in depths:
+        row = (split[("vis", d)][1], split[("shade", d)][1],
+               fused[("shade", d)][1])
+        tot = [a + b for a, b in zip(tot, row)]
+        lines.append(f"{d} | {split[('vis', d)][0]} | "
+                     + " | ".join(f"{x:.3f}" for x in row))
+    lanes = sum(split[("vis", d)][0] for d in depths)
+    lines.append(f"sum | {lanes} | " + " | ".join(f"{x:.3f}" for x in tot))
+    d0 = (split[("vis", 0)][1] + split[("shade", 0)][1],
+          fused[("shade", 0)][1])
+    lines.append(f"vis + shade given vis {tot[0] + tot[1]:.3f} ms against "
+                 f"the fused shade {tot[2]:.3f} a render; depth 0 "
+                 f"{d0[0]:.3f} against {d0[1]:.3f}")
+    return lines
 
 
 def add_counters(rows) -> dict:
@@ -192,17 +260,23 @@ def _fmt(d: dict) -> str:
 # the card
 # ---------------------------------------------------------------------------
 
-def _builds(tmp: Path, sweep: bool) -> dict:
+def _builds(tmp: Path, sweep: bool, constants=None) -> dict:
     """{tag: (library path, nvcc's report)}: the port's source and flags,
-    the counters, and with `sweep` copies of the source with SWEEP's
-    values; one nvcc each, all together."""
+    the counters, and with `sweep` copies of the source with the values
+    of `constants` (SWEEP's by default; a constant the source does not
+    define is left out); one nvcc each, all together. The source is the
+    package's that `orion_tpu_torch` imports from (--root's)."""
+    from orion_tpu_torch.ops import cuda_build
     from tools.path_probe import _nvcc
 
-    src = (ROOT / "orion_tpu_torch" / "csrc" / "bounce.cu").read_text()
+    src = (cuda_build.CSRC / "bounce.cu").read_text()
     jobs = {"port": ("bounce", ()),
             "counters": ("bounce", ("-DORION_BOUNCE_COUNTERS",))}
     if sweep:
-        for name, values in SWEEP.items():
+        for name, values in (SWEEP if constants is None
+                             else constants).items():
+            if f"constexpr int {name} = " not in src:
+                continue
             for v in values:
                 cu = tmp / f"bounce_{name}_{v}.cu"
                 cu.write_text(with_constant(src, name, v))
@@ -221,20 +295,26 @@ def _builds(tmp: Path, sweep: bool) -> dict:
 
 
 class _Swap:
-    """The pipeline's walk and shade kernels launched from another build
-    of bounce.cu (same launch counts); `after(kind)` runs after each
-    launch, once the card is done with it."""
+    """The pipeline's kernels of `kinds` ("walk", "vis", "shade") launched
+    from another build of bounce.cu (same launch counts); `after(kind)`
+    runs after each launch, once the card is done with it."""
 
-    def __init__(self, lib, after=None):
-        self.lib, self.after = lib, after
+    def __init__(self, lib, after=None, kinds=("walk", "shade")):
+        self.lib, self.after, self.kinds = lib, after, kinds
+
+    def _kernels(self):
+        from orion_tpu_torch.ops import bounce as bo
+
+        return {"walk": bo.WALK_KERNEL, "vis": bo.VIS_KERNEL,
+                "shade": bo.SHADE_KERNEL}
 
     def __enter__(self):
         import torch
 
-        from orion_tpu_torch.ops import bounce as bo
-
-        self.real = (bo.WALK_KERNEL._fn, bo.SHADE_KERNEL._fn)
-        for kind, k in (("walk", bo.WALK_KERNEL), ("shade", bo.SHADE_KERNEL)):
+        ks = self._kernels()
+        self.real = {kind: ks[kind]._fn for kind in self.kinds}
+        for kind in self.kinds:
+            k = ks[kind]
             k._load()
             fn = getattr(self.lib, k.symbol)
             fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
@@ -252,9 +332,9 @@ class _Swap:
         return self
 
     def __exit__(self, *exc):
-        from orion_tpu_torch.ops import bounce as bo
-
-        bo.WALK_KERNEL._fn, bo.SHADE_KERNEL._fn = self.real
+        ks = self._kernels()
+        for kind, fn in self.real.items():
+            ks[kind]._fn = fn
 
 
 def _render_stages(fn, reps: int = REPS) -> tuple:
@@ -379,6 +459,77 @@ def _train(tmp: Path, dev, lv5_rtc: Path) -> None:
         print(f"[train step] {line}")
 
 
+def _vis(tmp: Path, dev, sweep: bool) -> None:
+    """--vis: 6b on the split_vis pipeline at phase 11's shapes."""
+    import chip_smoke as cs
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.scene import load_scene
+    from tools.path_probe import _ptxas_lines
+
+    builds = _builds(tmp, sweep, VIS_SWEEP)
+    so, log = builds["port"]
+    for line in _ptxas_lines(log, "bounce_vis_kernel"):
+        print(f"[6b vis] ptxas: {line}")
+    out = (ctypes.c_int * 4)()
+    rc = ctypes.CDLL(str(so)).bounce_info(5, out)
+    print(f"[6b vis] built kernel: {out[1]} registers, {out[2]} B local, "
+          f"{out[0]} resident blocks of 128 threads an SM (rc {rc})")
+    rtc = cs.write_cornell(tmp / "big", xres=cs.MAIN["xres"],
+                           yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
+                           levels=cs.BIG_LEVELS)
+    lv5, _ = load_scene(rtc, device=dev)
+    cam = camera_from_rtc(cs._resized(parse_rtc(rtc), cs.MAIN), device=dev)
+    cfg = dict(samples=cs.MAIN["samples"], max_depth=cs.MAIN["depth"],
+               light_samples=cs.MAIN["light_samples"])
+    fn_f = bo.make_bounce_path_renderer(lv5, cam, **cfg)
+    fn_s = bo.make_bounce_path_renderer(lv5, cam, split_vis=True, **cfg)
+    fused, whole_f = _render_stages(fn_f)
+    del fn_f
+    split, whole_s = _render_stages(fn_s)
+    print(f"[6b render] {cs.MAIN} on {lv5.num_triangles} triangles: "
+          f"split_vis {statistics.median(whole_s):.3f} ms, fused "
+          f"{statistics.median(whole_f):.3f} ms a render (medians of "
+          f"{REPS}); per bounce:", flush=True)
+    for line in vis_lines(split, fused):
+        print(f"[6b render] {line}")
+    lanes = [split[("vis", d)][0] for d in range(cs.MAIN["depth"] + 1)
+             if ("vis", d) in split]
+    lib = ctypes.CDLL(str(builds["counters"][0]))
+    if lib.bounce_counters_reset() != 0:
+        raise RuntimeError("bounce_counters_reset failed")
+    rows = []
+
+    def after(kind):
+        buf = (ctypes.c_ulonglong * len(COUNTERS))()
+        if lib.bounce_counters_read(buf) != 0:
+            raise RuntimeError("bounce_counters_read failed")
+        rows.append(dict(zip(COUNTERS, buf)))
+        lib.bounce_counters_reset()
+
+    with _Swap(lib, after, kinds=("vis",)):
+        fn_s(SEED)
+    for d, (c, n) in enumerate(zip(rows, lanes)):
+        print(f"[6b counters depth {d}] {_fmt(vis_report(c, n))}")
+    print(f"[6b counters render] "
+          f"{_fmt(vis_report(add_counters(rows), sum(lanes)))}; raw "
+          f"{add_counters(rows)}")
+    data = fn_s.ctx["data"]
+    b = vis_bounds(rows, lanes, (data.nodes.numel() + data.tab.numel()) * 4)
+    print(f"[6b bounds] a render {sum(b):.4f} ms, depth 0 {b[0]:.4f} ms; "
+          f"per bounce {', '.join(f'{x:.4f}' for x in b)}", flush=True)
+    for tag, (so, log) in builds.items():
+        if tag in ("port", "counters"):
+            continue
+        with _Swap(ctypes.CDLL(str(so)), kinds=("vis",)):
+            st, whole = _render_stages(fn_s)
+        v = sum(ms for (s, _), (_, ms) in st.items() if s == "vis")
+        regs = " / ".join(_ptxas_lines(log, "bounce_vis_kernel")[1:])
+        print(f"[6b sweep {tag}] 6b {v:.3f} ms a render, depth 0 "
+              f"{st[('vis', 0)][1]:.3f} ms; ptxas {regs}", flush=True)
+
+
 def _phase11(checks: bool, dev, card_line: str) -> int:
     import chip_smoke as cs
     from orion_tpu_torch.camera import camera_from_rtc
@@ -413,7 +564,13 @@ def main(argv=None) -> int:
                     help="run chip_smoke.py's phase 11 alone instead")
     ap.add_argument("--checks", action="store_true",
                     help="with --phase11: the 64x64 kernel checks first")
+    ap.add_argument("--vis", action="store_true",
+                    help="probe the vis kernel (6b) instead")
+    ap.add_argument("--root", type=Path, default=None,
+                    help="with --vis: probe this checkout")
     args = ap.parse_args(argv)
+    if args.root is not None:
+        sys.path.insert(0, str(args.root.resolve()))
 
     import torch
 
@@ -427,6 +584,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.phase11:
         return _phase11(args.checks, dev, line)
+    if args.vis:
+        with tempfile.TemporaryDirectory() as tmp:
+            _vis(Path(tmp), dev, args.sweep)
+        return 0
 
     import chip_smoke as cs
     from orion_tpu_torch.camera import camera_from_rtc

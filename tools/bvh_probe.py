@@ -33,6 +33,27 @@ another checkout's kernel and package (first on sys.path; the harness,
 chip_smoke.py's scene writer, sweep recorder and graph timing, is this
 tree's).
 
+--g8 probes G8 (kernel 11, `csrc/bvh_g8.cu`) on the leaf-128 tree of the
+same box, on two sets: (a) the 256x256 sweeps above (chip_smoke.py phase
+10's), and the 1080p depth-1 bounce wavefront (chip_smoke.py phase 13
+(d)'s: the state of depth 1 of the binned renderer at 1920x1080, 4 spp,
+depth 8, 2 light samples, seed 0). For each set it prints the rays and
+live rays; G8 against the plain walk (`bvh_walk_plain`, leaf 128): the
+rays whose nearest (t, row) differ and the any-hit masks and rows that
+differ; the plain walk's node visits and leaf visits a live ray; G8's
+time a launch by CUDA-graph replay, nearest and any-hit, beside kernel 5
+on the same tree, and the plain walk's; then G8's resources (ptxas's
+lines; registers, local bytes and resident blocks of the built kernel,
+`bvh_g8_info`, where the source has it), the loops of its SASS (the
+shortest first: the leaf's row test among them), and, where the source
+has the counters (-DORION_G8_COUNTERS), each set's live lanes a group of
+rays behind one pointer, the pointer's node steps and leaves a group, the
+lanes whose own slab test passed at a leaf, the Woop tests the threads
+run a live ray, and the share of a group's cycles spent in leaves.
+--sweep times builds of copies of the source with one of G8_SWEEP's
+constants (those the source defines) set to each of its values, --set a
+copy with several set; --root CHECKOUT probes another checkout's G8.
+
 Builds the two BVH kernels (`csrc/bvh_intersect.cu`, `csrc/bvh_path.cu`),
 writes the subdivided Cornell box (`chip_smoke.write_cornell(levels=)`,
 levels 5 = 34,818 triangles) and, for each leaf size:
@@ -92,6 +113,20 @@ WALK_COUNTERS = ("rays", "steps", "tests", "loads", "iters", "iter_lanes",
 # CUDA-graph passes and replays of each sweep set: (a) 256x256, (b) 1080p
 WALK_SETS = {"a": (dict(xres=256, yres=256), 20, 21),
              "b": (dict(xres=1920, yres=1080), 3, 7)}
+# constexpr ints of csrc/bvh_g8.cu and the values --g8 --sweep builds
+# (a constant the source does not define is left out)
+G8_SWEEP = {"kG8Blocks": (6, 8),
+            "kBlockRays": (128, 256)}
+# G8's instantiations: (label, bvh_g8_info's `which`, mangled string)
+G8_KERNELS = (("nearest", 0, "ILb0E"), ("any-hit", 1, "ILb1E"))
+# g_g8_counters, in csrc/bvh_g8.cu's order
+G8_COUNTERS = ("groups", "live_lanes", "steps", "leaves", "leaf_lanes",
+               "row_tests", "cycles", "leaf_cycles")
+# G8's sets: (a) phase 10's sweeps, the 1080p depth-1 bounce wavefront;
+# CUDA-graph passes and replays
+G8_SETS = {"a": (20, 21), "bounce": (3, 5)}
+# the loops of G8's SASS printed, shortest first
+G8_SASS_LOOPS = 6
 
 
 def _median_ms(fn, reps: int):
@@ -152,6 +187,23 @@ def walk_report(c: dict) -> dict:
                 warp_iters=ratio(c["iters"], c["warps"]), takes=c["takes"])
 
 
+def g8_report(c: dict) -> dict:
+    """G8's counters as a group's live lanes, node steps and opened
+    leaves, the lanes whose own slab test passed at an opened leaf, the
+    Woop tests the warp's threads run a live lane, and the share of a
+    group's cycles spent in leaves."""
+    def ratio(a, b):
+        return a / b if b else 0.0
+
+    return dict(groups=c["groups"],
+                live=ratio(c["live_lanes"], c["groups"]),
+                steps=ratio(c["steps"], c["groups"]),
+                leaves=ratio(c["leaves"], c["groups"]),
+                need=ratio(c["leaf_lanes"], c["leaves"]),
+                tests=ratio(c["row_tests"], c["live_lanes"]),
+                leaf_share=ratio(c["leaf_cycles"], c["cycles"]))
+
+
 def resident_blocks(regs: int, threads: int = 128) -> int:
     """Resident blocks of `threads` an SM of an H100 at `regs` registers a
     thread, by registers alone (65,536 an SM, allocated 256 a warp at a
@@ -170,15 +222,19 @@ def parse_set(spec: str) -> dict:
     return out
 
 
-def walk_sources(src: Path, out: Path, sets=None) -> dict:
+def walk_sources(src: Path, out: Path, sets=None, sweep=None) -> dict:
     """{tag: path}: copies of `src` (bvh_intersect.cu) in `out`, each with
-    one of WALK_SWEEP's constants set to one of its values, or (`sets`, a
-    list of {constant: value}) with several set together."""
+    one of `sweep`'s constants (WALK_SWEEP's by default) set to one of its
+    values, or (`sets`, a list of {constant: value}) with several set
+    together. A constant of `sweep` that the source does not define is
+    left out."""
     from tools.ab_turns import with_constant
 
     text = src.read_text()
     out.mkdir(parents=True, exist_ok=True)
-    builds = [{name: v} for name, values in WALK_SWEEP.items()
+    sweep = WALK_SWEEP if sweep is None else sweep
+    builds = [{name: v} for name, values in sweep.items()
+              if f"constexpr int {name} = " in text
               for v in values] if sets is None else sets
     paths = {}
     for consts in builds:
@@ -186,7 +242,7 @@ def walk_sources(src: Path, out: Path, sets=None) -> dict:
         body = text
         for name, v in consts.items():
             body = with_constant(body, name, v)
-        paths[tag] = out / f"bvh_intersect_{len(paths)}.cu"
+        paths[tag] = out / f"{src.stem}_{len(paths)}.cu"
         paths[tag].write_text(body)
     return paths
 
@@ -298,28 +354,30 @@ def _walk_times(tag, sets, nodes, tri, leaf, any_hit=False) -> str:
 
 
 class _Swap:
-    """Kernel 5's two counts launching `lib`'s bvh_intersect_launch."""
+    """The two counts (KERNEL, ANY_HIT_KERNEL) of `orion_tpu_torch.ops.
+    <module>` launching `lib`'s entry point of the same name: kernel 5's
+    by default, G8's with module="bvh_g8"."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, module: str = "bvh_intersect"):
+        import importlib
+
         self.lib = lib
+        self.mod = importlib.import_module(f"orion_tpu_torch.ops.{module}")
 
     def __enter__(self):
         import ctypes
 
-        from orion_tpu_torch.ops import bvh_intersect as bx
-
-        self.real = (bx.KERNEL._fn, bx.ANY_HIT_KERNEL._fn)
-        for k in (bx.KERNEL, bx.ANY_HIT_KERNEL):
+        ks = (self.mod.KERNEL, self.mod.ANY_HIT_KERNEL)
+        self.real = tuple(k._fn for k in ks)
+        for k in ks:
             k._load()
-            fn = getattr(self.lib, "bvh_intersect_launch")
+            fn = getattr(self.lib, k.symbol)
             fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
             k._fn = fn
         return self
 
     def __exit__(self, *exc):
-        from orion_tpu_torch.ops import bvh_intersect as bx
-
-        bx.KERNEL._fn, bx.ANY_HIT_KERNEL._fn = self.real
+        self.mod.KERNEL._fn, self.mod.ANY_HIT_KERNEL._fn = self.real
 
 
 def _walk(sweep: bool, sets, dev) -> int:
@@ -399,6 +457,200 @@ def _walk(sweep: bool, sets, dev) -> int:
                       flush=True)
     return 0
 
+# ---------------------------------------------------------------------------
+# --g8: the card
+# ---------------------------------------------------------------------------
+
+def _g8_builds(tmp: Path, sweep: bool, sets) -> dict:
+    """{tag: (library, nvcc's report)}: csrc/bvh_g8.cu as the port builds
+    it, the counters where the source has them, with `sweep` G8_SWEEP's
+    copies, and the copies of `sets`; one nvcc each, all together."""
+    import concurrent.futures
+
+    from orion_tpu_torch.ops import cuda_build
+    from tools.path_probe import _nvcc
+
+    src = cuda_build.CSRC / "bvh_g8.cu"
+    jobs = {"port": (src, ())}
+    if "ORION_G8_COUNTERS" in src.read_text():
+        jobs["counters"] = (src, ("-DORION_G8_COUNTERS",))
+    if sweep:
+        jobs.update({tag: (cu, ()) for tag, cu in walk_sources(
+            src, tmp / "g8", sweep=G8_SWEEP).items()})
+    if sets:
+        jobs.update({tag: (cu, ()) for tag, cu in
+                     walk_sources(src, tmp / "g8_sets", sets).items()})
+    libs = {tag: tmp / f"g8_{i}.so" for i, tag in enumerate(jobs)}
+
+    def one(item):
+        tag, (cu, defines) = item
+        return tag, libs[tag], _nvcc(cu, libs[tag], defines)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return {tag: (so, log) for tag, so, log in pool.map(one, jobs.items())}
+
+
+def _g8_sets(tmp: Path, dev):
+    """(the leaf-128 tree's nodes and table, {set: sweeps}) on the levels-5
+    box: phase 10's 256x256 sweeps (kernel 5's wavefront over the engine's
+    tree) and the 1080p depth-1 bounce wavefront of the binned renderer at
+    chip_smoke.TRAIN's shapes (phase 13 (d)'s two sets)."""
+    from chip_smoke import (BIG_LEVELS, SECOND, TRAIN, _resized,
+                            record_sweeps, write_cornell)
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.accel.bvh import build_scene_bvh
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from orion_tpu_torch.ops import bvh_intersect as bx
+
+    rtc = write_cornell(tmp / "box", xres=256, yres=256, depth=4,
+                        levels=BIG_LEVELS)
+    ps = engine.prepare(rtc, device=dev, force_backend="bvh")
+    sets = {"a": record_sweeps(ps.scene, camera_from_rtc(
+        _resized(parse_rtc(rtc), WALK_SETS["a"][0]), device=dev),
+        ps.intersect, SECOND)}
+    cam = camera_from_rtc(_resized(parse_rtc(rtc), TRAIN), device=dev)
+    fn, _ = engine.make_big_path_renderer(
+        ps.scene, cam, order=("binned",), samples=TRAIN["samples"],
+        max_depth=TRAIN["depth"], light_samples=TRAIN["light_samples"])
+    rec = []
+    fn(0, record=lambda depth, n, st, hd, kd, vis: rec.append(
+        st[:, :n].clone()) if depth == 1 else None)
+    st1 = rec[0]
+    sets["bounce"] = [(st1[0:3].t().contiguous(), st1[3:6].t().contiguous(),
+                       st1[9] > 0.0)]
+    del fn, rec, st1
+    bvh, _ = build_scene_bvh(ps.scene, leaf_size=g8.LEAF_WIDTH)
+    nodes, tri = bx._bvh_device_layout(bvh, dev)
+    return nodes, tri, sets
+
+
+def _g8_checks(name, sweeps, nodes, tri) -> dict:
+    """G8 against the plain walk on every sweep of a set, nearest and any
+    hit; the plain walk's counts and time."""
+    import torch
+
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from orion_tpu_torch.ops import bvh_intersect as bx
+
+    stats, off, masks, rows, plain_ms = {}, 0, 0, 0, 0.0
+    for o, d, a in sweeps:
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        a_ev.record()
+        t_p, r_p = bx.bvh_walk_plain(nodes, tri, o, d, a,
+                                     leaf_width=g8.LEAF_WIDTH, stats=stats)
+        b_ev.record()
+        torch.cuda.synchronize()
+        plain_ms += a_ev.elapsed_time(b_ev)
+        t_k, r_k = g8.bvh_g8(nodes, tri, o, d, a)
+        off += int((~((r_k == r_p) & ((t_k == t_p) | (r_p < 0)))).sum())
+        _, r_pa = bx.bvh_walk_plain(nodes, tri, o, d, a,
+                                    leaf_width=g8.LEAF_WIDTH, any_hit=True)
+        _, r_ka = g8.bvh_g8(nodes, tri, o, d, a, any_hit=True)
+        masks += int(((r_ka >= 0) != (r_pa >= 0)).sum())
+        rows += int((r_ka != r_pa).sum())
+    n = sum(o.shape[0] for o, _, _ in sweeps)
+    alive = sum(int(a.sum()) for _, _, a in sweeps)
+    print(f"[g8 {name}] {len(sweeps)} sweeps, {n} rays, {alive} alive; G8 "
+          f"vs plain: nearest (t, row) differ on {off} rays; any hit: masks "
+          f"differ on {masks}, rows on {rows}; plain walk (leaf 128): "
+          f"{stats['box_tests'] / alive:.3f} node visits, "
+          f"{stats['leaf_visits'] / alive:.4f} leaf visits, "
+          f"{stats['tests'] / alive:.2f} Woop tests of real rows a live ray; "
+          f"{plain_ms / len(sweeps):.3f} ms a launch", flush=True)
+    return dict(stats=stats, alive=alive, plain_ms=plain_ms / len(sweeps))
+
+
+def _g8_times(tag, sets, nodes, tri, kernel5: bool = False) -> str:
+    from chip_smoke import graph_ms
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from orion_tpu_torch.ops import bvh_intersect as bx
+
+    out = []
+    for name, sweeps in sets.items():
+        passes, replays = G8_SETS[name]
+        t = []
+        for any_hit in (False, True):
+            ms, spread = graph_ms(lambda: [
+                g8.bvh_g8(nodes, tri, o, d, a, any_hit=any_hit)
+                for o, d, a in sweeps], passes, replays)
+            t.append(f"{ms:.5f}")
+        line = f"({name}) {t[0]} / {t[1]} ms a launch"
+        if kernel5:
+            ms, _ = graph_ms(lambda: [
+                bx.bvh_walk(nodes, tri, o, d, a, leaf_width=g8.LEAF_WIDTH)
+                for o, d, a in sweeps], passes, replays)
+            line += f", kernel 5 on this tree {ms:.5f}"
+        out.append(line)
+    return (f"[g8 {tag}] nearest / any-hit: " + "; ".join(out))
+
+
+def _g8(sweep: bool, sets, dev) -> int:
+    import ctypes
+
+    import torch
+
+    from chip_smoke import walk_bound
+    from orion_tpu_torch.ops import bvh_g8 as g8
+    from tools.path_probe import _cuobjdump, _ptxas_lines, sass_loops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        builds = _g8_builds(tmp, sweep, sets)
+        so, log = builds["port"]
+        lib = ctypes.CDLL(str(so))
+        for label, which, args in G8_KERNELS:
+            for line in _ptxas_lines(log, "bvh_g8_kernel", args):
+                print(f"[g8 resources {label}] ptxas: {line}")
+            if hasattr(lib, "bvh_g8_info"):
+                out = (ctypes.c_int * 4)()
+                rc = lib.bvh_g8_info(which, out)
+                print(f"[g8 resources {label}] built kernel: {out[1]} "
+                      f"registers, {out[2]} B local, {out[3]} B static "
+                      f"shared, {out[0]} resident blocks of 128 an SM "
+                      f"(rc {rc})")
+        sass = _cuobjdump(so)
+        for label, _, args in G8_KERNELS:
+            for first, last, n, ops in sass_loops(
+                    sass, "bvh_g8_kernel", args)[:G8_SASS_LOOPS]:
+                print(f"[g8 sass {label}] loop {first:#x}-{last:#x}: {n} "
+                      f"instructions {ops}")
+        nodes, tri, ray_sets = _g8_sets(tmp, dev)
+        print(f"[g8] leaf-128 tree: {nodes.shape[0]} nodes, {tri.shape[0]} "
+              f"rows", flush=True)
+        for name, sweeps in ray_sets.items():
+            ck = _g8_checks(name, sweeps, nodes, tri)
+            bound, by = walk_bound(ck["stats"], sweeps, nodes, tri)
+            print(f"[g8 {name}] bound {bound:.6f} ms a launch ({by})",
+                  flush=True)
+        print(_g8_times("port", ray_sets, nodes, tri, kernel5=True),
+              flush=True)
+        if "counters" in builds:
+            clib = ctypes.CDLL(str(builds["counters"][0]))
+            with _Swap(clib, "bvh_g8"):
+                for name, sweeps in ray_sets.items():
+                    for any_hit in (False, True):
+                        clib.g8_counters_reset()
+                        for o, d, a in sweeps:
+                            g8.bvh_g8(nodes, tri, o, d, a, any_hit=any_hit)
+                        torch.cuda.synchronize()
+                        buf = (ctypes.c_ulonglong * len(G8_COUNTERS))()
+                        clib.g8_counters_read(buf)
+                        c = dict(zip(G8_COUNTERS, buf))
+                        print(f"[g8 {name} counters"
+                              f"{' any-hit' if any_hit else ''}] "
+                              f"{_fmt(g8_report(c))}; raw {c}", flush=True)
+        for tag, (so, log) in builds.items():
+            if tag in ("port", "counters"):
+                continue
+            regs = " / ".join(_ptxas_lines(log, "bvh_g8_kernel", "ILb0E")[1:])
+            with _Swap(ctypes.CDLL(str(so)), "bvh_g8"):
+                print(_g8_times(tag, ray_sets, nodes, tri)
+                      + f"; ptxas nearest {regs}", flush=True)
+    return 0
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -408,12 +660,17 @@ def main(argv=None) -> int:
     ap.add_argument("--full-plain", action="store_true")
     ap.add_argument("--walk", action="store_true",
                     help="kernel 5 on the 256x256 and 1080p sweeps")
+    ap.add_argument("--g8", action="store_true",
+                    help="G8 (kernel 11) on phase 10's sweeps and the 1080p "
+                    "bounce wavefront")
     ap.add_argument("--sweep", action="store_true",
-                    help="with --walk: builds of WALK_SWEEP's values")
+                    help="with --walk / --g8: builds of WALK_SWEEP's / "
+                    "G8_SWEEP's values")
     ap.add_argument("--root", type=Path, default=None,
-                    help="with --walk: probe this checkout")
+                    help="with --walk / --g8: probe this checkout")
     ap.add_argument("--set", action="append", default=[], type=parse_set,
-                    help="with --walk: a build with NAME=V[,NAME=V] set")
+                    help="with --walk / --g8: a build with NAME=V[,NAME=V] "
+                    "set")
     args = ap.parse_args(argv)
     leaves = [int(x) for x in args.leaves.split(",") if x]
     if args.root is not None:
@@ -439,6 +696,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.walk:
         return _walk(args.sweep, args.set, dev)
+    if args.g8:
+        return _g8(args.sweep, args.set, dev)
     t0 = time.perf_counter()
     built = cuda_build.build(["bvh_intersect", "bvh_path"])
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")

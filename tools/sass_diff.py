@@ -12,10 +12,10 @@ the first lines that differ). A kernel whose shared
 headers or source changed around it but whose code did not prints
 "same": what a redesign of other kernels must leave alone (kernels 1
 and 8, both training pairs 3a/3b and 9a/9b, the four instantiations of
-the wavefront's walk 5 (nearest and any-hit, spread and counted), both
-instantiations of the G8 walk 11, and the bounce pipeline's walk 6a, its
-visibility and draw kernels 6b and the four instantiations of its shade
-kernel 6c; kernels 2, 4, 7a, 7b and 10, redesigned since, are not in the
+the wavefront's walk 5 (nearest and any-hit, spread and counted), and
+the bounce pipeline's walk 6a, the draw kernel that shares 6b's launch
+entry, and the four instantiations of its shade kernel 6c; kernels 2, 4,
+7a, 7b, 10, 11 and 6b's vis kernel, redesigned since, are not in the
 list). More kernels may
 be named after the two checkouts, as `source:kernel` or
 `source:kernel:also`. Exit code 1 if a kernel differs or is missing.
@@ -44,10 +44,7 @@ KERNELS = (("fused_path", "fused_path_kernel", ()),
            ("bvh_path", "bvh_path_kernel", ()),
            ("prb", "bvh_prb_fwd_kernel", ()),
            ("prb", "bvh_prb_replay_kernel", ()),
-           ("bvh_g8", "bvh_g8_kernel", ("ILb0E",)),
-           ("bvh_g8", "bvh_g8_kernel", ("ILb1E",)),
            ("bounce", "bounce_walk_kernel", ()),
-           ("bounce", "bounce_vis_kernel", ()),
            ("bounce", "bounce_draw_kernel", ()),
            *(("bounce", "bounce_shade_kernel", (f"ILb{a}ELb{v}E",))
              for a in (0, 1) for v in (0, 1)))
