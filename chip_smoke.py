@@ -134,6 +134,24 @@ Phases (any failure raises and the script exits non-zero):
      are held in (a)), and G8 and kernel 5 timed per launch on that tree
      by CUDA-graph replay of phase 10's recorded sweeps and of that
      wavefront.
+ 14. every single-device render option and CLI flag, each route on kernel
+     2 or 5 (their launches > 0; no fallback): (a) --normal-maps on the
+     Cornell box with write_normal_map's map as map_bump on every wall
+     and box, through the CLI at 1920x1080, 4 spp, depth 4, 2 light
+     samples (backend brute-kernel) and with --backend bvh on the
+     levels-5 box at 256x256 (bvh-kernel), each against the same route
+     without the map (the image moves), and at 256x256, 2 spp the render
+     over kernel 5 against the render over its plain walk, one seed;
+     (b) --checkpoint at 1920x1080, 4 spp, depth 4: -p 2 then -p 4 with
+     --checkpoint-every 2 (resumed) against -p 4 --checkpoint-every 4
+     (the accumulations allclose, rtol 1e-5, atol 1e-6), and --regen
+     --checkpoint at 256x256; (c) one make_loss gradient at 256x256, 2
+     spp, depth 4 for remat False, True and "hits": values and gradients
+     within 1e-6 of the largest entry, kernel 2's launches the same and
+     none in the backward pass; (d) fold_samples at 256x256, 16 spp,
+     depth 4: the mean within 2.5% of the per-sample loop's, one nearest
+     sweep of 1,048,576 rays a bounce, kernel 2 on it bit for bit its
+     plain version's and timed by CUDA events.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
@@ -149,8 +167,10 @@ plain versions at 64x64 on Cornell, levels-2 and levels-5 at leaf widths
 Every phase prints its wall seconds on a line of its own ("[phase n]
 ... s wall"). The line before the last is a JSON object with one record
 per kernel (kernels 2 and 10 also carry their 1920x1080 time and bound,
-`hd_ms` and `hd_bound_ms`); the last line is {"ok": true, "device":
-{...}}. Without a CUDA device the script fails before printing either.
+`hd_ms` and `hd_bound_ms`, kernel 2 its time and bound on phase 14's
+folded sweep, `fold_ms` and `fold_bound_ms`); the last line is {"ok":
+true, "device": {...}}. Without a CUDA device the script fails before
+printing either.
 """
 
 from __future__ import annotations
@@ -197,6 +217,12 @@ BIG_BACKENDS = {"bounce": "bounce-kernel", "walk": "bvh-path-kernel",
                 "binned": "binned-kernel"}
 # plain gradient steps of phase 13's binned fit of the red wall's albedo
 BINNED_FIT_LR = 2.0
+# phase 14's shapes: the normal-mapped and the checkpointed Cornell box,
+# the small wavefronts (normal maps over the tree, remat, folded samples)
+OPTIONS_HD = dict(xres=1920, yres=1080, samples=4, light_samples=2, depth=4)
+OPTIONS_SMALL = dict(xres=256, yres=256, samples=4, light_samples=2, depth=4)
+REMAT = dict(samples=2, max_depth=4, light_samples=2)
+FOLD = dict(samples=16, max_depth=4, light_samples=2)
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +292,26 @@ def _midpoint_subdivide(tris: np.ndarray, levels: int) -> np.ndarray:
     return tris
 
 
+def write_normal_map(path, size: int = 16) -> None:
+    """A [size, size] tangent-space normal map as a binary PPM: a ripple
+    n = normalize(0.6 sin(2 pi x / 8), 0.6 cos(2 pi y / 8), 1) stored as
+    (n + 1) / 2, with every fourth row and column flat (0.5, 0.5, 1)."""
+    from orion_tpu_torch.io.image import save_ppm
+
+    x = np.arange(size, dtype=np.float64)
+    sx = 0.6 * np.sin(2.0 * np.pi * x / 8.0)[None, :].repeat(size, 0)
+    sy = 0.6 * np.cos(2.0 * np.pi * x / 8.0)[:, None].repeat(size, 1)
+    n = np.stack([sx, sy, np.ones_like(sx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    tex = (n + 1.0) * 0.5
+    tex[::4, :] = tex[:, ::4] = (0.5, 0.5, 1.0)
+    # the PPM writer truncates x * 255: nudge each texel to its byte's centre
+    save_ppm(str(path), (np.floor(tex * 255.0) + 0.5) / 255.0)
+
+
 def write_cornell(directory, *, xres: int = 64, yres: int = 64,
                   depth: int = 4, levels: int = 0,
-                  checker: bool = False) -> Path:
+                  checker: bool = False, bump: bool = False) -> Path:
     """Write cornell.obj/.mtl/.rtc into `directory`; returns the .rtc path.
 
     Every triangle is wound so that cross(e1, e2) points along its listed
@@ -287,6 +330,12 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
     offsets keep the axis-aligned walls, whose u or v is constant, off the
     texel boundaries, where one ulp in a hit's barycentrics would pick the
     other texel.
+
+    bump=True maps write_normal_map's 16x16 tangent-space normal map
+    (normal.ppm, beside the OBJ) as map_bump onto the same materials, with
+    the same texture coordinates: the scene of render(normal_maps=True)
+    and the CLI's --normal-maps. A wall whose u or v is constant has a
+    degenerate UV frame and takes tangent_frame's fallback (e1, e2).
     """
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
@@ -299,6 +348,10 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
         tex[1::2, 1::2] = (0.5, 0.75, 0.9)
         save_image(str(d / "checker.png"), tex)
         tex_line = "map_Kd checker.png\n"
+    if bump:
+        write_normal_map(d / "normal.ppm")
+        tex_line += "map_bump normal.ppm\n"
+    uvs = checker or bump
     (d / "cornell.mtl").write_text(
         f"newmtl white\nKd 0.73 0.73 0.73\n{tex_line}\n"
         f"newmtl red\nKd 0.65 0.05 0.05\n{tex_line}\n"
@@ -309,13 +362,13 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
 
     def verts(pts):
         out = ["v %.9g %.9g %.9g" % tuple(v) for v in pts]
-        if checker:
+        if uvs:
             out += ["vt %.9g %.9g" % (0.8 * v[0] + 0.07, 0.8 * v[1] + 0.03)
                     for v in pts]
         return out
 
     def face(*idx):
-        return "f " + " ".join(f"{k}/{k if checker else ''}/{nn}"
+        return "f " + " ".join(f"{k}/{k if uvs else ''}/{nn}"
                                for k in idx)
 
     for name, mat, quads in cornell_objects():
@@ -351,21 +404,23 @@ def write_cornell(directory, *, xres: int = 64, yres: int = 64,
 
 def write_cornell_whitted(directory, *, xres: int = 64, yres: int = 64,
                           depth: int = 4, levels: int = 0,
-                          checker: bool = False) -> Path:
+                          checker: bool = False, bump: bool = False) -> Path:
     """The Cornell box lit by one rtc point light (Whitted mode), its tall
     box a glossy mirror (Ks 0.5, Ns 20) so that reflection chains run;
     the ceiling emitter stays (depth-0 emission). checker=True maps
     write_cornell's 8x8 checker as map_Kd onto every material but the
     emitter's, the mirror's too: a textured Whitted scene, which of the
-    Whitted megakernels only the deferred-texturing BVH kernel renders."""
+    Whitted megakernels only the deferred-texturing BVH kernel renders.
+    bump=True maps write_cornell's normal map onto the same materials."""
     rtc = write_cornell(directory, xres=xres, yres=yres, depth=depth,
-                        levels=levels, checker=checker)
+                        levels=levels, checker=checker, bump=bump)
     obj, mtl = rtc.with_suffix(".obj"), rtc.with_suffix(".mtl")
     obj.write_text(obj.read_text().replace("o tall_box\nusemtl white",
                                            "o tall_box\nusemtl mirror"))
     mtl.write_text(mtl.read_text() + "\nnewmtl mirror\nKd 0.73 0.73 0.73\n"
                    "Ks 0.5 0.5 0.5\nNs 20\n"
-                   + ("map_Kd checker.png\n" if checker else ""))
+                   + ("map_Kd checker.png\n" if checker else "")
+                   + ("map_bump normal.ppm\n" if bump else ""))
     rtc.write_text(rtc.read_text() + "L 0 1.8 0.5 255 255 255 2.0\n")
     return rtc
 
@@ -763,6 +818,22 @@ def record_sweeps(scene, cam, intersect, cfg: dict, seed: int = 0):
     return calls
 
 
+def plain_intersect(ps):
+    """The plain PyTorch version of a prepared scene's wavefront intersect,
+    on the scene's device: the brute oracle (ops/intersect.py) for
+    "brute-kernel", the plain walk of the same packed tree for
+    "bvh-kernel"."""
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops.intersect import intersect_brute
+
+    if ps.backend == "brute-kernel":
+        return intersect_brute
+    check(ps.backend == "bvh-kernel", f"no plain intersect for {ps.backend}")
+    nodes, tri = bx._bvh_device_layout(ps.bvh, ps.scene.device)
+    return bx.rows_to_hits(ps.bvh, ps.scene, lambda o, d, a: bx.bvh_walk_plain(
+        nodes, tri, o, d, a, leaf_width=ps.bvh.leaf_width))
+
+
 def graph_ms(run, passes: int, replays: int):
     """Per launch of `run()` (a list of kernel launches): the CUDA-event
     median over `replays` replays of a CUDA graph of `passes` passes, and
@@ -1115,6 +1186,8 @@ def main() -> int:
             tmp, dev, card, lv5, big_rtc, walk_sweeps,
             _phase_binned_checks(dev, cornell, lv2, lv5, cam64, walk_sweeps))
         clock.lap("13")
+        options = _phase_options(tmp, dev, card)
+        clock.lap("14")
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -1129,7 +1202,8 @@ def main() -> int:
          "launches": brute_launches, "max_abs_err": brute_err,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None, "hd_ms": hd_ms,
-         "hd_bound_ms": hd_bound},
+         "hd_bound_ms": hd_bound, "fold_ms": options["fold_ms"],
+         "fold_bound_ms": options["fold_bound_ms"]},
         {"name": "prb_fwd_ls", "route": "cuda",
          "source": "orion_tpu_torch/csrc/prb.cu",
          "replaces": "orion_tpu/ops/pallas_prb.py:90", **train["fwd"]},
@@ -2967,6 +3041,225 @@ def _phase_binned(tmp: Path, dev, card: str, lv5, big_rtc: Path, sweeps,
                    "ms": out["phase 10's wavefront sweeps"]["G8"],
                    "plain_ms": g_plain, "bound_ms": g_bound,
                    "bound_by": g_by, "library_ms": None}}
+
+
+def _phase_options(tmp: Path, dev, card: str) -> dict:
+    """Phase 14: every single-device render option and CLI flag on the
+    card, each route launching kernel 2 or 5 (no fallback): (a)
+    --normal-maps, (b) --checkpoint, (c) remat, (d) fold_samples. Returns
+    kernel 2's time on the folded sweep and the routes' launches."""
+    import dataclasses
+
+    import torch
+
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.io.checkpoint import load_checkpoint
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.optim import make_loss
+    from orion_tpu_torch.render import render
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def launches(fn):
+        bi.KERNEL.launches = 0
+        bx.KERNEL.launches = bx.ANY_HIT_KERNEL.launches = 0
+        out = fn()
+        return out, bi.KERNEL.launches, (bx.KERNEL.launches
+                                         + bx.ANY_HIT_KERNEL.launches)
+
+    def image_ok(name, img):
+        check(np.isfinite(img).all() and img.mean() > 0, f"{name} image")
+
+    def differs(name, a, b):
+        off = float((np.abs(a - b) > 1e-4 + 1e-3 * np.abs(b)).any(
+            axis=-1).mean())
+        print(f"[14] {name}: pixels moved by the normal map {off:.4f}, "
+              f"mean {a.mean():.6g} vs {b.mean():.6g} without")
+        check(off > 0.05, f"{name}: the normal map moved {off} of pixels")
+
+    counts = {}
+    # (a) --normal-maps: the box with the normal map on every wall and box
+    bump = write_cornell(tmp / "bump", depth=OPTIONS_HD["depth"], bump=True)
+    (img_n, rep), b2, b5 = launches(lambda: run_cli(
+        bump, tmp / "bump_n.hdr", OPTIONS_HD, extra=["--normal-maps"],
+        report=True))
+    print(f"[14] (a) --normal-maps {OPTIONS_HD}: backend {rep['backend']}, "
+          f"{rep['render_seconds']} s, brute launches {b2}")
+    check(rep["backend"] == "brute-kernel" and b2 > 0 and b5 == 0,
+          f"--normal-maps took {rep['backend']}, brute launches {b2}")
+    img_f = run_cli(bump, tmp / "bump_f.hdr", OPTIONS_HD, backend="brute")
+    image_ok("--normal-maps 1080p", img_n)
+    differs("(a) 1080p, the same wavefront", img_n, img_f)
+    counts["normal maps 1080p (kernel 2)"] = b2
+    bump5 = write_cornell(tmp / "bump5", depth=OPTIONS_SMALL["depth"],
+                          levels=BIG_LEVELS, bump=True)
+    (img_n, rep), b2, b5 = launches(lambda: run_cli(
+        bump5, tmp / "bump5_n.hdr", OPTIONS_SMALL, backend="bvh",
+        extra=["--normal-maps"], report=True))
+    print(f"[14] (a) --backend bvh --normal-maps {OPTIONS_SMALL} on "
+          f"{rep['triangles']} triangles: backend {rep['backend']}, "
+          f"{rep['render_seconds']} s, walk launches {b5}")
+    check(rep["backend"] == "bvh-kernel" and b5 > 0 and b2 == 0,
+          f"--backend bvh --normal-maps: {rep['backend']}, walk {b5}")
+    img_f = run_cli(bump5, tmp / "bump5_f.hdr", OPTIONS_SMALL, backend="bvh")
+    image_ok("--backend bvh --normal-maps", img_n)
+    differs("(a) 256x256 over the tree", img_n, img_f)
+    counts["normal maps 256x256 (kernel 5)"] = b5
+    # the kernel's image against the plain walk's on the card, one seed
+    ps = engine.prepare(bump5, device=dev, force_backend="bvh", xres=256,
+                        yres=256)
+    cfg = dict(samples=2, max_depth=OPTIONS_SMALL["depth"],
+               light_samples=OPTIONS_SMALL["light_samples"],
+               normal_maps=True)
+    with torch.no_grad():
+        k, _, k5 = launches(lambda: render(ps.scene, ps.camera, gen(7),
+                                           intersect=ps.intersect, **cfg))
+        p = render(ps.scene, ps.camera, gen(7), intersect=plain_intersect(ps),
+                   **cfg)
+    check(k5 > 0, "the normal-mapped render never launched kernel 5")
+    nmap_err = fused_agree("(a) normal maps 256x256 2 spp, kernel 5 vs the "
+                           "plain walk", k, p)
+
+    # (b) --checkpoint: 2 spp (one chunk of 2), then 4 (resumed), against
+    # one chunk of 4
+    ckpt = dict(OPTIONS_HD)
+    rtc = write_cornell(tmp / "ckpt", depth=ckpt["depth"])
+    ck, one = tmp / "resumed.ckpt", tmp / "oneshot.ckpt"
+    t0 = time.perf_counter()
+    _, c2, _ = launches(lambda: run_cli(
+        rtc, tmp / "ck2.hdr", dict(ckpt, samples=2),
+        extra=["--checkpoint", str(ck), "--checkpoint-every", "2"]))
+    check(load_checkpoint(ck)[1] == 2, "the first run's checkpoint")
+    _, c4, _ = launches(lambda: run_cli(
+        rtc, tmp / "ck4.hdr", ckpt,
+        extra=["--checkpoint", str(ck), "--checkpoint-every", "2"]))
+    resumed_s = time.perf_counter() - t0
+    _, c1, _ = launches(lambda: run_cli(
+        rtc, tmp / "ck1.hdr", ckpt,
+        extra=["--checkpoint", str(one), "--checkpoint-every", "4"]))
+    a, b = load_checkpoint(ck), load_checkpoint(one)
+    check(a[1] == b[1] == 4, f"samples done {a[1]}, {b[1]}")
+    resumed, oneshot = a[0] / 4.0, b[0] / 4.0
+    ck_err = float(np.abs(resumed - oneshot).max())
+    print(f"[14] (b) --checkpoint {ckpt}: 2 spp then 4 resumed "
+          f"({resumed_s:.2f} s with two CLI calls; brute launches {c2} + "
+          f"{c4}) against one chunk of 4 ({c1} launches): max abs "
+          f"{ck_err:.3g}, mean {resumed.mean():.6g}; config {a[4]}")
+    check(c2 > 0 and c4 == c2 and c1 == c2 + c4,
+          f"checkpoint launches {c2}, {c4}, {c1}")
+    image_ok("--checkpoint", oneshot)
+    check(np.allclose(resumed, oneshot, rtol=1e-5, atol=1e-6),
+          f"resumed != one-shot (max abs {ck_err})")
+    counts["checkpoint (kernel 2)"] = c2 + c4
+    regen = dict(OPTIONS_SMALL, samples=4)
+    (img_r, rep), r2, _ = launches(lambda: run_cli(
+        rtc, tmp / "regen.hdr", regen, report=True,
+        extra=["--regen", "--checkpoint", str(tmp / "regen.ckpt"),
+               "--checkpoint-every", "2"]))
+    rc = load_checkpoint(tmp / "regen.ckpt")
+    print(f"[14] (b) --regen --checkpoint {regen}: backend {rep['backend']},"
+          f" brute launches {r2}, samples done {rc[1]}, mean "
+          f"{img_r.mean():.6g}")
+    check(r2 > 0 and rc[1] == 4 and "regen=True" in rc[4], "regen checkpoint")
+    image_ok("--regen --checkpoint", img_r)
+    counts["regen checkpoint (kernel 2)"] = r2
+
+    # (c) remat: one make_loss gradient, False / True / "hits"
+    ps = engine.prepare(rtc, device=dev, xres=256, yres=256)
+    check(ps.backend == "brute-kernel", f"remat backend {ps.backend}")
+    with torch.no_grad():
+        target = render(ps.scene, ps.camera, gen(1), intersect=ps.intersect,
+                        **REMAT)
+    res = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for remat in (False, True, "hits"):
+        params = {k: getattr(ps.scene, k).clone().requires_grad_(True)
+                  for k in ("mat_diffuse", "tri_v0")}
+        params["mat_diffuse"].data[1] *= 0.6
+        loss_fn = make_loss(ps.scene, ps.camera, mode=None,
+                            intersect=ps.intersect, remat=remat, **REMAT)
+        t0 = time.perf_counter()
+        loss, fwd, _ = launches(lambda: loss_fn(params, gen(3), target))
+        bi.KERNEL.launches = 0
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res[remat] = (loss.detach(), params["mat_diffuse"].grad,
+                      params["tri_v0"].grad, fwd, bi.KERNEL.launches)
+        print(f"[14] (c) remat={remat!r} 256x256 {REMAT}: loss "
+              f"{float(loss.detach()):.8g}, brute launches {fwd} forward, "
+              f"{bi.KERNEL.launches} backward, {secs:.2f} s fwd+bwd, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats(dev)
+    remat_err = 0.0
+    for remat in (True, "hits"):
+        check(res[remat][3] == res[False][3] > 0 and res[remat][4] == 0,
+              f"remat={remat!r}: launches {res[remat][3:]} vs "
+              f"{res[False][3:]}")
+        for i, name in enumerate(("loss", "d mat_diffuse", "d tri_v0")):
+            x, y = res[remat][i], res[False][i]
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            remat_err = max(remat_err, err / max(scale, 1e-30))
+            check(scale > 0 and err <= 1e-6 * scale,
+                  f"remat={remat!r} {name}: {err} > 1e-6 x {scale}")
+    print(f"[14] (c) remat True and 'hits' against False: largest "
+          f"difference {remat_err:.3g} of the largest entry")
+    counts["remat (kernel 2)"] = res[False][3]
+
+    # (d) fold_samples: the 16 samples as one wavefront of S*H*W rays
+    sweeps = []
+
+    def spy(sc, orig, dirs, *, alive=None):
+        sweeps.append((orig.detach().float().contiguous().clone(),
+                       dirs.detach().float().contiguous().clone(),
+                       alive.contiguous().clone()))
+        return ps.intersect(sc, orig, dirs, alive=alive)
+
+    with torch.no_grad():
+        (fold, f2, _) = launches(lambda: render(
+            ps.scene, ps.camera, gen(5), intersect=spy, fold_samples=True,
+            **FOLD))
+        scan = render(ps.scene, ps.camera, gen(5), intersect=ps.intersect,
+                      **FOLD)
+    fold, scan = fold.cpu().numpy(), scan.cpu().numpy()
+    rel = abs(fold.mean() - scan.mean()) / scan.mean()
+    n_rays = FOLD["samples"] * 256 * 256
+    nearest = sweeps[0::2]
+    print(f"[14] (d) fold_samples 256x256 {FOLD}: brute launches {f2} "
+          f"({len(nearest)} nearest sweeps of {nearest[0][0].shape[0]} rays"
+          f", {len(sweeps) - len(nearest)} shadow sweeps of "
+          f"{sweeps[1][0].shape[0]}); mean {fold.mean():.6g} vs the "
+          f"per-sample loop's {scan.mean():.6g} (rel {rel:.3g})")
+    image_ok("fold_samples", fold)
+    check(f2 == len(sweeps) == 2 * (FOLD["max_depth"] + 1),
+          f"fold launches {f2}, sweeps {len(sweeps)}")
+    check(all(o.shape[0] == n_rays for o, _, _ in nearest),
+          "a folded nearest sweep is not S*H*W rays")
+    check(rel <= 0.025, f"fold mean rel {rel}")
+    tab = bi.pack_tri_rows16(ps.scene)
+    o, d, a = nearest[0]
+    brute_equal("(d) the folded depth-0 sweep", bi.brute_sweep(tab, o, d, a),
+                bi.brute_sweep_plain(tab, o, d, a))
+    fold_ms, fold_times, _ = event_ms(lambda: bi.brute_sweep(tab, o, d, a),
+                                      11)
+    fold_bound, fold_by = brute_bound_ms(n_rays, int(a.sum()), tab.shape[0],
+                                         1)
+    print(f"[14] (d) kernel 2 on the folded depth-0 sweep ({n_rays} rays, "
+          f"{tab.shape[0]} rows): {fold_ms:.5f} ms (CUDA-event median of "
+          f"11 launches, {min(fold_times):.5f}-{max(fold_times):.5f}), "
+          f"bound {fold_bound:.6f} ms ({fold_by}), on {card}")
+    counts["fold (kernel 2)"] = f2
+    print(f"[14] launches of kernels 2 and 5 on this phase's routes: "
+          f"{json.dumps(counts)}")
+    check(all(v > 0 for v in counts.values()), f"a route without launches: "
+          f"{counts}")
+    return {"fold_ms": fold_ms, "fold_bound_ms": fold_bound,
+            "nmap_err": nmap_err, "launches": counts}
 
 
 if __name__ == "__main__":

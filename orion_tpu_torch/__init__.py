@@ -6,18 +6,27 @@ tensors, with the TPU's Pallas kernels replaced by CUDA C++ kernels for
 NVIDIA Hopper (`csrc/`, built with nvcc at first use). It imports neither
 jax nor orion_tpu.
 
-Ported so far: .rtc/.obj/.mtl/image I/O, the SoA Scene, the camera, the
-Woop intersection, shading, the wavefront renderer (path and Whitted
-modes), the path megakernel (ops/fused_path.py) and the brute-force sweep
-(ops/brute_intersect.py), the Whitted megakernel (ops/whitted.py), the
-engine and the CLI; training: the path-replay kernels (ops/prb.py), the
-closed-form Whitted trainer (ops/prb_whitted.py) and `fit` (optim.py);
-big scenes: the BVH build (accel/bvh.py, native.py), the batched walk
-(ops/bvh_traverse.py), the BVH walk kernel (ops/bvh_intersect.py), the
-BVH path megakernel (ops/bvh_path.py), wavefront sorting (ops/reorder.py),
-the regenerative wavefront (regen.py), the sorted-wavefront bounce pipeline
-with per-bounce texturing (ops/bounce.py) and its closed-form trainer
-(ops/bounce_prb.py).
+Ported: .rtc/.obj/.mtl/image I/O, the SoA Scene, the camera
+(`camera_from_rtc`, `make_camera`), the Woop intersection and the
+Möller-Trumbore oracle, shading (with normal mapping), the wavefront
+renderer (path and Whitted modes, with every single-device option:
+`normal_maps`, `remat`, `fold_samples`, `sort_bounces`), the engine and
+the CLI; the path and Whitted megakernels (ops/fused_path.py,
+ops/whitted.py) and the brute-force sweep (ops/brute_intersect.py);
+training: the path-replay kernels (ops/prb.py), the closed-form Whitted
+trainer (ops/prb_whitted.py) and `fit` (optim.py); big scenes: the BVH
+build (accel/bvh.py, native.py), the batched walk (ops/bvh_traverse.py),
+the BVH walk kernel (ops/bvh_intersect.py), the BVH path megakernel
+(ops/bvh_path.py), wavefront sorting (ops/reorder.py), the regenerative
+wavefront (regen.py), the sorted-wavefront bounce pipeline with
+per-bounce texturing (ops/bounce.py) and its closed-form trainer
+(ops/bounce_prb.py), the BVH Whitted kernels (ops/bvh_whitted.py), the
+BVH path-replay trainer (ops/bvh_prb.py), the refitted tree
+(accel/refit.py), the binned sweep (ops/binned.py) and the
+grouped-pointer walk (ops/bvh_g8.py); host services: resumable
+accumulation (io/checkpoint.py) and profiling (profiling.py). Not yet:
+multi-device rendering and training (`parallel/*`, `--shard`), the
+viewer and the examples.
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 
@@ -25,7 +34,11 @@ __version__ = "0.1.0"
 
 from orion_tpu_torch.io.rtc import RTCData, parse_rtc, write_rtc  # noqa: F401
 from orion_tpu_torch.scene import Scene, load_scene          # noqa: F401
-from orion_tpu_torch.camera import Camera, camera_from_rtc   # noqa: F401
+from orion_tpu_torch.camera import (                         # noqa: F401
+    Camera,
+    camera_from_rtc,
+    make_camera,
+)
 from orion_tpu_torch.engine import (                         # noqa: F401
     PreparedScene,
     prepare,
@@ -34,5 +47,6 @@ from orion_tpu_torch.engine import (                         # noqa: F401
 )
 from orion_tpu_torch.render import render, trace_wavefront   # noqa: F401
 from orion_tpu_torch.regen import render_regen               # noqa: F401
+from orion_tpu_torch.io.checkpoint import render_accumulate  # noqa: F401
 from orion_tpu_torch.validate import SceneValidationError    # noqa: F401
 from orion_tpu_torch.optim import FitResult, fit             # noqa: F401

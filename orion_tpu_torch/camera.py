@@ -61,6 +61,16 @@ def camera_from_rtc(rtc: RTCData, device="cuda") -> Camera:
                   xres=rtc.xres, yres=rtc.yres)
 
 
+def make_camera(view_point, look_at, vector_up, y_view: float,
+                xres: int, yres: int, device="cuda") -> Camera:
+    """The camera at `view_point` looking at `look_at`, with y field of
+    view `y_view` (the .rtc's fields, without a file), on `device`."""
+    rtc = RTCData(xres=xres, yres=yres, view_point=tuple(view_point),
+                  look_at=tuple(look_at), vector_up=tuple(vector_up),
+                  y_view=y_view)
+    return camera_from_rtc(rtc, device=device)
+
+
 def primary_rays(camera: Camera, jitter_x, jitter_y):
     """One primary ray per pixel for a single sub-pixel jitter.
 

@@ -30,11 +30,18 @@ Routing (as in the JAX package, cli.py:74-143):
     over the brute sweep kernel (ops/brute_intersect.py) or the BVH walk
     kernel (ops/bvh_intersect.py; any-hit for Whitted shadow rays), path
     or Whitted mode;
+  - --normal-maps turns off the automatic megakernel routing, as in JAX
+    (cli.py:81-83): the render takes the wavefront over the engine's
+    intersect with tangent-space normal mapping; --backend fused
+    --normal-maps still pins the megakernel (which maps no normals);
   - --regen -> the regenerative wavefront (regen.py) over the engine's
-    intersect, path mode only;
-  - --shard, --checkpoint and --normal-maps (multi-device rendering and
-    the host services) are not ported yet: the command exits non-zero and
-    names the missing piece. It never substitutes another route.
+    intersect, path mode only, and not with --normal-maps;
+  - --checkpoint -> io/checkpoint.render_accumulate: the wavefront (or,
+    with --regen, the regenerative wavefront) in chunks of
+    --checkpoint-every samples, resumed from the checkpoint file when it
+    matches;
+  - --shard (multi-device rendering) is not ported yet: the command exits
+    non-zero and names it. It never substitutes another route.
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.
@@ -92,9 +99,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use the regenerative wavefront path tracer "
                         "(orion_tpu_torch.regen): dead rays restart at once "
                         "as the next sample; path mode only, forward-only")
-    for flag in ("--shard", "--normal-maps"):
-        p.add_argument(flag, action="store_true", help="not ported yet")
-    p.add_argument("--checkpoint", default=None, help="not ported yet")
+    p.add_argument("--shard", action="store_true", help="not ported yet")
+    p.add_argument("--normal-maps", action="store_true",
+                   help="Enable tangent-space normal mapping (the reference "
+                        "ships this disabled; PARITY.md)")
+    p.add_argument("--checkpoint", default=None,
+                   help="Checkpoint file for resumable accumulation "
+                        "(resumes if it exists; see io/checkpoint.py)")
     p.add_argument("--checkpoint-every", type=int, default=64,
                    help="Samples per checkpoint flush (default %(default)s; "
                         "read with --checkpoint)")
@@ -121,12 +132,8 @@ def main(argv=None) -> int:
                                         render_report)
     from orion_tpu_torch.io.image import save_image
 
-    unported = [flag for flag, on in (("--shard", args.shard),
-                                      ("--checkpoint", args.checkpoint),
-                                      ("--normal-maps", args.normal_maps))
-                if on]
-    if unported:
-        _fail(f"{', '.join(unported)} not ported yet")
+    if args.shard:
+        _fail("--shard not ported yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         _fail("--device cuda, but no CUDA device is available "
               "(pass --device cpu for the plain PyTorch versions)")
@@ -139,12 +146,16 @@ def main(argv=None) -> int:
     max_depth = (args.depth if args.depth is not None
                  else int(ps.rtc.recursion_level))
     mode = args.mode or ("whitted" if ps.scene.num_lights > 0 else "path")
-    if args.regen and mode != "path":
+    if args.regen and (mode != "path" or args.normal_maps):
         _fail("--regen requires path mode (no rtc point lights / "
-              "--mode path)")
+              "--mode path) and no --normal-maps")
 
     fused_fn = None
-    megakernel = args.backend in (None, "fused") and not args.regen
+    # --normal-maps leaves the automatic megakernel routing (as in JAX);
+    # --backend fused pins the megakernel all the same
+    megakernel = ((args.backend == "fused"
+                   or (args.backend is None and not args.normal_maps))
+                  and not args.regen and not args.checkpoint)
     if megakernel and mode == "whitted":
         try:
             fused_fn, ps.backend = make_whitted_megakernel(
@@ -186,7 +197,16 @@ def main(argv=None) -> int:
 
     sync()
     t0 = time.perf_counter()
-    if fused_fn is not None:
+    if args.checkpoint:
+        from orion_tpu_torch.io.checkpoint import render_accumulate
+
+        img = render_accumulate(ps, args.seed, samples=args.samples,
+                                light_samples=args.light_samples,
+                                max_depth=max_depth, mode=args.mode,
+                                path=args.checkpoint,
+                                every=args.checkpoint_every,
+                                regen=args.regen)
+    elif fused_fn is not None:
         img = fused_fn(args.seed)
     else:
         gen = torch.Generator(device=ps.scene.device)
@@ -206,11 +226,13 @@ def main(argv=None) -> int:
                              light_samples=args.light_samples,
                              max_depth=max_depth, mode=mode,
                              intersect=ps.intersect,
+                             normal_maps=args.normal_maps,
                              shadow_intersect=ps.shadow_intersect)
     sync()
     dt = time.perf_counter() - t0
 
-    save_image(args.output, img.cpu().numpy())
+    save_image(args.output,
+               img.cpu().numpy() if torch.is_tensor(img) else img)
     report = render_report(ps, samples=args.samples,
                            light_samples=args.light_samples,
                            max_depth=max_depth, seconds=dt)

@@ -34,6 +34,45 @@ class Hit:
         return self.tri_id >= 0
 
 
+def mt_test(orig: torch.Tensor, dirs: torch.Tensor, v0: torch.Tensor,
+            e1: torch.Tensor, e2: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """Dense Möller-Trumbore: rays [N,3] against triangles [T,3].
+
+    Returns t [N,T] with +inf where there is no (valid) intersection: the
+    independent formulation of the test that the Woop sweeps are held
+    against. Every intermediate is an [N, T] plane of [N, 1] ray and
+    [1, T] triangle components, in the JAX package's order.
+    """
+    ox, oy, oz = (orig[:, i, None] for i in range(3))
+    dx, dy, dz = (dirs[:, i, None] for i in range(3))
+    v0x, v0y, v0z = (v0[None, :, i] for i in range(3))
+    e1x, e1y, e1z = (e1[None, :, i] for i in range(3))
+    e2x, e2y, e2z = (e2[None, :, i] for i in range(3))
+
+    # pvec = cross(d, e2)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / det
+    # tvec = o - v0
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    # qvec = cross(tvec, e1)
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+
+    ok = ((torch.abs(det) > MT_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 0.0) & valid.bool()[None, :])
+    return torch.where(ok, t, torch.full_like(t, float("inf")))
+
+
 def intersect_brute(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
                     *, alive=None) -> Hit:
     """Brute-force nearest intersection of N rays against ALL triangles:
@@ -113,3 +152,26 @@ def hit_attributes(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
     return HitAttrs(t=t, u=u, v=v, point=point, g_normal=g_n, s_normal=s_n,
                     uv=uv, mat_id=mat_id, mesh_id=mat_id)
 
+
+def tangent_frame(scene: Scene, hit: Hit):
+    """Per-hit UV-space tangent and bitangent [N, 3] for normal mapping.
+
+    T = (e1 dv2 - e2 dv1) / det, B = (e2 du1 - e1 du2) / det with
+    det = du1 dv2 - du2 dv1 (Assimp's CalcTangentSpace); where
+    |det| <= 1e-12 (a degenerate UV mapping) the frame falls back to
+    (e1, e2).
+    """
+    idx = torch.clamp(hit.tri_id.detach(), min=0).long()
+    e1, e2 = scene.tri_e1[idx], scene.tri_e2[idx]
+    uv0, uv1, uv2 = scene.uv0[idx], scene.uv1[idx], scene.uv2[idx]
+    du1 = (uv1 - uv0)[:, 0]
+    dv1 = (uv1 - uv0)[:, 1]
+    du2 = (uv2 - uv0)[:, 0]
+    dv2 = (uv2 - uv0)[:, 1]
+    det = du1 * dv2 - du2 * dv1
+    ok = torch.abs(det) > 1e-12
+    inv = (1.0 / torch.where(ok, det, torch.ones_like(det)))[:, None]
+    tangent = (e1 * dv2[:, None] - e2 * dv1[:, None]) * inv
+    bitangent = (e2 * du1[:, None] - e1 * du2[:, None]) * inv
+    return (torch.where(ok[:, None], tangent, e1),
+            torch.where(ok[:, None], bitangent, e2))

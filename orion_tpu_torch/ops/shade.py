@@ -2,15 +2,20 @@
 
 The PyTorch counterpart of `orion_tpu.ops.shade` for the path and Whitted
 modes. Reproduces the reference shading model (orion/material.hpp):
-  - `phong_eval`         <- Material::color (material.hpp:72-93), from
-                            pre-sampled material terms
-  - `brdf_eval`          <- Material::colorBRDF (material.hpp:95-105),
+  - `sample_texture`     <- Texture::color (texture.hpp:72-86), with a
+                            floored-modulo wrap on both axes
+  - `phong_color`        <- Material::color (material.hpp:72-93);
+                            `phong_eval` from pre-sampled material terms
+  - `color_brdf`         <- Material::colorBRDF (material.hpp:95-105),
                             with its 1/(1+d^2) falloff and two-cosine
-                            geometry factor
+                            geometry factor; `brdf_eval` from a
+                            pre-sampled Kd
+  - `perturb_normal`     <- Material::normalBumpMap (material.cpp:4-24),
+                            the opt-in tangent-space normal mapping
   - `reflect`            <- math.hpp:321-323
   - `cosine_sample`      <- raytracer.cpp:173-192, tangent frame normalized
                             (documented deviation, PARITY.md)
-Normal mapping (`perturb_normal`) is not ported yet.
+Every texel lookup goes through `_sample_texture_mat`: one wrap rule.
 """
 
 from __future__ import annotations
@@ -65,6 +70,15 @@ def _sample_texture_mat(scene: Scene, map_per_mat: torch.Tensor,
     return torch.where(has[:, None], texel, solid)
 
 
+def sample_texture(scene: Scene, map_idx: torch.Tensor, uv: torch.Tensor,
+                   solid: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour lookup in image `map_idx` [N] (-1 = `solid` [N, 3])
+    at `uv` [N, 2]: `_sample_texture_mat` with each ray its own one-image
+    table row."""
+    return _sample_texture_mat(scene, map_idx, torch.arange(
+        map_idx.shape[0], device=map_idx.device), uv, solid)
+
+
 def diffuse_color(scene: Scene, mat_id, uv) -> torch.Tensor:
     return _sample_texture_mat(scene, scene.mat_map_diffuse, mat_id, uv,
                                take_rows(scene.mat_diffuse, mat_id))
@@ -110,6 +124,18 @@ def phong_eval(ka, kd, ks, shininess, ray_dir, normal, hit_point,
             * (light_intensity / torch.clamp(d2, min=1e-20))[:, None])
 
 
+def phong_color(scene: Scene, mat_id, uv, ray_dir, normal, hit_point,
+                light_pos, light_color, light_intensity) -> torch.Tensor:
+    """Textured Phong at the hit (Material::color, material.hpp:72-93);
+    `normal` must be normalized."""
+    return phong_eval(ambient_color(scene, mat_id, uv),
+                      diffuse_color(scene, mat_id, uv),
+                      specular_color(scene, mat_id, uv),
+                      take_rows(scene.mat_shininess, mat_id),
+                      ray_dir, normal, hit_point,
+                      light_pos, light_color, light_intensity)
+
+
 def brdf_eval(kd, normal, hit_point, light_pos, light_color,
               light_intensity, light_normal) -> torch.Tensor:
     """NEE diffuse term Ke * Kd * max(cos_s * cos_l, 0) * intensity /
@@ -122,6 +148,36 @@ def brdf_eval(kd, normal, hit_point, light_pos, light_color,
     cos_l = _dot(light_normal, -light_dir)
     geom = torch.clamp(cos_s * cos_l, min=0.0)
     return light_color * kd * (geom * light_intensity / (1.0 + d2))[:, None]
+
+
+def color_brdf(scene: Scene, mat_id, uv, normal, hit_point, light_pos,
+               light_color, light_intensity, light_normal) -> torch.Tensor:
+    """NEE diffuse term with the hit's own Kd (Material::colorBRDF,
+    material.hpp:95-105)."""
+    return brdf_eval(diffuse_color(scene, mat_id, uv), normal, hit_point,
+                     light_pos, light_color, light_intensity, light_normal)
+
+
+def perturb_normal(scene: Scene, mat_id, uv, normal, tangent,
+                   bitangent) -> torch.Tensor:
+    """Tangent-space normal mapping (Material::normalBumpMap,
+    material.cpp:4-24; the reference's call site is commented out,
+    model.hpp:21-22, so it is an opt-in render flag here).
+
+    The bump texel n_ts (default (0.5, 0.5, 1.0)) maps to
+    normalize(2 n_ts - 1) in the frame (T, B, N); materials without a
+    bump map keep their interpolated normal.
+    """
+    has = take_rows(scene.mat_map_bump, mat_id) >= 0
+    flat = torch.tensor([0.5, 0.5, 1.0], dtype=normal.dtype,
+                        device=normal.device).expand_as(normal)
+    n_ts = normalize(_sample_texture_mat(scene, scene.mat_map_bump, mat_id,
+                                         uv, flat) * 2.0 - 1.0)
+    t = normalize(tangent)
+    b = normalize(bitangent)
+    n = normalize(normal)
+    mapped = t * n_ts[:, 0:1] + b * n_ts[:, 1:2] + n * n_ts[:, 2:3]
+    return torch.where(has[:, None], normalize(mapped), n)
 
 
 def cosine_sample(normal: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,

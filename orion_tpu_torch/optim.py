@@ -82,7 +82,9 @@ def make_loss(scene: Scene, camera, *, samples: int, max_depth: int,
               fold_samples: bool = False):
     """`loss(params, generator, target)` over a base scene: wavefront
     render of the scene with `params` substituted, then MSE (or
-    `loss_fn(img, target)`). Differentiable through autograd."""
+    `loss_fn(img, target)`). Differentiable through autograd; `remat` and
+    `fold_samples` are render's (remat trades the backward pass's memory
+    for a recompute of each bounce's shading, never of its intersects)."""
 
     def loss(params, generator, target):
         s = dataclasses.replace(scene, **params)
@@ -114,12 +116,10 @@ def make_refit_loss(ps, *, samples: int, max_depth: int,
     differentiably from the live scene (the contract of ops/intersect.py),
     so gradients reach the vertices. MSE, or `loss_fn(img, target)`.
 
-    remat: the JAX package's "hits" keeps its backward pass from re-running
-    the traversal kernel. PyTorch's eager autograd keeps the forward's
-    tensors and never re-runs the walk in the backward pass, so every value
-    of `remat` means that here.
+    remat: render.trace_wavefront's; the default "hits" checkpoints each
+    bounce's shading and keeps its walk results, so the backward pass
+    recomputes the shading and never re-runs the walk kernel.
     """
-    del remat
     from orion_tpu_torch.accel.refit import RefitPlan
     from orion_tpu_torch.ops.bvh_intersect import make_bvh_intersect_kernel
 
@@ -135,7 +135,8 @@ def make_refit_loss(ps, *, samples: int, max_depth: int,
         intersect = make_bvh_intersect_kernel(bvh, scene, layout=(nodes, tri))
         img = render(s, camera, generator, samples=samples,
                      max_depth=max_depth, light_samples=light_samples,
-                     mode=mode, intersect=intersect, prune_zero=False)
+                     mode=mode, intersect=intersect, prune_zero=False,
+                     remat=remat)
         if loss_fn is not None:
             return loss_fn(img, target)
         return torch.mean((img - target) ** 2)

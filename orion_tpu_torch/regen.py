@@ -86,7 +86,9 @@ def _regen_loop(scene, camera: Camera, generator: torch.Generator,
         # one diffuse sample per step: NEE and Russian roulette share it
         kd = shade.diffuse_color(scene, attrs.mat_id, attrs.uv)
         if scene.num_emissive > 0:
-            radiance = radiance + _nee(scene, attrs, kd, hit_mask, generator,
+            u_nee = _rand(generator,
+                          (scene.num_emissive * light_samples, 3, N), dev)
+            radiance = radiance + _nee(scene, attrs, kd, hit_mask, u_nee,
                                        light_samples, intersect)
         acc = acc + radiance * throughput
 

@@ -1396,3 +1396,78 @@ def test_g8_kernel_ties_dead_lanes_and_sizes(tmp_path, cuda_device, case,
         p = bx.bvh_walk_plain(nodes, tri, o, d, alive, leaf_width=128,
                               any_hit=any_hit)
         assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0]), n
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["brute", "bvh"])
+def test_normal_maps_kernel_image_equals_plain(tmp_path, cuda_device,
+                                               backend):
+    """render(normal_maps=True) over kernel 2 (Cornell) or kernel 5 (the
+    levels-2 box's tree) against the same render over the kernel's plain
+    version on the card, one generator seed: <= 1% of pixels off (the
+    kernels' hits are their plain versions' bit for bit)."""
+    from chip_smoke import fused_agree, plain_intersect
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.render import render
+
+    rtc = write_cornell(tmp_path, xres=48, yres=40, depth=3,
+                        levels=2 if backend == "bvh" else 0, bump=True)
+    ps = prepare(rtc, device=cuda_device, force_backend=backend)
+    assert ps.backend == f"{backend}-kernel"
+    kernel = bi.KERNEL if backend == "brute" else bx.KERNEL
+    images, launched = [], []
+    for fn in (ps.intersect, plain_intersect(ps)):
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(11)
+        before = kernel.launches
+        with torch.no_grad():
+            images.append(render(ps.scene, ps.camera, g, samples=2,
+                                 max_depth=3, light_samples=2,
+                                 normal_maps=True, intersect=fn))
+        launched.append(kernel.launches - before)
+    assert launched[0] > 0 and launched[1] == 0
+    fused_agree(f"normal maps {backend}", *images)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(11)
+    with torch.no_grad():
+        flat = render(ps.scene, ps.camera, g, samples=2, max_depth=3,
+                      light_samples=2, intersect=ps.intersect)
+    assert float((images[0] - flat).abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+def test_remat_recompute_launches_no_intersect(tmp_path, cuda_device):
+    """make_loss with remat True and "hits" on kernel 2: the same forward
+    launches as remat=False, none in the backward pass, and the value and
+    gradients within 1e-6 of the largest entry of remat=False's."""
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.optim import make_loss
+
+    ps = prepare(write_cornell(tmp_path, xres=64, yres=48, depth=3),
+                 device=cuda_device)
+    assert ps.backend == "brute-kernel"
+    target = torch.zeros((48, 64, 3), device=cuda_device)
+    out = {}
+    for remat in (False, True, "hits"):
+        params = {k: getattr(ps.scene, k).clone().requires_grad_(True)
+                  for k in ("mat_diffuse", "tri_v0")}
+        loss_fn = make_loss(ps.scene, ps.camera, samples=2, max_depth=3,
+                            light_samples=2, mode=None,
+                            intersect=ps.intersect, remat=remat)
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(2)
+        before = bi.KERNEL.launches
+        loss = loss_fn(params, g, target)
+        fwd = bi.KERNEL.launches - before
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), params["mat_diffuse"].grad,
+                      params["tri_v0"].grad, fwd,
+                      bi.KERNEL.launches - before - fwd)
+    assert out[False][3] == 2 * 2 * 4 and out[False][4] == 0
+    for remat in (True, "hits"):
+        assert out[remat][3:] == out[False][3:], remat
+        for i in range(3):
+            scale = float(out[False][i].abs().max())
+            assert scale > 0
+            err = float((out[remat][i] - out[False][i]).abs().max())
+            assert err <= 1e-6 * scale, (remat, i, err, scale)

@@ -96,12 +96,19 @@ def test_wavefront_gradients_finite(tmp_path):
 
 
 def test_unported_render_options_raise(tmp_path):
+    """The three render options that raised NotImplementedError until
+    they were ported now run: each gives a finite image of the right
+    shape, and on a scene without a bump map normal_maps and remat leave
+    it as it was (tests/test_torch_options.py holds them to JAX)."""
     rtc = write_cornell(tmp_path, xres=4, yres=4)
     js, jrtc = jload_scene(rtc)
+    ts, cam = to_torch(js), camera_from_rtc(jrtc, device="cpu")
+    base = render(ts, cam, _gen(0))
     for flag in ("remat", "fold_samples", "normal_maps"):
-        with pytest.raises(NotImplementedError, match=flag):
-            render(to_torch(js), camera_from_rtc(jrtc, device="cpu"), _gen(0),
-                   **{flag: True})
+        img = render(ts, cam, _gen(0), **{flag: True})
+        assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+        if flag != "fold_samples":
+            assert torch.equal(img, base), flag
 
 
 def test_select_intersect(tmp_path):
@@ -157,8 +164,9 @@ def test_cli_routes(tmp_path, capsys, backend):
                                    ["--checkpoint-every", "4"]])
 def test_cli_accepts_launcher_flags(tmp_path, capsys, flags):
     """The reference launcher's -t/--threads (ignored) and the JAX CLI's
-    --checkpoint-every parse and leave the render as it is; --checkpoint
-    itself still fails by name (test_cli_unported_routes_fail)."""
+    --checkpoint-every parse and leave the render as it is (without
+    --checkpoint, which takes io/checkpoint.render_accumulate:
+    test_cli_unported_routes_fail[checkpoint])."""
     args = cli.build_parser().parse_args(["s.rtc", *flags])
     assert args.threads == (8 if flags[0] != "--checkpoint-every" else 0)
     assert args.checkpoint_every == (4 if flags[0] == "--checkpoint-every"
@@ -184,22 +192,28 @@ def test_cli_unported_routes_fail(tmp_path, case):
         # port
         rtc.write_text(rtc.read_text() + "L 0 1.5 0 255 255 255 1.0\n" * 8)
     argv = [str(rtc), "-o", str(tmp_path / "o.ppm"), "--device", "cpu"]
-    if case in ("textured", "whitted"):
-        # a textured path scene leaves the fused gate and, since the
-        # bounce pipeline is ported, renders through it
-        argv += ["--stats"]
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            assert cli.main(argv) == 0
-        assert (tmp_path / "o.ppm").stat().st_size > 24 * 24 * 3
-        backend = json.loads(err.getvalue().splitlines()[-1])["backend"]
-        assert backend == ("bounce-torch" if case == "textured"
-                           else "brute-kernel")
-        return
-    extra = {"checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt")],
+    extra = {"checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt"),
+                            "-p", "2", "--checkpoint-every", "1"],
              "textured": [],
              "shard": ["--shard"], "normal-maps": ["--normal-maps"],
              "whitted": [], "fused-gate": ["--backend", "fused"]}[case]
+    if case in ("textured", "whitted", "checkpoint", "normal-maps"):
+        # a textured path scene leaves the fused gate and, since the
+        # bounce pipeline is ported, renders through it; --checkpoint and
+        # --normal-maps take the wavefront over the engine's intersect
+        argv += ["--stats"] + extra
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert cli.main(argv) == 0
+        size = 24 * 24 * 3 if case in ("textured", "whitted") else 8 * 8 * 3
+        assert (tmp_path / "o.ppm").stat().st_size > size
+        backend = json.loads(err.getvalue().splitlines()[-1])["backend"]
+        assert backend == ("bounce-torch" if case == "textured"
+                           else "brute-kernel")
+        if case == "checkpoint":
+            assert "[render] 2/2 spp" in err.getvalue()
+            assert (tmp_path / "c.ckpt").exists()
+        return
     if case == "fused-gate":
         # a second emissive mesh of > 8 triangles leaves the fused gate
         mtl = tmp_path / "cornell.mtl"
@@ -254,7 +268,9 @@ def test_port_never_imports_jax():
             "orion_tpu_torch/ops/bounce_prb.py",
             "orion_tpu_torch/ops/bvh_whitted.py",
             "orion_tpu_torch/ops/bvh_prb.py",
-            "orion_tpu_torch/accel/refit.py"} <= names
+            "orion_tpu_torch/accel/refit.py",
+            "orion_tpu_torch/io/checkpoint.py",
+            "orion_tpu_torch/profiling.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -269,6 +285,7 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.ops.reorder, orion_tpu_torch.ops.bounce, "
             "orion_tpu_torch.ops.bounce_prb, orion_tpu_torch.ops.bvh_whitted, "
             "orion_tpu_torch.ops.bvh_prb, orion_tpu_torch.accel.refit, "
+            "orion_tpu_torch.io.checkpoint, orion_tpu_torch.profiling, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
