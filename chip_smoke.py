@@ -152,6 +152,30 @@ Phases (any failure raises and the script exits non-zero):
      depth 4: the mean within 2.5% of the per-sample loop's, one nearest
      sweep of 1,048,576 rays a bounce, kernel 2 on it bit for bit its
      plain version's and timed by CUDA events.
+ 15. ray sharding over torch.distributed (parallel/): (a) on the one card,
+     kernel 1 on 2- and 3-way pixel tiles of the main path (1920x1080,
+     16 spp, depth 8) reassembles bit for bit into its whole image, kernels
+     3a/3b's tiles of the 1080p 4 spp train problem equal the whole step's
+     rows and planes (3b's tile gradients add up to the whole image's),
+     and 64x64 tiles of the three match their plain versions' tiles;
+     the cost of render_sharded's global stream is timed (a path
+     bounce's uniforms for the whole 1080p wavefront, against a half
+     tile's); (c) a world of one on NCCL: render_shardmap and
+     make_train_step_shardmap on kernel 2 (one all-gather, one all-reduce;
+     the image is render's), render_sharded (render's image too) and
+     render_regen_shardmap (render_regen's); (b) two ranks spawned on the
+     one card, on gloo over CUDA tensors (NCCL refuses two ranks on one
+     device): the sharded kernel-1 main path bit for bit the single-device
+     image, the sharded kernel 8 and 7a renders and the bounce pipeline on
+     the levels-5 box at 256x256 against their single-device images, the
+     --shard CLI on Cornell at 1080p 16 spp through kernel 2, with
+     --backend bvh through kernel 5, with --regen and with --checkpoint
+     (rank 0 alone writes), render_sharded at 256x256 against one
+     device's render, and the sharded 3a/3b, bounce and wavefront
+     (make_train_step) train steps (one all-reduce each, its bytes;
+     gradients against the single-device step's). Each rank's render ms, the all-gather's ms and
+     bytes, and every kernel's launches are printed. Two ranks on one card
+     share its SMs: no multi-GPU scaling figure comes from this phase.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
@@ -223,6 +247,17 @@ OPTIONS_HD = dict(xres=1920, yres=1080, samples=4, light_samples=2, depth=4)
 OPTIONS_SMALL = dict(xres=256, yres=256, samples=4, light_samples=2, depth=4)
 REMAT = dict(samples=2, max_depth=4, light_samples=2)
 FOLD = dict(samples=16, max_depth=4, light_samples=2)
+# phase 15: the ranks of the two-rank world on the one card, the box's
+# routes' shapes there, the world-of-one NCCL route's, and the ranks'
+# deadline (a rank that fails or hangs fails the phase)
+SHARD_WORLD = 2
+SHARD_BOX = dict(xres=256, yres=256, samples=16, light_samples=2, depth=8)
+SHARD_BOX_TRAIN = dict(xres=256, yres=256, samples=4, light_samples=2,
+                       depth=8)
+SHARD_WHITTED = dict(xres=256, yres=256, samples=4, light_samples=1, depth=4)
+SHARD_ONE = dict(xres=256, yres=256, samples=4, light_samples=2, depth=4)
+SHARD_SEED = 0
+SHARD_TIMEOUT = 420.0
 
 
 # ---------------------------------------------------------------------------
@@ -1188,6 +1223,8 @@ def main() -> int:
         clock.lap("13")
         options = _phase_options(tmp, dev, card)
         clock.lap("14")
+        _phase_shard(tmp, dev, card, cornell, rtc_path, big_rtc, cam64)
+        clock.lap("15")
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
@@ -3260,6 +3297,571 @@ def _phase_options(tmp: Path, dev, card: str) -> dict:
           f"{counts}")
     return {"fold_ms": fold_ms, "fold_bound_ms": fold_bound,
             "nmap_err": nmap_err, "launches": counts}
+
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel number."""
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
+
+    return {"1": fp.KERNEL, "2": bi.KERNEL, "3a": prb.FWD_KERNEL,
+            "3b": prb.REPLAY_KERNEL, "5": bx.KERNEL, "5 any-hit":
+            bx.ANY_HIT_KERNEL, "6a": bo.WALK_KERNEL, "6b": bo.VIS_KERNEL,
+            "6c": bo.SHADE_KERNEL, "7a": bw.KERNEL, "8": bp.KERNEL}
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def _generator(dev, seed: int):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def _shard_rank(rank: int, world: int, init: str, tmp: str,
+                paths: dict) -> None:
+    """One rank of phase 15 (b): joins the gloo group through `init`,
+    drives cuda:0 (the one card, which every rank shares), writes its
+    results to shard-<rank>.json (rank 0 also its images) under tmp."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = "0"      # every rank's device is card 0
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        res = _shard_rank_work(rank, Path(tmp), paths)
+        (Path(tmp) / f"shard-{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_rank_work(rank: int, tmp: Path, paths: dict) -> dict:
+    """Phase 15 (b) on one rank: each route's wall ms (its second run,
+    synchronised; the all-gather included; a --shard route is the whole
+    CLI call) and its launches, counted from 0 just before that run; the
+    kernel-1 tile's ms and the all-gather's ms and bytes alone; the
+    images' digests; the train steps' collectives and gradients."""
+    import torch
+
+    from orion_tpu_torch import cli
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.parallel import fused_shard as fs
+    from orion_tpu_torch.parallel.distributed import (all_gather_rows,
+                                                      measure_collective_bytes,
+                                                      record_collectives)
+    from orion_tpu_torch.parallel.sharding import (make_mesh,
+                                                   make_train_step,
+                                                   render_sharded)
+    from orion_tpu_torch.render import render
+    from orion_tpu_torch.scene import load_scene
+
+    mesh = make_mesh()
+    dev = mesh.device
+    out = {"rank": mesh.rank, "world": mesh.world, "device": str(dev),
+           "backend": torch.distributed.get_backend(), "routes": {}}
+    counts = _launch_counts()
+
+    def route(name, fn):
+        fn()                    # warm: libraries loaded, tables packed
+        for k in counts.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["routes"][name] = {"ms": ms, "launches": {
+            k: v.launches for k, v in counts.items() if v.launches}}
+        return res
+
+    # kernel 1, the main path
+    cornell, rtc = load_scene(paths["cornell"], device=dev)
+    cam = camera_from_rtc(_resized(rtc, MAIN), device=dev)
+    cfg = dict(samples=MAIN["samples"], max_depth=MAIN["depth"],
+               light_samples=MAIN["light_samples"])
+    fused = fs.make_fused_render_sharded(cornell, cam, mesh=mesh, **cfg)
+    img = route("fused 1080p (kernel 1)", lambda: fused(SHARD_SEED))
+    out["fused_digest"] = _digest(img)
+    N = MAIN["xres"] * MAIN["yres"]
+    lo, hi = mesh.tile(N)
+    out["tile"] = [lo, hi]
+    args = fp.fused_args(cornell, cam)
+    tile_ms, _, tile = event_ms(lambda: fp.fused_path(
+        *args, SHARD_SEED, MAIN["xres"], MAIN["yres"], cfg["samples"],
+        cfg["max_depth"], cfg["light_samples"], pix_base=lo,
+        n_lanes=hi - lo), 3)
+    all_gather_rows(tile, N, mesh)          # warm
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    with record_collectives() as log:
+        t0 = time.perf_counter()
+        all_gather_rows(tile, N, mesh)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t0) * 1e3
+    out.update(tile_ms=tile_ms, gather_ms=gather_ms,
+               gather_bytes=sum(b for _, b in log))
+
+    # the levels-5 box: kernel 8, the bounce pipeline, 7a
+    box, brtc = load_scene(paths["box"], device=dev)
+    bcam = camera_from_rtc(_resized(brtc, SHARD_BOX), device=dev)
+    bcfg = dict(samples=SHARD_BOX["samples"], max_depth=SHARD_BOX["depth"],
+                light_samples=SHARD_BOX["light_samples"])
+    bvh_path = fs.make_bvh_render_sharded(box, bcam, mode="path", mesh=mesh,
+                                          **bcfg)
+    img = route("bvh path 256x256 (kernel 8)", lambda: bvh_path(SHARD_SEED))
+    out["bvh_path_digest"] = _digest(img)
+    bounce = fs.make_bounce_render_sharded(box, bcam, mesh=mesh, **bcfg)
+    img = route("bounce 256x256 (6a, 6c)", lambda: bounce(SHARD_SEED))
+    out["bounce_digest"] = _digest(img)
+    if rank == 0:
+        np.save(tmp / "shard_bounce.npy", img.cpu().numpy())
+    wbox, wrtc = load_scene(paths["whitted_box"], device=dev)
+    wcam = camera_from_rtc(_resized(wrtc, SHARD_WHITTED), device=dev)
+    whitted = fs.make_bvh_render_sharded(
+        wbox, wcam, mode="whitted", mesh=mesh,
+        samples=SHARD_WHITTED["samples"], max_depth=SHARD_WHITTED["depth"])
+    img = route("bvh whitted 256x256 (7a)", lambda: whitted(SHARD_SEED))
+    out["bvh_whitted_digest"] = _digest(img)
+
+    # the --shard CLI: Cornell at 1080p on kernel 2, the box over kernel 5
+    def shard_cli(rtc_file, name, c, extra=()):
+        argv = [str(rtc_file), "-o", str(tmp / f"{name}-{rank}.hdr"), "-p",
+                str(c["samples"]), "-l", str(c["light_samples"]), "--depth",
+                str(c["depth"]), "--xres", str(c["xres"]), "--yres",
+                str(c["yres"]), "--shard", *extra]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            check(cli.main(argv) == 0, f"--shard {name} on rank {rank}")
+
+    route("--shard 1080p (kernel 2)",
+          lambda: shard_cli(paths["cornell"], "cli", MAIN))
+    route("--shard --backend bvh 256x256 (kernel 5)",
+          lambda: shard_cli(paths["box"], "cli_bvh", SHARD_ONE,
+                            ["--backend", "bvh"]))
+    route("--shard --regen 256x256 (kernel 2)",
+          lambda: shard_cli(paths["cornell"], "cli_regen", SHARD_ONE,
+                            ["--regen"]))
+    runs = []            # a checkpoint file a run: the timed one starts anew
+
+    def checkpointed():
+        runs.append(tmp / f"shard-{len(runs)}.ckpt")
+        shard_cli(paths["cornell"], "cli_ck", SHARD_ONE,
+                  ["--checkpoint", str(runs[-1]), "--checkpoint-every", "2"])
+
+    route("--shard --checkpoint 256x256 (kernel 2)", checkpointed)
+    out["checkpoint"] = str(runs[-1])
+
+    # the global stream: render_sharded and make_train_step on kernel 2
+    ps1 = prepare(paths["cornell"], device=dev, xres=SHARD_ONE["xres"],
+                  yres=SHARD_ONE["yres"])
+    ocfg = dict(samples=SHARD_ONE["samples"], max_depth=SHARD_ONE["depth"],
+                light_samples=SHARD_ONE["light_samples"])
+    with torch.no_grad():
+        img = route("render_sharded 256x256 (kernel 2)",
+                    lambda: render_sharded(ps1.scene, ps1.camera,
+                                           _generator(dev, 5), mesh=mesh,
+                                           **ocfg))
+        target = render(ps1.scene, ps1.camera, _generator(dev, 9),
+                        samples=1, max_depth=2, light_samples=1)
+    out["render_sharded_digest"] = _digest(img)
+    if rank == 0:
+        np.save(tmp / "shard_render_sharded.npy", img.cpu().numpy())
+    step = make_train_step(ps1.scene, ps1.camera, samples=1, max_depth=2,
+                           light_samples=1, lr=1.0, mesh=mesh)
+    params = {"mat_diffuse": ps1.scene.mat_diffuse * 0.5}
+    new, loss = route("make_train_step 256x256 (kernel 2)",
+                      lambda: step(params, _generator(dev, 2), target))
+    out["train_step"] = {
+        "loss": float(loss),
+        "coll": measure_collective_bytes(step, params, _generator(dev, 2),
+                                         target),
+        "kd": (params["mat_diffuse"] - new["mat_diffuse"]).tolist()}
+
+    # the sharded train steps: one all-reduce each
+    tcam = camera_from_rtc(_resized(parse_rtc(paths["cornell"]), TRAIN),
+                           device=dev)
+    tcfg = dict(samples=TRAIN["samples"], max_depth=TRAIN["depth"],
+                light_samples=TRAIN["light_samples"])
+    target = torch.from_numpy(np.load(paths["train_target"])).to(dev)
+    params = {"mat_diffuse": cornell.mat_diffuse * 0.8,
+              "mat_emissive": cornell.mat_emissive}
+    step = fs.make_fused_train_step_sharded(cornell, tcam, target, mesh=mesh,
+                                            **tcfg)
+    loss, g = route("fused train step 1080p (3a, 3b)",
+                    lambda: step(params, 3))
+    coll = measure_collective_bytes(step, params, 3)
+    out["fused_train"] = {"loss": float(loss), "coll": coll,
+                          "kd": g["mat_diffuse"].tolist(),
+                          "ke": g["mat_emissive"].tolist()}
+    btcam = camera_from_rtc(_resized(parse_rtc(paths["box"]),
+                                     SHARD_BOX_TRAIN), device=dev)
+    btarget = torch.from_numpy(np.load(paths["box_target"])).to(dev)
+    bstep = fs.make_bounce_train_step_sharded(
+        box, btcam, btarget, mesh=mesh, samples=SHARD_BOX_TRAIN["samples"],
+        max_depth=SHARD_BOX_TRAIN["depth"],
+        light_samples=SHARD_BOX_TRAIN["light_samples"])
+    loss, g = route("bounce train step 256x256 (6a, 6c)", lambda: bstep(3))
+    coll = measure_collective_bytes(bstep, 3)
+    out["bounce_train"] = {"loss": float(loss), "coll": coll,
+                           "kd": g["mat_diffuse"].tolist(),
+                           "ke": g["mat_emissive"].tolist()}
+    return out
+
+
+def _phase_shard(tmp: Path, dev, card: str, cornell, rtc_path: Path,
+                 big_rtc: Path, cam64) -> None:
+    """Phase 15: ray sharding (parallel/) on the card: (a) kernel 1, 3a and
+    3b on pixel tiles at full width and at 64x64 against plain, (c) a
+    world of one on NCCL, (b) two ranks spawned on the one card over gloo.
+    Raises on any failure, a rank's included."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops import bounce as bo
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import prb
+    from orion_tpu_torch.ops.bounce_prb import make_bounce_train_step
+    from orion_tpu_torch.parallel.distributed import measure_collective_bytes
+    from orion_tpu_torch.io.checkpoint import load_checkpoint
+    from orion_tpu_torch.io.image import load_hdr
+    from orion_tpu_torch.parallel.sharding import (Mesh, make_mesh,
+                                                   make_train_step,
+                                                   render_sharded)
+    from orion_tpu_torch.parallel.shardmap_render import (
+        make_train_step_shardmap, render_shardmap)
+    from orion_tpu_torch.regen import render_regen, render_regen_shardmap
+    from orion_tpu_torch.render import render
+    from orion_tpu_torch.scene import load_scene
+
+    print("[15] one card: ranks that share it share its SMs, so no "
+          "multi-GPU scaling figure can be measured here")
+
+    def tiles(n, world):
+        return [Mesh(None, r, world, dev).tile(n) for r in range(world)]
+
+    # (a) kernel 1 on 2- and 3-way tiles of the main path
+    W, H = MAIN["xres"], MAIN["yres"]
+    N = W * H
+    cam = camera_from_rtc(_resized(parse_rtc(rtc_path), MAIN), device=dev)
+    args = fp.fused_args(cornell, cam)
+    cfg = (W, H, MAIN["samples"], MAIN["depth"], MAIN["light_samples"])
+    whole_ms, _, whole = event_ms(
+        lambda: fp.fused_path(*args, SHARD_SEED, *cfg), 3)
+    for world in (2, 3):
+        parts, times = [], []
+        for lo, hi in tiles(N, world):
+            ms, _, t = event_ms(lambda: fp.fused_path(
+                *args, SHARD_SEED, *cfg, pix_base=lo, n_lanes=hi - lo), 3)
+            parts.append(t)
+            times.append(ms)
+        check(torch.equal(torch.cat(parts), whole),
+              f"kernel 1's {world} tiles differ from the whole image")
+        print(f"[15] (a) kernel 1, {world} tiles of {MAIN}: bit for bit the "
+              f"whole image ({whole_ms:.3f} ms); tile ms "
+              f"{', '.join(f'{x:.3f}' for x in times)} (CUDA-event medians "
+              f"of 3, one card)")
+    # what render_sharded's global stream costs a rank: a path bounce's
+    # uniforms for the whole wavefront (then sliced), not its tile's
+    from orion_tpu_torch.render import _path_draws
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    LS = MAIN["light_samples"]
+    whole_draws, _, _ = event_ms(lambda: _path_draws(cornell, g, LS, N, dev),
+                                 5)
+    half_draws, _, _ = event_ms(
+        lambda: _path_draws(cornell, g, LS, N // 2, dev), 5)
+    print(f"[15] (a) render_sharded's draws a path bounce at {W}x{H} "
+          f"({3 * LS * cornell.num_emissive + 3} uniforms a ray): the "
+          f"whole wavefront's {whole_draws:.4f} ms on every rank, against "
+          f"{half_draws:.4f} ms for a half-image tile's own (CUDA-event "
+          f"medians of 5)")
+    # 3a / 3b on 2 and 3 tiles of the 1080p 4 spp train problem
+    tW, tH = TRAIN["xres"], TRAIN["yres"]
+    tN = tW * tH
+    tcam = camera_from_rtc(_resized(parse_rtc(rtc_path), TRAIN), device=dev)
+    targs = fp.fused_args(cornell, tcam)
+    tcfg = (tW, tH, TRAIN["samples"], TRAIN["depth"], TRAIN["light_samples"])
+    img, ls = prb.fused_fwd_ls(*targs, 3, *tcfg)
+    w = _cotangent(img, TRAIN["samples"], 5)
+    g = prb.prb_replay(*targs, 3, w, ls, *tcfg)
+    for world in (2, 3):
+        g_sum = torch.zeros_like(g)
+        for lo, hi in tiles(tN, world):
+            kw = dict(pix_base=lo, n_lanes=hi - lo)
+            i, l = prb.fused_fwd_ls(*targs, 3, *tcfg, **kw)
+            check(torch.equal(i, img[lo:hi]) and torch.equal(l, ls[lo:hi]),
+                  f"3a's tile [{lo}, {hi}) differs from the whole step's")
+            g_sum += prb.prb_replay(*targs, 3, w[lo:hi].contiguous(), l,
+                                    *tcfg, **kw)
+        err = float((g_sum - g).abs().max() / g.abs().max())
+        print(f"[15] (a) 3a/3b, {world} tiles of {TRAIN}: 3a's rows and "
+              f"planes bit for bit the whole step's; 3b's tile gradients "
+              f"summed against the whole image's: {err:.3g} of the largest "
+              f"entry")
+        check(err <= 1e-5, f"3b tiles: {err}")
+    del ls
+    # 64x64 tiles against the plain versions' tiles
+    args64 = fp.fused_args(cornell, cam64)
+    cfg64 = (64, 64, 4, 4, 2)
+    for lo, hi in tiles(64 * 64, 3):
+        kw = dict(pix_base=lo, n_lanes=hi - lo)
+        fused_agree(f"(a) kernel 1 tile [{lo}, {hi}) 64x64",
+                    fp.fused_path(*args64, 1234, *cfg64, **kw),
+                    fp.fused_path_plain(*args64, 1234, *cfg64, **kw))
+        i, l = prb.fused_fwd_ls(*args64, 1234, *cfg64, **kw)
+        ip, lp = fp.fused_fwd_ls_plain(*args64, 1234, *cfg64, **kw)
+        fused_agree(f"(a) 3a tile [{lo}, {hi}) 64x64", i, ip)
+        fused_agree(f"(a) 3a L_s tile [{lo}, {hi}) 64x64", l, lp)
+        wt = _cotangent(ip, 4, 7)
+        grad_agree(f"(a) 3b tile [{lo}, {hi}) 64x64",
+                   prb.prb_replay(*args64, 1234, wt, l, *cfg64, **kw),
+                   prb.prb_replay_plain(*args64, 1234, wt, lp, *cfg64, **kw))
+
+    # (c) a world of one on NCCL
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-one",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        ps = prepare(rtc_path, device=mesh.device, xres=SHARD_ONE["xres"],
+                     yres=SHARD_ONE["yres"])
+        ocfg = dict(samples=SHARD_ONE["samples"],
+                    max_depth=SHARD_ONE["depth"],
+                    light_samples=SHARD_ONE["light_samples"])
+        counts = _launch_counts()
+        counts["2"].launches = 0
+        got = []
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            rep = measure_collective_bytes(lambda: got.append(render_shardmap(
+                ps.scene, ps.camera, gen(3), mesh=mesh,
+                intersect=ps.intersect, **ocfg)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = counts["2"].launches
+            ref = render(ps.scene, ps.camera, gen(3), intersect=ps.intersect,
+                         **ocfg)
+        check(launched > 0 and rep["ops"] == 1, f"NCCL render_shardmap: "
+              f"{launched} launches, {rep}")
+        check(torch.equal(got[0], ref), "the world of one != render")
+        with torch.no_grad():
+            one = render_sharded(ps.scene, ps.camera, gen(3), mesh=mesh,
+                                 **ocfg)
+        check(torch.equal(one, ref), "render_sharded (world of one) != "
+              "render")
+        regen = render_regen_shardmap(ps.scene, ps.camera, gen(4),
+                                      mesh=mesh, intersect=ps.intersect,
+                                      **ocfg)
+        check(torch.equal(regen, render_regen(
+            ps.scene, ps.camera, gen(4), intersect=ps.intersect, **ocfg)),
+            "render_regen_shardmap (world of one) != render_regen")
+        step = make_train_step_shardmap(ps.scene, ps.camera, mesh, samples=1,
+                                        max_depth=2, light_samples=1,
+                                        intersect=ps.intersect)
+        srep = measure_collective_bytes(
+            step, {"mat_diffuse": ps.scene.mat_diffuse * 0.5}, gen(1), ref)
+        check(srep["ops"] == 1, f"NCCL train step collectives {srep}")
+        print(f"[15] (c) NCCL world of one {SHARD_ONE}: render_shardmap "
+              f"{ms:.1f} ms, kernel 2 launches {launched}, collectives "
+              f"{json.dumps(rep)}, equal to render (and render_sharded's "
+              f"image too; render_regen_shardmap's equal to render_regen);"
+              f" make_train_step_shardmap collectives {json.dumps(srep)}")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the single-device references, then two ranks on the one card
+    box, brtc = load_scene(big_rtc, device=dev)
+    bcam = camera_from_rtc(_resized(brtc, SHARD_BOX), device=dev)
+    bcfg = dict(samples=SHARD_BOX["samples"], max_depth=SHARD_BOX["depth"],
+                light_samples=SHARD_BOX["light_samples"])
+    ref_path = bp.make_bvh_path_renderer(box, bcam, **bcfg)(SHARD_SEED)
+    ref_bounce = bo.make_bounce_path_renderer(box, bcam, **bcfg)(SHARD_SEED)
+    wbox_rtc = write_cornell_whitted(tmp / "shard_whitted", xres=64,
+                                     yres=64, depth=SHARD_WHITTED["depth"],
+                                     levels=BIG_LEVELS)
+    wbox, wrtc = load_scene(wbox_rtc, device=dev)
+    ref_whitted = bw.make_bvh_whitted_renderer(
+        wbox, camera_from_rtc(_resized(wrtc, SHARD_WHITTED), device=dev),
+        samples=SHARD_WHITTED["samples"],
+        max_depth=SHARD_WHITTED["depth"])(SHARD_SEED)
+    # the train problems: each target is the true scene's image; the
+    # ranks' 3a/3b step runs at the albedos x 0.8, their bounce step at the
+    # true box against another seed's image
+    target = fp.make_fused_path_renderer(
+        cornell, tcam, samples=TRAIN["samples"], max_depth=TRAIN["depth"],
+        light_samples=TRAIN["light_samples"])(3)
+    np.save(tmp / "shard_target.npy", target.cpu().numpy())
+    btcam = camera_from_rtc(_resized(parse_rtc(big_rtc), SHARD_BOX_TRAIN),
+                            device=dev)
+    btcfg = dict(samples=SHARD_BOX_TRAIN["samples"],
+                 max_depth=SHARD_BOX_TRAIN["depth"],
+                 light_samples=SHARD_BOX_TRAIN["light_samples"])
+    btarget = bo.make_bounce_path_renderer(box, btcam, **btcfg)(4)
+    np.save(tmp / "shard_box_target.npy", btarget.cpu().numpy())
+    params = {"mat_diffuse": cornell.mat_diffuse * 0.8,
+              "mat_emissive": cornell.mat_emissive}
+    ref_ft = prb.make_fused_train_step(cornell, tcam, target,
+                                       dynamic_params=True,
+                                       samples=TRAIN["samples"],
+                                       max_depth=TRAIN["depth"],
+                                       light_samples=TRAIN["light_samples"]
+                                       )(params, 3)
+    ref_bt = make_bounce_train_step(box, btcam, btarget, **btcfg)(3)
+
+    ps1 = prepare(rtc_path, device=dev, xres=SHARD_ONE["xres"],
+                  yres=SHARD_ONE["yres"])
+    ocfg = dict(samples=SHARD_ONE["samples"], max_depth=SHARD_ONE["depth"],
+                light_samples=SHARD_ONE["light_samples"])
+    with torch.no_grad():
+        ref_render = render(ps1.scene, ps1.camera, gen(5), **ocfg)
+        target1 = render(ps1.scene, ps1.camera, gen(9), samples=1,
+                         max_depth=2, light_samples=1)
+    kd1 = ps1.scene.mat_diffuse * 0.5
+    new1, loss1 = make_train_step(ps1.scene, ps1.camera, samples=1,
+                                  max_depth=2, light_samples=1, lr=1.0)(
+        {"mat_diffuse": kd1}, gen(2), target1)
+    ref_step = (loss1, {"mat_diffuse": kd1 - new1["mat_diffuse"]})
+
+    paths = {"cornell": str(rtc_path), "box": str(big_rtc),
+             "whitted_box": str(wbox_rtc),
+             "train_target": str(tmp / "shard_target.npy"),
+             "box_target": str(tmp / "shard_box_target.npy")}
+    init = tmp / "shard-gloo.init"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_shard_rank, args=(SHARD_WORLD, str(init),
+                                                str(tmp), paths),
+                             nprocs=SHARD_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"phase 15 ranks still running after {SHARD_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    codes = [proc.exitcode for proc in ctx.processes]
+    check(codes == [0] * SHARD_WORLD, f"phase 15 rank exit codes {codes}")
+    secs = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"shard-{r}.json").read_text())
+             for r in range(SHARD_WORLD)]
+    print(f"[15] (b) {SHARD_WORLD} ranks on {ranks[0]['device']} ({card}), "
+          f"backend {ranks[0]['backend']} over CUDA tensors (staged "
+          f"through the host; NCCL refuses two ranks on one device), "
+          f"spawned and joined in {secs:.1f} s, exit codes {codes}")
+    for r in ranks:
+        print(f"[15] (b) rank {r['rank']}: tile {r['tile']} of the 1080p "
+              f"image; kernel 1 on it {r['tile_ms']:.3f} ms (CUDA-event "
+              f"median of 3, beside the other rank's launches); the "
+              f"all-gather alone {r['gather_ms']:.3f} ms for "
+              f"{r['gather_bytes']} bytes")
+        for name, v in r["routes"].items():
+            print(f"[15] (b) rank {r['rank']} {name}: {v['ms']:.1f} ms "
+                  f"(the second run, synchronised, all-gather included), "
+                  f"launches {json.dumps(v['launches'])}")
+    want = {"fused 1080p (kernel 1)": "1",
+            "bvh path 256x256 (kernel 8)": "8",
+            "bounce 256x256 (6a, 6c)": "6c",
+            "bvh whitted 256x256 (7a)": "7a",
+            "--shard 1080p (kernel 2)": "2",
+            "--shard --backend bvh 256x256 (kernel 5)": "5",
+            "fused train step 1080p (3a, 3b)": "3b",
+            "bounce train step 256x256 (6a, 6c)": "6c",
+            "--shard --regen 256x256 (kernel 2)": "2",
+            "--shard --checkpoint 256x256 (kernel 2)": "2",
+            "render_sharded 256x256 (kernel 2)": "2",
+            "make_train_step 256x256 (kernel 2)": "2"}
+    for r in ranks:
+        for name, k in want.items():
+            check(r["routes"][name]["launches"].get(k, 0) > 0,
+                  f"rank {r['rank']} {name}: kernel {k} never launched")
+        check(r["fused_digest"] == _digest(whole),
+              f"rank {r['rank']}: the sharded kernel-1 image differs")
+        check(r["bvh_path_digest"] == _digest(ref_path),
+              f"rank {r['rank']}: the sharded kernel-8 image differs")
+        check(r["bvh_whitted_digest"] == _digest(ref_whitted),
+              f"rank {r['rank']}: the sharded 7a image differs")
+        for name, ref, n_floats in (
+                ("fused_train", ref_ft, 6 * prb.M_LANES),
+                ("bounce_train", ref_bt, 8 * prb.M_LANES + 3),
+                ("train_step", ref_step, cornell.mat_diffuse.numel())):
+            coll = r[name]["coll"]
+            check(coll["ops"] == 1 and coll["by_kind"]["all-reduce"]
+                  == 4 * (1 + n_floats), f"{name} collectives {coll}")
+            for k in ("kd", "ke")[:1 if name == "train_step" else 2]:
+                field = {"kd": "mat_diffuse", "ke": "mat_emissive"}[k]
+                grad_agree(f"(b) rank {r['rank']} {name} {field}",
+                           torch.tensor(r[name][k]), ref[1][field].cpu())
+            rel = abs(r[name]["loss"] - float(ref[0])) / float(ref[0])
+            print(f"[15] (b) rank {r['rank']} {name}: one all-reduce of "
+                  f"{coll['bytes_per_call']} bytes, loss rel {rel:.3g} of "
+                  f"the single-device step's")
+            check(rel <= 1e-5, f"{name} loss rel {rel}")
+    same = ranks[0]["bounce_digest"] == _digest(ref_bounce)
+    fused_agree("(b) sharded bounce pipeline 256x256 vs one device",
+                torch.from_numpy(np.load(tmp / "shard_bounce.npy")).reshape(
+                    -1, 3), ref_bounce.reshape(-1, 3))
+    print(f"[15] (b) the sharded kernel-1, kernel-8 and 7a images are the "
+          f"single-device images bit for bit (digests "
+          f"{ranks[0]['fused_digest']}, {ranks[0]['bvh_path_digest']}, "
+          f"{ranks[0]['bvh_whitted_digest']}); the bounce pipeline's "
+          f"{'bit for bit too' if same else 'within fused_agree'}")
+    same = ranks[0]["render_sharded_digest"] == _digest(ref_render)
+    fused_agree("(b) render_sharded 256x256 vs one device's render",
+                torch.from_numpy(np.load(tmp / "shard_render_sharded.npy"))
+                .reshape(-1, 3), ref_render.reshape(-1, 3))
+    print(f"[15] (b) render_sharded's image (the global stream, two ranks) "
+          f"{'is' if same else 'is not'} one device's render bit for bit")
+    for name, shape in (("cli", (H, W, 3)), ("cli_regen", None),
+                        ("cli_ck", None)):
+        check((tmp / f"{name}-0.hdr").exists()
+              and not (tmp / f"{name}-1.hdr").exists(),
+              f"--shard {name}: rank 0 alone writes the image")
+        img = load_hdr(tmp / f"{name}-0.hdr")
+        check((shape is None or img.shape == shape)
+              and np.isfinite(img).all() and img.mean() > 0,
+              f"--shard {name} image")
+    ck = load_checkpoint(ranks[0]["checkpoint"])
+    check(ck is not None and ck[1] == SHARD_ONE["samples"]
+          and "world=2" in ck[4], f"--shard --checkpoint file: {ck and ck[1:]}")
+    print(f"[15] (b) --shard, --shard --regen and --shard --checkpoint: rank "
+          f"0 alone wrote each image; the checkpoint holds {ck[1]} samples, "
+          f"config {ck[4]}")
 
 
 if __name__ == "__main__":

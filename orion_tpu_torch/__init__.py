@@ -24,9 +24,11 @@ per-bounce texturing (ops/bounce.py) and its closed-form trainer
 BVH path-replay trainer (ops/bvh_prb.py), the refitted tree
 (accel/refit.py), the binned sweep (ops/binned.py) and the
 grouped-pointer walk (ops/bvh_g8.py); host services: resumable
-accumulation (io/checkpoint.py) and profiling (profiling.py). Not yet:
-multi-device rendering and training (`parallel/*`, `--shard`), the
-viewer and the examples.
+accumulation (io/checkpoint.py) and profiling (profiling.py); ray
+sharding over torch.distributed (parallel/: the sharded wavefronts and
+train steps, the megakernels on pixel tiles; regen and checkpoint on
+ranks; the CLI's --shard). Not yet: render_multihost, primitive
+sharding, the viewer and the examples.
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 

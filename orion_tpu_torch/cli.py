@@ -40,8 +40,17 @@ Routing (as in the JAX package, cli.py:74-143):
     with --regen, the regenerative wavefront) in chunks of
     --checkpoint-every samples, resumed from the checkpoint file when it
     matches;
-  - --shard (multi-device rendering) is not ported yet: the command exits
-    non-zero and names it. It never substitutes another route.
+  - --shard -> the ray-sharded wavefront (parallel/shardmap_render.py)
+    over the engine's intersect, one rank per device, as in JAX
+    (cli.py:174-198): with --regen the regenerative wavefront on each
+    rank's tile (regen.render_regen_shardmap), with --checkpoint
+    render_accumulate(mesh=). Under torchrun (`torchrun --nproc-per-node
+    N -m orion_tpu_torch.cli scene.rtc --shard`) each rank drives
+    cuda:LOCAL_RANK over NCCL (--device cpu: gloo); rank 0 writes the
+    image and prints the report, the other ranks print nothing. Without
+    torchrun --shard is a world of one, whose image is the route's
+    without --shard. Not with --normal-maps (the sharded routes map no
+    normals).
 
 --device cuda (the default) requires a CUDA device and fails without one;
 --device cpu runs the kernels' plain PyTorch versions.
@@ -99,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use the regenerative wavefront path tracer "
                         "(orion_tpu_torch.regen): dead rays restart at once "
                         "as the next sample; path mode only, forward-only")
-    p.add_argument("--shard", action="store_true", help="not ported yet")
+    p.add_argument("--shard", action="store_true",
+                   help="Shard rays over the ranks of a torch.distributed "
+                        "group (run under torchrun; one rank per device; "
+                        "a world of one without it)")
     p.add_argument("--normal-maps", action="store_true",
                    help="Enable tangent-space normal mapping (the reference "
                         "ships this disabled; PARITY.md)")
@@ -132,14 +144,23 @@ def main(argv=None) -> int:
                                         render_report)
     from orion_tpu_torch.io.image import save_image
 
-    if args.shard:
-        _fail("--shard not ported yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         _fail("--device cuda, but no CUDA device is available "
               "(pass --device cpu for the plain PyTorch versions)")
+    if args.shard and args.normal_maps:
+        _fail("--shard renders without normal maps; drop --normal-maps")
+
+    mesh, device = None, args.device
+    if args.shard:
+        from orion_tpu_torch.parallel.distributed import init_distributed
+        from orion_tpu_torch.parallel.sharding import make_mesh
+
+        init_distributed(backend="gloo" if args.device == "cpu" else "nccl")
+        mesh = make_mesh(device="cpu" if args.device == "cpu" else None)
+        device = mesh.device
 
     force = args.backend if args.backend in ("brute", "bvh") else None
-    ps = prepare(args.rtc_file, device=args.device, strategy=args.strategy,
+    ps = prepare(args.rtc_file, device=device, strategy=args.strategy,
                  force_backend=force, xres=args.xres, yres=args.yres)
     # the reference caps trace() at rtc.recursion_level exactly
     # (raytracer.cpp:29,203-206)
@@ -155,7 +176,8 @@ def main(argv=None) -> int:
     # --backend fused pins the megakernel all the same
     megakernel = ((args.backend == "fused"
                    or (args.backend is None and not args.normal_maps))
-                  and not args.regen and not args.checkpoint)
+                  and not args.regen and not args.checkpoint
+                  and not args.shard)
     if megakernel and mode == "whitted":
         try:
             fused_fn, ps.backend = make_whitted_megakernel(
@@ -205,13 +227,30 @@ def main(argv=None) -> int:
                                 max_depth=max_depth, mode=args.mode,
                                 path=args.checkpoint,
                                 every=args.checkpoint_every,
-                                regen=args.regen)
+                                regen=args.regen, mesh=mesh)
     elif fused_fn is not None:
         img = fused_fn(args.seed)
     else:
         gen = torch.Generator(device=ps.scene.device)
         gen.manual_seed(args.seed)
-        if args.regen:
+        if args.shard and args.regen:
+            from orion_tpu_torch.regen import render_regen_shardmap
+
+            img = render_regen_shardmap(
+                ps.scene, ps.camera, gen, mesh=mesh, samples=args.samples,
+                light_samples=args.light_samples, max_depth=max_depth,
+                intersect=ps.intersect)
+        elif args.shard:
+            from orion_tpu_torch.parallel.shardmap_render import (
+                render_shardmap)
+
+            with torch.no_grad():
+                img = render_shardmap(
+                    ps.scene, ps.camera, gen, mesh=mesh,
+                    samples=args.samples, light_samples=args.light_samples,
+                    max_depth=max_depth, mode=mode, intersect=ps.intersect,
+                    shadow_intersect=ps.shadow_intersect)
+        elif args.regen:
             from orion_tpu_torch.regen import render_regen
 
             img = render_regen(ps.scene, ps.camera, gen,
@@ -230,6 +269,8 @@ def main(argv=None) -> int:
                              shadow_intersect=ps.shadow_intersect)
     sync()
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0
 
     save_image(args.output,
                img.cpu().numpy() if torch.is_tensor(img) else img)

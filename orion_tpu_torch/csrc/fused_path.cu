@@ -10,8 +10,8 @@
 // emissive mesh (<= 8 meshes of <= 8 triangles), `light_samples` draws each,
 // visible iff the nearest hit with t < NEE_T_CAP lies on the sampled mesh;
 // Russian roulette on max(kd); cosine-weighted bounce; on termination the
-// path regenerates as the pixel's next sample. Output: [n_pix, 3] =
-// radiance / spp.
+// path regenerates as the pixel's next sample. Output: [n_lanes, 3] =
+// radiance / spp of the launch's tile of pixels.
 //
 // What bounds it on the H100: operations. Every sweep tests each ray
 // against every real table row, chunk-culled for big tables, and every path
@@ -48,12 +48,12 @@ namespace {
 using namespace orion;
 
 __global__ void __launch_bounds__(kThreads, kPathBlocks)
-fused_path_kernel(const PathParamsT<RGeo> p, int* next) {
+fused_path_kernel(const PathParamsT<RGeo> p, int n_lanes, int* next) {
   extern __shared__ float4 srows[];  // resident tables only: 1 + 4 T_pad
   ORION_PC(LaneCounters pc; pc.t_start = pc.t_done = clock64();)
   stage_rows(p.geo, srows);
   render_lanes<false, kRender>(p, reinterpret_cast<const float*>(srows),
-                               p.W * p.H, next, nullptr,
+                               n_lanes, next, nullptr,
                                nullptr ORION_PC(, pc));
   ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)
 }
@@ -68,22 +68,24 @@ extern "C" int fused_path_info(int T_pad, int* out) {
                      out);
 }
 
+// Renders the pixels pix_base + [0, n_lanes) into out [n_lanes, 3] (a
+// tile's rows are the whole image's: the draws hash global pixel ids).
 // `next`: one int32, zero, the persistent lanes' pixel counter
 extern "C" int fused_path_launch(const float* cam, const float* tab,
                                  const float* clo, const float* chi,
                                  const float* em, float* out, int* next,
                                  int T_pad, int n_chunks, int n_em, int W,
                                  int H, int samples, int max_depth,
-                                 int light_samples, int seed, void* stream) {
+                                 int light_samples, int seed, int pix_base,
+                                 int n_lanes, void* stream) {
   PathParamsT<RGeo> p{cam, RGeo{{tab, clo, chi, T_pad, n_chunks}}, em, out,
                       nullptr, nullptr, n_em, W, H, samples, max_depth,
-                      light_samples, static_cast<uint32_t>(seed)};
-  const int n_pix = W * H;
+                      light_samples, static_cast<uint32_t>(seed), pix_base};
   const size_t smem = staged_bytes(p.geo);
-  if (n_pix > 0) {
-    fused_path_kernel<<<persistent_blocks(fused_path_kernel, smem, n_pix),
+  if (n_lanes > 0) {
+    fused_path_kernel<<<persistent_blocks(fused_path_kernel, smem, n_lanes),
                         kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        p, next);
+        p, n_lanes, next);
   }
   return static_cast<int>(cudaGetLastError());
 }

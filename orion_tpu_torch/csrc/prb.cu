@@ -17,9 +17,12 @@
 // attributes: light normal at the winner's u, v, emitted color = the
 // winner's ke, so d/d(ke) is live) that also records each sample's
 // radiance: a running sum in registers, stored to
-// ls[(3s + c) * n_pix + pix] (a 64-bit offset) when the lane leaves sample
-// s (the TPU kernel one-hot-adds every sample plane each bounce; the other
-// planes only gain zeros, so the floats agree).
+// ls[(3s + c) * n_lanes + lane] (a 64-bit offset) when the lane leaves
+// sample s (the TPU kernel one-hot-adds every sample plane each bounce; the
+// other planes only gain zeros, so the floats agree). A launch covers the
+// pixels pix_base + [0, n_lanes): a tile's planes and image rows are its
+// own, and equal the whole image's rows (the draws hash global pixel ids);
+// the tree pair (9a, 9b) launches the whole image.
 //
 // The replay (prb_replay_kernel, bvh_prb_replay_kernel; kReplay): re-traces
 // the same PCG4D paths with regeneration, starts U at L_s when a sample
@@ -111,18 +114,19 @@ __device__ __forceinline__ void replay_epilogue(double* sacc, double* sek,
 using TablePath = PathParamsT<RGeo>;
 
 __global__ void __launch_bounds__(kThreads, kTableBlocks)
-prb_fwd_ls_kernel(const TablePath p, int* next) {
+prb_fwd_ls_kernel(const TablePath p, int n_lanes, int* next) {
   extern __shared__ float4 srows[];  // resident tables only: 1 + 4 T_pad
   ORION_PC(LaneCounters pc; pc.t_start = pc.t_done = clock64();)
   stage_rows(p.geo, srows);
   render_lanes<true, kForwardLs>(p, reinterpret_cast<const float*>(srows),
-                                 p.W * p.H, next, nullptr,
+                                 n_lanes, next, nullptr,
                                  nullptr ORION_PC(, pc));
   ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)
 }
 
 __global__ void __launch_bounds__(kThreads, kTableBlocks)
-prb_replay_kernel(const TablePath p, int* next, double* grad, int em_mesh) {
+prb_replay_kernel(const TablePath p, int n_lanes, int* next, double* grad,
+                  int em_mesh) {
   extern __shared__ float4 srows[];  // resident tables only: 1 + 4 T_pad
   __shared__ double sacc[6 * kMLanes];
   __shared__ double sek[3];
@@ -133,7 +137,7 @@ prb_replay_kernel(const TablePath p, int* next, double* grad, int em_mesh) {
   stage_rows(p.geo, srows);
   double ek[3] = {0.0, 0.0, 0.0};
   render_lanes<true, kReplay>(p, reinterpret_cast<const float*>(srows),
-                              p.W * p.H, next, sacc, ek ORION_PC(, pc));
+                              n_lanes, next, sacc, ek ORION_PC(, pc));
   ORION_PC(pc_flush(pc); __syncwarp(); pc_exit(pc.t_done);)
   replay_epilogue(sacc, sek, ek, grad, em_mesh);
 }
@@ -142,10 +146,10 @@ TablePath table_params(const float* cam, const float* tab, const float* clo,
                        const float* chi, const float* em, float* out,
                        float* ls, const float* w, int T_pad, int n_chunks,
                        int n_em, int W, int H, int samples, int max_depth,
-                       int light_samples, int seed) {
+                       int light_samples, int seed, int pix_base) {
   return TablePath{cam, RGeo{{tab, clo, chi, T_pad, n_chunks}}, em, out, ls,
                    w, n_em, W, H, samples, max_depth, light_samples,
-                   static_cast<uint32_t>(seed)};
+                   static_cast<uint32_t>(seed), pix_base};
 }
 
 }  // namespace
@@ -165,16 +169,15 @@ extern "C" int prb_fwd_ls_launch(const float* cam, const float* tab,
                                  int* next, int T_pad, int n_chunks,
                                  int n_em, int W, int H, int samples,
                                  int max_depth, int light_samples, int seed,
-                                 void* stream) {
+                                 int pix_base, int n_lanes, void* stream) {
   const TablePath p = table_params(cam, tab, clo, chi, em, out, ls, nullptr,
                                    T_pad, n_chunks, n_em, W, H, samples,
-                                   max_depth, light_samples, seed);
-  const int n_pix = W * H;
+                                   max_depth, light_samples, seed, pix_base);
   const size_t smem = staged_bytes(p.geo);
-  if (n_pix > 0) {
-    prb_fwd_ls_kernel<<<persistent_blocks(prb_fwd_ls_kernel, smem, n_pix),
+  if (n_lanes > 0) {
+    prb_fwd_ls_kernel<<<persistent_blocks(prb_fwd_ls_kernel, smem, n_lanes),
                         kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        p, next);
+        p, n_lanes, next);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -186,17 +189,16 @@ extern "C" int prb_replay_launch(const float* cam, const float* tab,
                                  int T_pad, int n_chunks, int n_em, int W,
                                  int H, int samples, int max_depth,
                                  int light_samples, int seed, int em_mesh,
-                                 void* stream) {
+                                 int pix_base, int n_lanes, void* stream) {
   const TablePath p = table_params(cam, tab, clo, chi, em, nullptr,
                                    const_cast<float*>(ls), w, T_pad,
                                    n_chunks, n_em, W, H, samples, max_depth,
-                                   light_samples, seed);
-  const int n_pix = W * H;
+                                   light_samples, seed, pix_base);
   const size_t smem = staged_bytes(p.geo);
-  if (n_pix > 0) {
-    prb_replay_kernel<<<persistent_blocks(prb_replay_kernel, smem, n_pix),
+  if (n_lanes > 0) {
+    prb_replay_kernel<<<persistent_blocks(prb_replay_kernel, smem, n_lanes),
                         kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        p, next, grad, em_mesh);
+        p, n_lanes, next, grad, em_mesh);
   }
   return static_cast<int>(cudaGetLastError());
 }

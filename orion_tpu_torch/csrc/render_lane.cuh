@@ -472,11 +472,13 @@ __device__ __forceinline__ void add_adjoint(double* sacc, int mat,
 //   kRender    : write each pixel's radiance / spp to p.out (kernels 1, 8);
 //   kForwardLs : the same, with each bounce's contribution rounded op by op
 //                (bounce_contrib), plus each sample's radiance L_s to
-//                p.ls[(3 s + c) * W H + pix] (kernels 3a, 9a);
+//                p.ls[(3 s + c) * n_lanes + lane] (kernels 3a, 9a: the
+//                planes are the launch's tile's);
 //   kReplay    : start U at L_s when a sample begins, subtract each
 //                bounce's contribution (the forward's own arithmetic) and
-//                add the closed-form material adjoints of the pixel's
-//                adjoint p.w (read at each hit, not held in registers) to
+//                add the closed-form material adjoints of the lane's
+//                adjoint p.w[3 lane + c] (read at each hit, not held in
+//                registers) to
 //                the block's accumulator `sacc` (add_adjoint)
 //                and the NEE emitted-color adjoint to the thread's `ek`
 //                (kernels 3b, 9b).
@@ -498,14 +500,15 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
   primary(cam, p.seed, p.W, p.H, pix, 0, r);
   float T[3] = {1.f, 1.f, 1.f};
   float acc[3] = {0.f, 0.f, 0.f};
-  // the training modes' plane stride; a plane's offset (3 s + c) W H + pix
-  // is taken in 64 bits (3 S W H passes 2^31 from 22.4 M pixels at 32 spp)
-  const size_t n_pix = static_cast<size_t>(p.W * p.H);
+  // the training modes' plane stride, the tile's lanes; a plane's offset
+  // (3 s + c) n_lanes + lane is taken in 64 bits (3 S W H passes 2^31 from
+  // 22.4 M pixels at 32 spp)
+  const size_t plane = static_cast<size_t>(n_lanes);
   float Ls[3] = {0.f, 0.f, 0.f};    // this sample's radiance (forward)
   float U[3] = {0.f, 0.f, 0.f};     // remaining radiance (replay)
   if constexpr (kMode == kReplay) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) U[ch] = __ldg(p.ls + ch * n_pix + pix);
+    for (int ch = 0; ch < 3; ++ch) U[ch] = __ldg(p.ls + ch * plane + lane);
   }
 
   // no `break`: a lane leaves only at the loop's test, so the lanes that
@@ -582,9 +585,9 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
         ORION_PC(const long long pc2 = clock64();)
         // closed-form adjoints (pallas_prb.py replay_impl :201-238);
         // p = max(kd) splits a tie evenly over the tied channels. The
-        // pixel's adjoint is read here, not held in registers.
-        const float w[3] = {__ldg(p.w + 3 * pix), __ldg(p.w + 3 * pix + 1),
-                            __ldg(p.w + 3 * pix + 2)};
+        // lane's adjoint is read here, not held in registers.
+        const float w[3] = {__ldg(p.w + 3 * lane), __ldg(p.w + 3 * lane + 1),
+                            __ldg(p.w + 3 * lane + 2)};
         const float p_max = fmaxf(fmaxf(kd[0], kd[1]), kd[2]);
         const float inv_p = p_max > 0.0f ? 1.0f / p_max : 0.0f;
         const float ties[3] = {kd[0] == p_max ? 1.f : 0.f,
@@ -653,7 +656,7 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
       if constexpr (kMode == kForwardLs) {
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) {
-          p.ls[(3 * samp + ch) * n_pix + pix] = Ls[ch];
+          p.ls[(3 * samp + ch) * plane + lane] = Ls[ch];
           Ls[ch] = 0.f;
         }
       }
@@ -677,7 +680,7 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
         if constexpr (kMode == kReplay) {
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch)
-            U[ch] = __ldg(p.ls + (3 * samp + ch) * n_pix + pix);
+            U[ch] = __ldg(p.ls + (3 * samp + ch) * plane + lane);
         }
       }
     }

@@ -14,6 +14,13 @@ after any chunk equals a one-shot render of the same seed and sample
 count, whatever the chunk size. The regen route (regen=True) draws its
 uniforms per chunk in the order its wavefront needs them, so its image
 also depends on the chunk size: resume with the same `every`.
+
+Sharded (`mesh=`): chunks go through parallel/shardmap_render.py (or the
+regen route's render_regen_shardmap). Every rank holds the same
+generator; the stored state is that shared generator's, and each rank
+derives its own stream from it (the rank fold), so a resume on the same
+world size continues every rank's stream. The config tag names the world
+size: a file written by another world size starts over.
 """
 
 from __future__ import annotations
@@ -52,12 +59,23 @@ def save_checkpoint(path: str | Path, accum: np.ndarray, samples_done: int,
         raise
 
 
+# what save_checkpoint writes; a file that lacks any of them (the JAX
+# package's format: accum, samples_done, key_data, config) is no
+# checkpoint of this package
+KEYS = ("accum", "samples_done", "seed", "rng_state", "config")
+
+
 def load_checkpoint(path: str | Path):
-    """(accum, samples_done, seed, rng_state, config), or None if absent."""
+    """(accum, samples_done, seed, rng_state, config), or None if the file
+    is absent or lacks one of those keys (render_accumulate then starts
+    over and overwrites it, as the JAX package does with a file that has
+    no config)."""
     path = Path(path)
     if not path.exists():
         return None
     with np.load(path) as z:
+        if any(k not in z for k in KEYS):
+            return None
         return (z["accum"], int(z["samples_done"]), int(z["seed"]),
                 z["rng_state"], str(z["config"]))
 
@@ -78,7 +96,7 @@ def _progress_line(done: int, samples: int, chunk_rays: int,
 def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
                       max_depth: int, mode: Optional[str],
                       path: str | Path, every: int = 64,
-                      regen: bool = False,
+                      regen: bool = False, mesh=None,
                       progress: bool = True) -> np.ndarray:
     """Render `samples` spp of the prepared scene `ps` in chunks of `every`
     with checkpointed accumulation; returns the mean radiance image.
@@ -90,6 +108,13 @@ def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
     Chunks go through the wavefront (render.py) over the scene's
     intersect, or with `regen=True` through the regenerative wavefront
     (regen.py; path mode only).
+
+    mesh: a parallel.sharding.Mesh whose ranks all call this with the
+    same arguments: chunks render through render_shardmap (or
+    render_regen_shardmap), every rank returns the image, rank 0 alone
+    reads and writes the file (the others get its resume state by one
+    broadcast, and wait at a barrier after each write), and only rank 0
+    prints progress.
     """
     from orion_tpu_torch.render import render
 
@@ -111,31 +136,58 @@ def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
     # generator's device type: a CPU state cannot seed a CUDA generator
     resolved_mode = (mode if mode is not None
                      else ("whitted" if ps.scene.num_lights > 0 else "path"))
+    world = 1 if mesh is None else mesh.world
+    lead = mesh is None or mesh.rank == 0
     config = (f"mode={resolved_mode};max_depth={max_depth};"
               f"light_samples={light_samples};regen={bool(regen)}"
               + (f";every={every}" if regen else "")
-              + f";device={dev.type}")
+              + f";device={dev.type};world={world}")
 
-    ck = load_checkpoint(path)
+    ck = load_checkpoint(path) if lead else None
+    resume = None
     if ck is not None:
         c_accum, c_done, c_seed, c_state, c_config = ck
         if (c_accum.shape == accum.shape and c_seed == seed
                 and c_config == config):
-            accum, done = np.asarray(c_accum, np.float32), c_done
-            gen.set_state(torch.from_numpy(np.array(c_state, np.uint8)))
+            resume = (np.asarray(c_accum, np.float32), c_done,
+                      np.array(c_state, np.uint8))
+    if mesh is not None:
+        from orion_tpu_torch.parallel.distributed import (barrier,
+                                                          broadcast_object)
+
+        resume = broadcast_object(resume, mesh)
+    if resume is not None:
+        accum, done, state = resume
+        gen.set_state(torch.from_numpy(state))
 
     start_done, t_start = done, time.perf_counter()
     while done < samples:
         t_chunk = time.perf_counter()
         n = min(every, samples - done)
         with torch.no_grad():
-            if regen:
+            if regen and mesh is not None:
+                from orion_tpu_torch.regen import render_regen_shardmap
+
+                img = render_regen_shardmap(
+                    ps.scene, ps.camera, gen, mesh=mesh, samples=n,
+                    max_depth=max_depth, light_samples=light_samples,
+                    intersect=ps.intersect)
+            elif regen:
                 from orion_tpu_torch.regen import render_regen
 
                 img = render_regen(ps.scene, ps.camera, gen, samples=n,
                                    max_depth=max_depth,
                                    light_samples=light_samples,
                                    intersect=ps.intersect)
+            elif mesh is not None:
+                from orion_tpu_torch.parallel.shardmap_render import (
+                    render_shardmap)
+
+                img = render_shardmap(
+                    ps.scene, ps.camera, gen, mesh=mesh, samples=n,
+                    max_depth=max_depth, light_samples=light_samples,
+                    mode=mode, intersect=ps.intersect,
+                    shadow_intersect=ps.shadow_intersect)
             else:
                 img = render(ps.scene, ps.camera, gen, samples=n,
                              max_depth=max_depth,
@@ -144,9 +196,12 @@ def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
                              shadow_intersect=ps.shadow_intersect)
         accum = accum + img.cpu().numpy().astype(np.float32) * n
         done += n
-        save_checkpoint(path, accum, done, seed, gen.get_state().numpy(),
-                        config)
-        if progress:
+        if lead:
+            save_checkpoint(path, accum, done, seed,
+                            gen.get_state().numpy(), config)
+        if mesh is not None:
+            barrier(mesh)
+        if progress and lead:
             print(_progress_line(done, samples, n * H * W,
                                  time.perf_counter() - t_chunk, start_done,
                                  time.perf_counter() - t_start),

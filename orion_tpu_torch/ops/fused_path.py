@@ -66,7 +66,7 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("fused_path", "fused_path_launch",
-                    [_P] * 7 + [_I] * 9 + [_P])
+                    [_P] * 7 + [_I] * 11 + [_P])
 
 
 def _fused_t_pad(T: int) -> int:
@@ -203,6 +203,18 @@ def check_tables(name: str, tab, clo, chi, cam, cols: int, extra=()):
                                 or n_chunks != T_pad // FUSED_CHUNK):
         raise ValueError(f"{name}: chunked tables need T_pad a multiple of "
                          f"{FUSED_CHUNK} and one AABB per chunk")
+
+
+def lane_tile(name: str, W: int, H: int, pix_base: int,
+              n_lanes: int | None) -> int:
+    """The lanes of a launch over the pixels [pix_base, pix_base +
+    n_lanes) (default: to the end of the image); ValueError for a tile
+    outside the W x H image."""
+    n = W * H - pix_base if n_lanes is None else n_lanes
+    if pix_base < 0 or n < 0 or pix_base + n > W * H:
+        raise ValueError(f"{name}: lanes [{pix_base}, {pix_base + n}) "
+                         f"outside the {W}x{H} image")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -619,9 +631,11 @@ def _regen_steps(tab, em, cam, seed: int, W: int, H: int, samples: int,
 
 def fused_path_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
                      samples: int, max_depth: int, light_samples: int,
-                     stats: dict | None = None) -> torch.Tensor:
-    """The render kernel's estimator batched over all lanes (fast-shadow
-    NEE): [W*H, 3] radiance/spp.
+                     stats: dict | None = None, pix_base: int = 0,
+                     n_lanes: int | None = None) -> torch.Tensor:
+    """The render kernel's estimator batched over the lanes [pix_base,
+    pix_base + n_lanes) (default: the whole image; fast-shadow NEE):
+    [n_lanes, 3] radiance/spp.
 
     clo/chi (chunk AABBs) only let the kernel skip work; the plain version
     sweeps every row, which is value-identical. When `stats` is a dict,
@@ -633,7 +647,8 @@ def fused_path_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
     del clo, chi
     acc = [0.0, 0.0, 0.0]
     for st in _regen_steps(tab, em, cam, seed, W, H, samples, max_depth,
-                           light_samples, legacy=False, stats=stats):
+                           light_samples, legacy=False, stats=stats,
+                           pix_base=pix_base, n_lanes=n_lanes):
         acc = [acc[k] + st["contrib"][k] for k in range(3)]
     inv_s = _f32(1.0 / samples, tab.device)
     return torch.stack(acc, dim=1) * inv_s
@@ -641,24 +656,27 @@ def fused_path_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
 
 def fused_fwd_ls_plain(tab, clo, chi, em, cam, seed: int, W: int, H: int,
                        samples: int, max_depth: int, light_samples: int,
-                       stats: dict | None = None, tree=None):
-    """The training forward (legacy NEE) batched over all lanes:
-    (img [W*H, 3] radiance/spp, ls [W*H, 3*samples]), where ls[:, 3s + c]
-    is channel c of sample s's radiance L_s (the record the replay starts
-    its remaining radiance from). Differentiable with respect to `tab`'s
-    material columns. `stats` as in fused_path_plain; `tree` as in
-    `_regen_steps` (the forward over a BVH, ops/bvh_prb.py)."""
+                       stats: dict | None = None, tree=None,
+                       pix_base: int = 0, n_lanes: int | None = None):
+    """The training forward (legacy NEE) batched over the lanes
+    [pix_base, pix_base + n_lanes) (default: the whole image): (img
+    [n_lanes, 3] radiance/spp, ls [n_lanes, 3*samples]), where ls[:, 3s +
+    c] is channel c of sample s's radiance L_s (the record the replay
+    starts its remaining radiance from). Differentiable with respect to
+    `tab`'s material columns. `stats` as in fused_path_plain; `tree` as
+    in `_regen_steps` (the forward over a BVH, ops/bvh_prb.py)."""
     del clo, chi
     if samples > MAX_SAMPLES:
         raise ValueError(f"{samples} samples; the per-sample record holds "
                          f"at most {MAX_SAMPLES}")
     dev = tab.device
+    n = lane_tile("fused_fwd_ls_plain", W, H, pix_base, n_lanes)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     acc = [0.0, 0.0, 0.0]
-    planes = [zero.expand(W * H)] * (3 * samples)
+    planes = [zero.expand(n)] * (3 * samples)
     for st in _regen_steps(tab, em, cam, seed, W, H, samples, max_depth,
                            light_samples, legacy=True, stats=stats,
-                           tree=tree):
+                           tree=tree, pix_base=pix_base, n_lanes=n):
         c3 = st["contrib"]
         acc = [acc[k] + c3[k] for k in range(3)]
         for s in range(samples):
@@ -711,13 +729,17 @@ def fused_reference_render(scene: Scene, camera, seed: int, *, samples: int,
 # ---------------------------------------------------------------------------
 
 def fused_path(tab, clo, chi, em, cam, seed: int, W: int, H: int,
-               samples: int, max_depth: int,
-               light_samples: int) -> torch.Tensor:
-    """[W*H, 3] radiance / spp: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+               samples: int, max_depth: int, light_samples: int,
+               pix_base: int = 0, n_lanes: int | None = None) -> torch.Tensor:
+    """[n_lanes, 3] radiance / spp of the pixels [pix_base, pix_base +
+    n_lanes) (default: the whole image, [W*H, 3]): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. A tile's rows are the
+    whole image's, bit for bit (the PCG4D draws hash global pixel ids)."""
+    n = lane_tile("fused_path", W, H, pix_base, n_lanes)
     if tab.device.type == "cpu":
         return fused_path_plain(tab, clo, chi, em, cam, seed, W, H, samples,
-                                max_depth, light_samples)
+                                max_depth, light_samples, pix_base=pix_base,
+                                n_lanes=n)
     if tab.device.type != "cuda":
         raise ValueError(f"fused_path: unsupported device {tab.device}")
     check_tables("fused_path", tab, clo, chi, cam, 32,
@@ -725,14 +747,14 @@ def fused_path(tab, clo, chi, em, cam, seed: int, W: int, H: int,
     if not 1 <= em.shape[0] <= FUSED_MAX_EMITTERS:
         raise ValueError(f"fused_path: {em.shape[0]} emitters, need 1.."
                          f"{FUSED_MAX_EMITTERS}")
-    out = torch.empty((W * H, 3), dtype=torch.float32, device=tab.device)
+    out = torch.empty((n, 3), dtype=torch.float32, device=tab.device)
     nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # as int32 bits
     KERNEL.launch(cam.data_ptr(), tab.data_ptr(), clo.data_ptr(),
                   chi.data_ptr(), em.data_ptr(), out.data_ptr(),
                   nxt.data_ptr(), tab.shape[0], clo.shape[0], em.shape[0],
-                  W, H, samples, max_depth, light_samples, seed32,
-                  stream_ptr(tab.device))
+                  W, H, samples, max_depth, light_samples, seed32, pix_base,
+                  n, stream_ptr(tab.device))
     return out
 
 

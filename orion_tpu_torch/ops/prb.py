@@ -46,7 +46,8 @@ import torch
 from orion_tpu_torch.ops.cuda_build import CudaKernel, stream_ptr
 from orion_tpu_torch.ops.fused_path import (
     _C_MESH, EM_STRIDE, MAX_SAMPLES, _regen_steps, check_tables, fused_args,
-    fused_fwd_ls_plain, fused_path_supported, pack_fused_tri_table_torch)
+    fused_fwd_ls_plain, fused_path_supported, lane_tile,
+    pack_fused_tri_table_torch)
 from orion_tpu_torch.scene import Scene
 
 M_LANES = 128     # materials the replay's accumulator holds
@@ -54,9 +55,9 @@ M_LANES = 128     # materials the replay's accumulator holds
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 FWD_KERNEL = CudaKernel("prb", "prb_fwd_ls_launch",
-                        [_P] * 8 + [_I] * 9 + [_P])
+                        [_P] * 8 + [_I] * 11 + [_P])
 REPLAY_KERNEL = CudaKernel("prb", "prb_replay_launch",
-                           [_P] * 9 + [_I] * 10 + [_P])
+                           [_P] * 9 + [_I] * 12 + [_P])
 
 
 def fused_train_supported(scene: Scene, samples: int = 1) -> bool:
@@ -73,20 +74,22 @@ def fused_train_supported(scene: Scene, samples: int = 1) -> bool:
 def prb_replay_plain(tab, clo, chi, em, cam, seed: int, w, ls, W: int,
                      H: int, samples: int, max_depth: int,
                      light_samples: int, stats: dict | None = None,
-                     tree=None):
-    """The replay batched over all lanes: [6, M_LANES] gradient rows
-    (0-2: d kd, 3-5: d ke, per material column).
+                     tree=None, pix_base: int = 0,
+                     n_lanes: int | None = None):
+    """The replay batched over the lanes [pix_base, pix_base + n_lanes)
+    (default: the whole image): [6, M_LANES] gradient rows (0-2: d kd,
+    3-5: d ke, per material column) of those lanes.
 
-    w: [W*H, 3] per-lane adjoint of the summed sample radiance (the image
-    cotangent / samples); ls: [W*H, 3*samples] from the training forward.
-    A lane that misses has no material and scatters nothing. Per-lane
-    terms are float32 and their sums float64, as in the kernel. tree: a
-    `bvh_path.TreeData` walks a bundled `tab` instead of sweeping it (the
-    replay over a BVH, ops/bvh_prb.py).
+    w: [n_lanes, 3] per-lane adjoint of the summed sample radiance (the
+    image cotangent / samples); ls: [n_lanes, 3*samples] from the training
+    forward of the same lanes. A lane that misses has no material and
+    scatters nothing. Per-lane terms are float32 and their sums float64,
+    as in the kernel. tree: a `bvh_path.TreeData` walks a bundled `tab`
+    instead of sweeping it (the replay over a BVH, ops/bvh_prb.py).
     """
     del clo, chi
     dev = tab.device
-    n = W * H
+    n = lane_tile("prb_replay_plain", W, H, pix_base, n_lanes)
     S = samples
     with torch.no_grad():
         zero = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -106,7 +109,7 @@ def prb_replay_plain(tab, clo, chi, em, cam, seed: int, w, ls, W: int,
         U = [L0[:, c] for c in range(3)]
         for st in _regen_steps(tab, em, cam, seed, W, H, samples, max_depth,
                                light_samples, legacy=True, stats=stats,
-                               tree=tree):
+                               tree=tree, pix_base=pix_base, n_lanes=n):
             T, kd, A = st["T"], st["kd"], st["A"]
             U = [U[c] - st["contrib"][c] for c in range(3)]
             hit = st["hit"]
@@ -153,20 +156,25 @@ def _seed32(seed: int) -> int:
 
 
 def fused_fwd_ls(tab, clo, chi, em, cam, seed: int, W: int, H: int,
-                 samples: int, max_depth: int, light_samples: int):
-    """(img [W*H, 3], ls [W*H, 3*samples]): the training-forward kernel for
-    CUDA tensors, the plain version for CPU tensors. On the card `ls` is a
-    view of a [3*samples, W*H] buffer (the kernel's plane layout)."""
+                 samples: int, max_depth: int, light_samples: int,
+                 pix_base: int = 0, n_lanes: int | None = None):
+    """(img [n_lanes, 3], ls [n_lanes, 3*samples]) of the pixels
+    [pix_base, pix_base + n_lanes) (default: the whole image): the
+    training-forward kernel for CUDA tensors, the plain version for CPU
+    tensors. On the card `ls` is a view of a [3*samples, n_lanes] buffer
+    (the kernel's plane layout, the tile's own planes); a tile's rows are
+    the whole image's, bit for bit."""
+    n = lane_tile("fused_fwd_ls", W, H, pix_base, n_lanes)
     if tab.device.type == "cpu":
         return fused_fwd_ls_plain(tab, clo, chi, em, cam, seed, W, H,
-                                  samples, max_depth, light_samples)
+                                  samples, max_depth, light_samples,
+                                  pix_base=pix_base, n_lanes=n)
     if tab.device.type != "cuda":
         raise ValueError(f"fused_fwd_ls: unsupported device {tab.device}")
     _check_common("fused_fwd_ls", tab, clo, chi, em, cam)
     if not 1 <= samples <= MAX_SAMPLES:
         raise ValueError(f"fused_fwd_ls: {samples} samples, need 1.."
                          f"{MAX_SAMPLES}")
-    n = W * H
     img = torch.empty((n, 3), dtype=torch.float32, device=tab.device)
     planes = torch.empty((3 * samples, n), dtype=torch.float32,
                          device=tab.device)
@@ -175,7 +183,8 @@ def fused_fwd_ls(tab, clo, chi, em, cam, seed: int, W: int, H: int,
                       chi.data_ptr(), em.data_ptr(), img.data_ptr(),
                       planes.data_ptr(), nxt.data_ptr(), tab.shape[0],
                       clo.shape[0], em.shape[0], W, H, samples, max_depth,
-                      light_samples, _seed32(seed), stream_ptr(tab.device))
+                      light_samples, _seed32(seed), pix_base, n,
+                      stream_ptr(tab.device))
     return img, planes.t()
 
 
@@ -192,16 +201,20 @@ def _emitter_column(name, tab, em) -> int:
 
 
 def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
-               samples: int, max_depth: int, light_samples: int):
-    """[6, M_LANES] material gradient rows: the replay kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+               samples: int, max_depth: int, light_samples: int,
+               pix_base: int = 0, n_lanes: int | None = None):
+    """[6, M_LANES] material gradient rows of the pixels [pix_base,
+    pix_base + n_lanes) (default: the whole image; w and ls are that
+    tile's): the replay kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    n = lane_tile("prb_replay", W, H, pix_base, n_lanes)
     if tab.device.type == "cpu":
         _emitter_column("prb_replay", tab, em)
         return prb_replay_plain(tab, clo, chi, em, cam, seed, w, ls, W, H,
-                                samples, max_depth, light_samples)
+                                samples, max_depth, light_samples,
+                                pix_base=pix_base, n_lanes=n)
     if tab.device.type != "cuda":
         raise ValueError(f"prb_replay: unsupported device {tab.device}")
-    n = W * H
     planes = ls.t().contiguous()          # a view when ls came from the kernel
     _check_common("prb_replay", tab, clo, chi, em, cam,
                   (("w", w, (n, 3)), ("ls", planes, (3 * samples, n))))
@@ -213,7 +226,7 @@ def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
                          planes.data_ptr(), out.data_ptr(), nxt.data_ptr(),
                          tab.shape[0], clo.shape[0], em.shape[0], W, H,
                          samples, max_depth, light_samples, _seed32(seed),
-                         em_mesh, stream_ptr(tab.device))
+                         em_mesh, pix_base, n, stream_ptr(tab.device))
     return out.to(torch.float32)
 
 

@@ -1,0 +1,14 @@
+"""Multi-device rendering and training over `torch.distributed`: ray
+sharding (sharding.py, shardmap_render.py), the megakernels on pixel
+tiles (fused_shard.py) and the process group (distributed.py)."""
+
+from orion_tpu_torch.parallel.sharding import (  # noqa: F401
+    make_mesh,
+    make_train_step,
+    render_sharded,
+    scene_params,
+)
+from orion_tpu_torch.parallel.shardmap_render import (  # noqa: F401
+    make_train_step_shardmap,
+    render_shardmap,
+)

@@ -17,7 +17,7 @@ reference's RR / depth-cap termination. Every uniform comes from one
 renderer statistically, not bitwise.
 
 Forward-only (`torch.no_grad`); use the standard renderer for training.
-`render_regen_shardmap` (multi-device) is not ported yet.
+`render_regen_shardmap` runs the loop on each rank's pixel tile.
 """
 
 from __future__ import annotations
@@ -148,3 +148,42 @@ def render_regen(scene, camera: Camera, generator: torch.Generator, *,
                           light_samples=light_samples, intersect=intersect,
                           max_steps=max_steps)
     return acc.reshape(H, W, 3) / float(samples)
+
+
+def render_regen_shardmap(scene, camera: Camera, generator: torch.Generator,
+                          *, mesh=None, samples: int, max_depth: int,
+                          light_samples: int = 2,
+                          intersect: Optional[IntersectFn] = None,
+                          max_steps: Optional[int] = None) -> torch.Tensor:
+    """Multi-device regenerative path tracing: [H, W, 3] on every rank.
+
+    Each rank of `mesh` (default: parallel.sharding.make_mesh()) runs the
+    regenerative loop to completion over its own pixel tile, with no
+    per-step sync (a rank whose paths are short finishes early), then one
+    all-gather assembles the image. RNG folds the rank as
+    parallel/shardmap_render.py does: in a world of W > 1 ranks one draw
+    from the caller's `generator` seeds each rank's stream
+    (`rank_generator`), so the image is deterministic per (generator
+    state, world size); a world of one runs on `generator` itself and
+    equals `render_regen`."""
+    from orion_tpu_torch.parallel.distributed import all_gather_rows
+    from orion_tpu_torch.parallel.sharding import check_placement, make_mesh
+    from orion_tpu_torch.parallel.shardmap_render import rank_generator
+
+    if intersect is None:
+        intersect = default_intersect()
+    if mesh is None:
+        mesh = make_mesh()
+    check_placement("render_regen_shardmap", mesh, scene)
+    H, W = camera.yres, camera.xres
+    lo, hi = mesh.tile(H * W)
+    gen = generator if mesh.world == 1 else rank_generator(generator, mesh)
+    with torch.no_grad():
+        acc = _regen_loop(scene, camera, gen,
+                          torch.arange(lo, hi, dtype=torch.int64,
+                                       device=camera.device),
+                          samples=samples, max_depth=max_depth,
+                          light_samples=light_samples, intersect=intersect,
+                          max_steps=max_steps)
+    img = all_gather_rows(acc, H * W, mesh)
+    return img.reshape(H, W, 3) / float(samples)

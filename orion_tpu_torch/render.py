@@ -111,13 +111,21 @@ def _apply_normal_maps(scene: Scene, attrs, hit: Hit):
     return dataclasses.replace(attrs, s_normal=s_n)
 
 
-def _path_draws(scene: Scene, generator, light_samples: int, n: int, dev):
+def _path_draws(scene: Scene, generator, light_samples: int, n: int, dev,
+                tile=None):
     """One path bounce's uniforms, in the order it reads them: NEE's
     [E*S, 3, n] (None without emitters), Russian roulette's [n], the
-    cosine bounce's [2, n]."""
-    u_nee = (_rand(generator, (scene.num_emissive * light_samples, 3, n),
+    cosine bounce's [2, n]. tile=(lo, n_total): the n rays are rays
+    [lo, lo + n) of a wavefront of n_total; the draws are the whole
+    wavefront's, and the tile keeps its slice of each."""
+    lo, width = (0, n) if tile is None else tile
+    u_nee = (_rand(generator, (scene.num_emissive * light_samples, 3, width),
                    dev) if scene.num_emissive > 0 else None)
-    return u_nee, _rand(generator, (n,), dev), _rand(generator, (2, n), dev)
+    draws = (u_nee, _rand(generator, (width,), dev),
+             _rand(generator, (2, width), dev))
+    if tile is None:
+        return draws
+    return tuple(None if u is None else u[..., lo:lo + n] for u in draws)
 
 
 def _path_bounce(scene: Scene, carry, hit: Hit, depth: int, draws,
@@ -265,7 +273,8 @@ def trace_wavefront(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
                     reference_frame: bool = False,
                     normal_maps: bool = False, sort_bounces=False,
                     shadow_intersect: Optional[IntersectFn] = None,
-                    prune_zero: bool = True, remat=False) -> torch.Tensor:
+                    prune_zero: bool = True, remat=False,
+                    tile=None) -> torch.Tensor:
     """Trace a batch of rays to completion; returns radiance [N, 3].
 
     mode: "path" | "whitted" | None (auto: whitted iff the scene has point
@@ -292,9 +301,19 @@ def trace_wavefront(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
     scene AABB (ops/reorder.py). Changes which uniforms each ray draws
     (still a valid, deterministic estimator; images differ from unsorted
     at the noise level). Off by default.
+
+    tile=(lo, n_total): the N rays are rays [lo, lo + N) of a wavefront of
+    n_total rays, and every bounce draws the whole wavefront's uniforms
+    and keeps its slice (`_path_draws`), so each ray draws what it draws
+    in the whole wavefront: a tile's radiance is the whole trace's rows,
+    bit for bit (parallel/sharding.render_sharded). Not with sort_bounces,
+    which hands the draws to other rays.
     """
     if sort_bounces not in (False, True, "octant", "morton"):
         raise ValueError(f"unknown sort_bounces {sort_bounces!r}")
+    if tile is not None and sort_bounces:
+        raise ValueError("a tile keeps the whole wavefront's draws per ray; "
+                         "sort_bounces reorders the rays")
     if remat not in (False, True, "hits"):
         raise ValueError(f"unknown remat {remat!r}")
     if mode is None:
@@ -347,7 +366,7 @@ def trace_wavefront(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
     pix = torch.arange(N, device=dev)
     for depth in range(max_depth + 1):
         hit = intersect(scene, carry[0], carry[1], alive=carry[3])
-        draws = (_path_draws(scene, generator, light_samples, N, dev)
+        draws = (_path_draws(scene, generator, light_samples, N, dev, tile)
                  if mode == "path" else None)
         if remat:
             carry, radiance = checkpointed(carry, hit, depth, draws)

@@ -221,6 +221,52 @@ def test_cli_checkpoint_resumes(tmp_path):
     err = _cli(base + ["-o", str(tmp_path / "g.hdr"), "-p", "2", "--regen",
                        "--checkpoint", str(tmp_path / "g.ckpt")])
     assert "regen=True" in load_checkpoint(tmp_path / "g.ckpt")[4]
-    with pytest.raises(SystemExit, match="--shard"):
-        cli.main(base + ["-o", str(tmp_path / "s.hdr"), "--shard",
-                         "--checkpoint", str(ck)])
+    # --shard without torchrun is a world of one: the same tag, so the
+    # finished accumulation resumes and renders nothing more
+    err = _cli(base + ["-o", str(tmp_path / "s.hdr"), "-p", "4", "--shard",
+                       "--checkpoint", str(ck), "--checkpoint-every", "2"])
+    assert "[render]" not in err and load_checkpoint(ck)[1] == 4
+    np.testing.assert_array_equal(load_checkpoint(ck)[0] / 4.0, resumed)
+
+
+def _jax_format_file(path, shape):
+    """A checkpoint as the JAX package writes one (io/checkpoint.py there):
+    accum, samples_done, key_data, config; none of the port's seed and
+    rng_state."""
+    np.savez(path, accum=np.full(shape, 9.0, np.float32),
+             samples_done=np.int64(2),
+             key_data=np.array([0, 4], np.uint32),
+             config=np.str_("mode=path;max_depth=2;light_samples=1;"
+                            "regen=False"))
+    assert load_checkpoint(path) is None
+
+
+def test_checkpoint_over_a_jax_format_file_starts_over(cornell, tmp_path):
+    p = tmp_path / "jax.ckpt"
+    _jax_format_file(p, (12, 16, 3))
+    img = render_accumulate(cornell, 3, samples=4, path=p, every=2, **PATH)
+    oneshot = render_accumulate(cornell, 3, samples=4,
+                                path=tmp_path / "one.ckpt", every=4, **PATH)
+    np.testing.assert_allclose(img, oneshot, rtol=1e-5, atol=1e-6)
+    with np.load(p) as z:
+        assert {"seed", "rng_state", "config"} <= set(z.files)
+        assert "key_data" not in z.files
+    accum, done, seed, _, config = load_checkpoint(p)
+    assert done == 4 and seed == 3 and "device=cpu" in config
+    np.testing.assert_allclose(accum / 4.0, oneshot, rtol=1e-5, atol=1e-6)
+
+
+def test_cli_checkpoint_over_a_jax_format_file_starts_over(tmp_path):
+    rtc = write_cornell(tmp_path, xres=12, yres=8, depth=2)
+    p = tmp_path / "jax.ckpt"
+    _jax_format_file(p, (8, 12, 3))
+    base = [str(rtc), "-l", "1", "--device", "cpu", "--seed", "4", "-p", "4"]
+    err = _cli(base + ["-o", str(tmp_path / "a.hdr"), "--checkpoint",
+                       str(p), "--checkpoint-every", "2"])
+    assert "[render] 2/4 spp" in err and "[render] 4/4 spp" in err
+    _cli(base + ["-o", str(tmp_path / "b.hdr"), "--checkpoint",
+                 str(tmp_path / "one.ckpt"), "--checkpoint-every", "4"])
+    ours, one = load_checkpoint(p), load_checkpoint(tmp_path / "one.ckpt")
+    assert ours is not None and ours[1] == 4 and ours[2] == 4
+    np.testing.assert_allclose(ours[0], one[0], rtol=1e-5, atol=1e-6)
+    assert load_hdr(tmp_path / "a.hdr").mean() > 0

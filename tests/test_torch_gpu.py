@@ -1471,3 +1471,138 @@ def test_remat_recompute_launches_no_intersect(tmp_path, cuda_device):
             assert scale > 0
             err = float((out[remat][i] - out[False][i]).abs().max())
             assert err <= 1e-6 * scale, (remat, i, err, scale)
+
+
+# --- pixel tiles of kernels 1, 3a and 3b (parallel/fused_shard.py) --------
+
+# uneven tiles of a 33x17 image (561 pixels)
+TILES = ((0, 200), (200, 433), (433, 561))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "levels-2"])
+def test_path_kernel_tiles_are_the_whole_images_rows(tmp_path, cuda_device,
+                                                     name):
+    """Kernel 1 launched on a tile (pix_base != 0) renders the whole
+    image's rows bit for bit (its draws hash global pixel ids), and each
+    tile agrees with its plain version's tile."""
+    sc, cam = _scene(tmp_path, cuda_device, name, 33, 17)
+    args = fp.fused_args(sc, cam)
+    cfg = (33, 17, 4, 4, 2)
+    whole = fp.fused_path(*args, 99, *cfg)
+    for lo, hi in TILES + ((37, 38),):
+        before = fp.KERNEL.launches
+        tile = fp.fused_path(*args, 99, *cfg, pix_base=lo, n_lanes=hi - lo)
+        torch.cuda.synchronize()
+        assert fp.KERNEL.launches == before + 1
+        assert torch.equal(tile, whole[lo:hi]), (lo, hi)
+    for lo, hi in TILES:
+        _images_agree(fp.fused_path(*args, 99, *cfg, pix_base=lo,
+                                    n_lanes=hi - lo),
+                      fp.fused_path_plain(*args, 99, *cfg, pix_base=lo,
+                                          n_lanes=hi - lo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "levels-2"])
+def test_prb_kernel_tiles_are_the_whole_images_rows(tmp_path, cuda_device,
+                                                    name):
+    """3a on a tile writes the whole image's rows and L_s planes bit for
+    bit into the tile's own planes; 3b's tile gradients add up to the
+    whole image's (double atomics in another order) and each tile pair
+    agrees with its plain versions."""
+    sc, cam = _scene(tmp_path, cuda_device, name, 33, 17)
+    args = fp.fused_args(sc, cam)
+    cfg = (33, 17, 4, 4, 2)
+    img, ls = prb.fused_fwd_ls(*args, 99, *cfg)
+    w = (img * 0.5 + 0.01).contiguous() / (33 * 17 * 3 * 4)
+    g = prb.prb_replay(*args, 99, w, ls, *cfg)
+    g_sum = torch.zeros_like(g)
+    for lo, hi in TILES:
+        kw = dict(pix_base=lo, n_lanes=hi - lo)
+        i, l = prb.fused_fwd_ls(*args, 99, *cfg, **kw)
+        torch.cuda.synchronize()
+        assert l.shape == (hi - lo, 12)
+        assert torch.equal(i, img[lo:hi]) and torch.equal(l, ls[lo:hi])
+        ip, lp = fp.fused_fwd_ls_plain(*args, 99, *cfg, **kw)
+        _images_agree(i, ip)
+        _images_agree(l, lp)
+        wt = w[lo:hi].contiguous()
+        gt = prb.prb_replay(*args, 99, wt, l, *cfg, **kw)
+        gp = prb.prb_replay_plain(*args, 99, wt, lp, *cfg, **kw)
+        assert (gt - gp).abs().max() <= 1e-3 * gp.abs().max()
+        g_sum += gt
+    scale = g.abs().max()
+    assert scale > 0 and (g_sum - g).abs().max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_prb_tile_planes_past_2_31_floats(tmp_path, cuda_device):
+    """A tile of 22,692,960 pixels of a 6144x3840 image at 32 spp: its own
+    96 planes hold 2.18e9 floats, so the last plane starts past 2^31
+    floats; the tile's last rows equal the whole image's, image and
+    planes."""
+    W, H, S = 6144, 3840, 32
+    args = _prb_big(tmp_path, cuda_device, W, H)
+    lo = 900_000
+    n = W * H - lo
+    assert 3 * S * n > 2**31 and (3 * S - 1) * n > 2**31
+    img, ls = prb.fused_fwd_ls(*args, 5, W, H, S, 0, 2, pix_base=lo,
+                               n_lanes=n)
+    tail_img, tail_ls = img[-4096:].clone(), ls[-4096:].clone()
+    del img, ls
+    whole_img, whole_ls = prb.fused_fwd_ls(*args, 5, W, H, S, 0, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(tail_ls).all() and tail_img.mean() > 0
+    assert torch.equal(tail_img, whole_img[-4096:])
+    assert torch.equal(tail_ls, whole_ls[-4096:])
+
+
+@pytest.mark.gpu
+def test_shardmap_world_of_one_on_nccl(tmp_path, cuda_device):
+    """A world of one over NCCL: render_shardmap on kernel 2 issues one
+    all-gather (the image's bytes) and equals `render`; a
+    make_train_step_shardmap step issues one all-reduce."""
+    import torch.distributed as dist
+
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.parallel.distributed import measure_collective_bytes
+    from orion_tpu_torch.parallel.sharding import make_mesh
+    from orion_tpu_torch.parallel.shardmap_render import (
+        make_train_step_shardmap, render_shardmap)
+    from orion_tpu_torch.render import render
+
+    def gen(seed):
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(seed)
+        return g
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        ps = prepare(write_cornell(tmp_path, xres=64, yres=48, depth=3),
+                     device=mesh.device)
+        cfg = dict(samples=2, max_depth=3, light_samples=2)
+        out = []
+        before = bi.KERNEL.launches
+        with torch.no_grad():
+            rep = measure_collective_bytes(lambda: out.append(
+                render_shardmap(ps.scene, ps.camera, gen(3), mesh=mesh,
+                                intersect=ps.intersect, **cfg)))
+            ref = render(ps.scene, ps.camera, gen(3), intersect=ps.intersect,
+                         **cfg)
+        assert bi.KERNEL.launches > before
+        assert rep["ops"] == 1
+        assert rep["by_kind"]["all-gather"] == 64 * 48 * 3 * 4
+        assert torch.equal(out[0], ref) and ref.mean() > 0
+        step = make_train_step_shardmap(ps.scene, ps.camera, mesh, samples=1,
+                                        max_depth=2, light_samples=1,
+                                        intersect=ps.intersect)
+        params = {"mat_diffuse": ps.scene.mat_diffuse * 0.5}
+        rep = measure_collective_bytes(step, params, gen(1),
+                                       torch.zeros_like(ref))
+        assert rep["ops"] == 1 and rep["by_kind"]["all-reduce"] == 4 * (
+            ps.scene.mat_diffuse.numel() + 1)
+    finally:
+        dist.destroy_process_group()

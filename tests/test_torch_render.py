@@ -197,10 +197,11 @@ def test_cli_unported_routes_fail(tmp_path, case):
              "textured": [],
              "shard": ["--shard"], "normal-maps": ["--normal-maps"],
              "whitted": [], "fused-gate": ["--backend", "fused"]}[case]
-    if case in ("textured", "whitted", "checkpoint", "normal-maps"):
+    if case in ("textured", "whitted", "checkpoint", "normal-maps", "shard"):
         # a textured path scene leaves the fused gate and, since the
-        # bounce pipeline is ported, renders through it; --checkpoint and
-        # --normal-maps take the wavefront over the engine's intersect
+        # bounce pipeline is ported, renders through it; --checkpoint,
+        # --normal-maps and --shard (a world of one without torchrun) take
+        # the wavefront over the engine's intersect
         argv += ["--stats"] + extra
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
@@ -270,7 +271,11 @@ def test_port_never_imports_jax():
             "orion_tpu_torch/ops/bvh_prb.py",
             "orion_tpu_torch/accel/refit.py",
             "orion_tpu_torch/io/checkpoint.py",
-            "orion_tpu_torch/profiling.py"} <= names
+            "orion_tpu_torch/profiling.py",
+            "orion_tpu_torch/parallel/distributed.py",
+            "orion_tpu_torch/parallel/sharding.py",
+            "orion_tpu_torch/parallel/shardmap_render.py",
+            "orion_tpu_torch/parallel/fused_shard.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -286,7 +291,8 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.ops.bounce_prb, orion_tpu_torch.ops.bvh_whitted, "
             "orion_tpu_torch.ops.bvh_prb, orion_tpu_torch.accel.refit, "
             "orion_tpu_torch.io.checkpoint, orion_tpu_torch.profiling, "
-            "chip_smoke; "
+            "orion_tpu_torch.parallel, orion_tpu_torch.parallel.fused_shard, "
+            "orion_tpu_torch.parallel.distributed, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
