@@ -176,6 +176,26 @@ Phases (any failure raises and the script exits non-zero):
      gradients against the single-device step's). Each rank's render ms, the all-gather's ms and
      bytes, and every kernel's launches are printed. Two ranks on one card
      share its SMs: no multi-GPU scaling figure comes from this phase.
+ 16. the last modules: (a) primitive sharding
+     (parallel/primitive_sharding.py) on a (1, 2) mesh of two gloo ranks on
+     the one card: render_tp on the point-light Cornell box at 1920x1080,
+     1 spp, depth 4, on the Cornell box at 1920x1080, 2 spp, depth 2, and
+     on the levels-5 box at 256x256, each bit for bit one device's
+     render(intersect=intersect_brute_kernel), kernel 2 launched and one
+     all-gather issued for each intersect call; each rank's ms, the
+     all-gathers' bytes and one all-gather's ms alone; (b) treelets: the
+     engine's cap lowered so that the levels-5 box splits into >= 3 parts,
+     its path wavefront at 256x256, 4 spp, depth 4 and its Whitted
+     wavefront at 1920x1080, 4 spp, depth 4 on kernel 5 (nearest and any
+     hit launches counted) within fused_agree of the one tree's; (c) the
+     viewer: fps_probe (8 frames at 192x108) on the five megakernel routes
+     (kernels 1, 8, 4, 7a, 7b), their ms a frame and fps, on each an
+     overridden frame bit for bit a renderer built for that camera, and a
+     scripted run_viewer session that dumps the camera; (d)
+     render_multihost in an NCCL world of one (render's image) and on the
+     two ranks of (a) at 1920x1080, 16 spp, depth 8 (both images equal,
+     within 1e-6 of one device's render); (e) the example ports
+     (examples/torch_*.py --small) side by side, their seconds.
 Phase 3 also holds the walk kernel (nearest and any-hit) against its plain
 version on random rays and on a wavefront's recorded rays for levels-4 and
 levels-5 at leaf widths 128 and the engine's, against the brute kernel on
@@ -192,7 +212,8 @@ Every phase prints its wall seconds on a line of its own ("[phase n]
 ... s wall"). The line before the last is a JSON object with one record
 per kernel (kernels 2 and 10 also carry their 1920x1080 time and bound,
 `hd_ms` and `hd_bound_ms`, kernel 2 its time and bound on phase 14's
-folded sweep, `fold_ms` and `fold_bound_ms`); the last line is {"ok":
+folded sweep, `fold_ms` and `fold_bound_ms`; kernels 1, 2, 4, 5, 7a, 7b
+and 8 their launches in phase 16, `phase16_launches`); the last line is {"ok":
 true, "device": {...}}. Without a CUDA device the script fails before
 printing either.
 """
@@ -258,6 +279,19 @@ SHARD_WHITTED = dict(xres=256, yres=256, samples=4, light_samples=1, depth=4)
 SHARD_ONE = dict(xres=256, yres=256, samples=4, light_samples=2, depth=4)
 SHARD_SEED = 0
 SHARD_TIMEOUT = 420.0
+# phase 16: primitive sharding's (1, 2) renders at full width, the
+# levels-5 box on it, treelets (the cap lowered so that the box splits),
+# the viewer's probe, render_multihost, and the two ranks' deadline
+TP_WHITTED = dict(xres=1920, yres=1080, samples=1, light_samples=1, depth=4)
+TP_PATH = dict(xres=1920, yres=1080, samples=2, light_samples=2, depth=2)
+TP_BOX = dict(xres=256, yres=256, samples=1, light_samples=2, depth=2)
+TREELET_PATH = dict(xres=256, yres=256, samples=4, light_samples=2, depth=4)
+TREELET_WHITTED = dict(xres=1920, yres=1080, samples=4, light_samples=1,
+                       depth=4)
+TREELET_CAP = 20000
+VIEWER = dict(xres=192, yres=108, frames=8)
+MULTIHOST = dict(xres=1920, yres=1080, samples=16, light_samples=2, depth=8)
+SLICE_SEED = 5
 
 
 # ---------------------------------------------------------------------------
@@ -1225,17 +1259,21 @@ def main() -> int:
         clock.lap("14")
         _phase_shard(tmp, dev, card, cornell, rtc_path, big_rtc, cam64)
         clock.lap("15")
+        slice17 = _phase_slice17(tmp, dev, card, rtc_path, big_rtc, wrtc64)
+        clock.lap("16")
 
     kernels = [
         {"name": "fused_path", "route": "cuda",
          "source": "orion_tpu_torch/csrc/fused_path.cu",
          "replaces": "orion_tpu/ops/pallas_fused.py:959",
+         "phase16_launches": slice17["1"],
          "launches": fused_launches, "max_abs_err": fused_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound,
          "bound_by": f_by, "library_ms": None},
         {"name": "brute_intersect", "route": "cuda",
          "source": "orion_tpu_torch/csrc/brute_intersect.cu",
          "replaces": "orion_tpu/ops/pallas_intersect.py:87",
+         "phase16_launches": slice17["2"],
          "launches": brute_launches, "max_abs_err": brute_err,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None, "hd_ms": hd_ms,
@@ -1249,13 +1287,16 @@ def main() -> int:
          "replaces": "orion_tpu/ops/pallas_prb.py:282", **train["replay"]},
         {"name": "whitted", "route": "cuda",
          "source": "orion_tpu_torch/csrc/whitted.cu",
-         "replaces": "orion_tpu/ops/pallas_whitted.py:101", **whit},
+         "replaces": "orion_tpu/ops/pallas_whitted.py:101",
+         "phase16_launches": slice17["4"], **whit},
         {"name": "bvh_intersect", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bvh_intersect.cu",
-         "replaces": "orion_tpu/ops/pallas_bvh.py:62", **walk},
+         "replaces": "orion_tpu/ops/pallas_bvh.py:62",
+         "phase16_launches": slice17["5"] + slice17["5 any-hit"], **walk},
         {"name": "bvh_path", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bvh_path.cu",
-         "replaces": "orion_tpu/ops/pallas_bvh_path.py:569", **big},
+         "replaces": "orion_tpu/ops/pallas_bvh_path.py:569",
+         "phase16_launches": slice17["8"], **big},
         {"name": "bounce_walk", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bounce.cu",
          "replaces": "orion_tpu/ops/pallas_bounce.py:223", **bounce["walk"]},
@@ -1268,11 +1309,11 @@ def main() -> int:
         {"name": "bvh_whitted", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bvh_whitted.cu",
          "replaces": "orion_tpu/ops/pallas_bvh_whitted.py:384",
-         **big_whitted["7a"]},
+         "phase16_launches": slice17["7a"], **big_whitted["7a"]},
         {"name": "bvh_whitted_deferred", "route": "cuda",
          "source": "orion_tpu_torch/csrc/bvh_whitted.cu",
          "replaces": "orion_tpu/ops/pallas_bvh_whitted.py:689",
-         **big_whitted["7b"]},
+         "phase16_launches": slice17["7b"], **big_whitted["7b"]},
         {"name": "bvh_prb_fwd_ls", "route": "cuda",
          "source": "orion_tpu_torch/csrc/prb.cu",
          "replaces": "orion_tpu/ops/pallas_bvh_prb.py:113", **bvh_train["9a"]},
@@ -3862,6 +3903,432 @@ def _phase_shard(tmp: Path, dev, card: str, cornell, rtc_path: Path,
     print(f"[15] (b) --shard, --shard --regen and --shard --checkpoint: rank "
           f"0 alone wrote each image; the checkpoint holds {ck[1]} samples, "
           f"config {ck[4]}")
+
+
+def _slice_counts() -> dict:
+    """The launch counts phase 16 reads: kernels 1, 2, 4, 5 (nearest and
+    any hit), 7a, 7b and 8."""
+    from orion_tpu_torch.ops import brute_intersect as bi
+    from orion_tpu_torch.ops import bvh_intersect as bx
+    from orion_tpu_torch.ops import bvh_path as bp
+    from orion_tpu_torch.ops import bvh_whitted as bw
+    from orion_tpu_torch.ops import fused_path as fp
+    from orion_tpu_torch.ops import whitted as wh
+
+    return {"1": fp.KERNEL, "2": bi.KERNEL, "4": wh.KERNEL, "5": bx.KERNEL,
+            "5 any-hit": bx.ANY_HIT_KERNEL, "7a": bw.KERNEL,
+            "7b": bw.DEFERRED_KERNEL, "8": bp.KERNEL}
+
+
+def _zero(counts: dict) -> None:
+    for k in counts.values():
+        k.launches = 0
+
+
+def _read(counts: dict) -> dict:
+    return {k: v.launches for k, v in counts.items() if v.launches}
+
+
+def _sync_ms(fn):
+    """(wall ms, result) of one synchronised call of `fn`."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _intersect_calls(cfg: dict) -> int:
+    """Intersect calls of a wavefront render: each of the depth + 1
+    bounces of each sample makes a nearest call and one shadow call (the
+    stacked NEE rays, or the one light's shadow rays)."""
+    return 2 * (cfg["depth"] + 1) * cfg["samples"]
+
+
+def _slice_rank(rank: int, world: int, init: str, tmp: str,
+                paths: dict) -> None:
+    """One rank of phase 16 (a) and (d): joins the gloo group through
+    `init`, drives cuda:0, writes its results to slice-<rank>.json (rank 0
+    also render_multihost's image) under tmp."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = "0"      # every rank's device is card 0
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        res = _slice_rank_work(rank, Path(tmp), paths)
+        (Path(tmp) / f"slice-{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _slice_rank_work(rank: int, tmp: Path, paths: dict) -> dict:
+    """Phase 16 (a) and (d) on one rank: render_tp on the (1, 2) mesh (each
+    case warmed, then timed with its launches and all-gathers counted from
+    0), one all-gather of a 1080p sweep's buffer alone, and
+    render_multihost of the main path's Cornell box."""
+    import torch
+
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.parallel.distributed import (all_gather_rows,
+                                                      record_collectives,
+                                                      render_multihost)
+    from orion_tpu_torch.parallel.primitive_sharding import (make_mesh_2d,
+                                                             render_tp)
+    from orion_tpu_torch.scene import load_scene
+
+    ray, tp = make_mesh_2d(1, 2)
+    dev = tp.device
+    out = {"rank": rank, "place": [ray.rank, ray.world, tp.rank, tp.world],
+           "device": str(dev), "backend": torch.distributed.get_backend(),
+           "tp": {}}
+    counts = _slice_counts()
+    for name, key, cfg, mode in (
+            ("whitted 1080p", "whitted", TP_WHITTED, "whitted"),
+            ("path 1080p", "cornell", TP_PATH, "path"),
+            (f"levels-{BIG_LEVELS} box 256x256", "box", TP_BOX, "path")):
+        sc, rtc = load_scene(paths[key], device=dev)
+        cam = camera_from_rtc(_resized(rtc, cfg), device=dev)
+
+        def run():
+            return render_tp(sc, cam, _generator(dev, SLICE_SEED),
+                             mesh=(ray, tp), samples=cfg["samples"],
+                             max_depth=cfg["depth"],
+                             light_samples=cfg["light_samples"], mode=mode)
+
+        with torch.no_grad():
+            run()                                   # warm
+            _zero(counts)
+            torch.distributed.barrier()
+            with record_collectives() as log:
+                ms, img = _sync_ms(run)
+        out["tp"][name] = {
+            "ms": ms, "launches": _read(counts), "digest": _digest(img),
+            "gathers": sum(1 for k, _ in log if k == "all-gather"),
+            "gather_bytes": sum(b for k, b in log if k == "all-gather")}
+    # one all-gather of a 1080p sweep's [N, 2] int32 buffer alone
+    N = TP_WHITTED["xres"] * TP_WHITTED["yres"]
+    buf = torch.zeros((N, 2), dtype=torch.int32, device=dev)
+    all_gather_rows(buf, 2 * N, tp)                 # warm
+    torch.distributed.barrier()
+    with record_collectives() as log:
+        ms, _ = _sync_ms(lambda: all_gather_rows(buf, 2 * N, tp))
+    out.update(gather_ms=ms, gather_bytes=sum(b for _, b in log))
+
+    # (d) render_multihost: half the samples a rank, one all-gather
+    sc, rtc = load_scene(paths["cornell"], device=dev)
+    cam = camera_from_rtc(_resized(rtc, MULTIHOST), device=dev)
+    with torch.no_grad():
+        _zero(counts)
+        torch.distributed.barrier()
+        with record_collectives() as log:
+            ms, img = _sync_ms(lambda: render_multihost(
+                sc, cam, _generator(dev, SLICE_SEED),
+                samples=MULTIHOST["samples"], max_depth=MULTIHOST["depth"],
+                light_samples=MULTIHOST["light_samples"]))
+    out["multihost"] = {"ms": ms, "launches": _read(counts),
+                        "digest": _digest(img), "collectives": len(log),
+                        "bytes": sum(b for _, b in log)}
+    if rank == 0:
+        np.save(tmp / "slice_multihost.npy", img.cpu().numpy())
+    return out
+
+
+def _fly(rtc_path: Path, cfg: dict, dev):
+    """A camera flown from the rtc's, at cfg's resolution (the viewer's
+    keys: forward, strafe, yaw, pitch, zoom)."""
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.viewer import TURN, FlyCamera
+
+    rtc = _resized(parse_rtc(rtc_path), cfg)
+    cam = FlyCamera.from_rtc(rtc)
+    cam.move(forward=1, strafe=0.5)
+    cam.turn(dyaw=TURN * 2, dpitch=-TURN)
+    cam.zoom(3.0)
+    return camera_from_rtc(cam.apply_to_rtc(rtc), device=dev)
+
+
+def _phase_slice17(tmp: Path, dev, card: str, rtc_path: Path, big_rtc: Path,
+                   wrtc: Path) -> dict:
+    """Phase 16: the last modules of the port on the card. (a) primitive
+    sharding on two gloo ranks on the one card, (b) treelets over kernel
+    5, (c) the viewer on the five megakernel routes, (d) render_multihost
+    (an NCCL world of one, and the two ranks of (a)), (e) the example
+    ports. Returns this phase's launches by kernel. Raises on any
+    failure, a rank's included."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from orion_tpu_torch import engine, viewer
+    from orion_tpu_torch.camera import camera_from_rtc
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
+    from orion_tpu_torch.parallel.distributed import render_multihost
+    from orion_tpu_torch.render import render
+    from orion_tpu_torch.scene import load_scene
+
+    counts = _slice_counts()
+    launches = {k: 0 for k in counts}
+
+    def add(got: dict) -> None:
+        for k, v in got.items():
+            launches[k] += v
+
+    print("[16] one card: ranks that share it share its SMs, so no "
+          "multi-GPU scaling or NVLink figure can be measured here")
+    wbox_rtc = write_cornell_whitted(tmp / "p16_wbox", xres=64, yres=64,
+                                     depth=4, levels=BIG_LEVELS)
+    tex_rtc = write_cornell_whitted(tmp / "p16_tex", xres=64, yres=64,
+                                    depth=4, checker=True)
+
+    # (d) an NCCL world of one: render_multihost is render
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-p16",
+                            rank=0, world_size=1)
+    try:
+        ps = prepare(rtc_path, device=dev, xres=SHARD_ONE["xres"],
+                     yres=SHARD_ONE["yres"])
+        ocfg = dict(samples=SHARD_ONE["samples"],
+                    max_depth=SHARD_ONE["depth"],
+                    light_samples=SHARD_ONE["light_samples"],
+                    intersect=ps.intersect)
+        with torch.no_grad():
+            one = render_multihost(ps.scene, ps.camera,
+                                   _generator(dev, SLICE_SEED), **ocfg)
+            ref = render(ps.scene, ps.camera, _generator(dev, SLICE_SEED),
+                         **ocfg)
+        check(torch.equal(one, ref), "render_multihost (NCCL world of one) "
+              "!= render")
+        print(f"[16] (d) NCCL world of one {SHARD_ONE}: render_multihost "
+              f"equal to render bit for bit")
+    finally:
+        dist.destroy_process_group()
+
+    # (a, d) the single-device references, then two ranks on the one card
+    refs = {}
+    for name, path, cfg, mode in (
+            ("whitted 1080p", wrtc, TP_WHITTED, "whitted"),
+            ("path 1080p", rtc_path, TP_PATH, "path"),
+            (f"levels-{BIG_LEVELS} box 256x256", big_rtc, TP_BOX, "path")):
+        sc, rtc = load_scene(path, device=dev)
+        cam = camera_from_rtc(_resized(rtc, cfg), device=dev)
+        with torch.no_grad():
+            refs[name] = _digest(render(
+                sc, cam, _generator(dev, SLICE_SEED), samples=cfg["samples"],
+                max_depth=cfg["depth"], light_samples=cfg["light_samples"],
+                mode=mode, intersect=intersect_brute_kernel))
+    sc, rtc = load_scene(rtc_path, device=dev)
+    mcam = camera_from_rtc(_resized(rtc, MULTIHOST), device=dev)
+    with torch.no_grad():
+        mh_ms, mh_ref = _sync_ms(lambda: render(
+            sc, mcam, _generator(dev, SLICE_SEED),
+            samples=MULTIHOST["samples"], max_depth=MULTIHOST["depth"],
+            light_samples=MULTIHOST["light_samples"]))
+    paths = {"cornell": str(rtc_path), "whitted": str(wrtc),
+             "box": str(big_rtc)}
+    init = tmp / "slice-gloo.init"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_slice_rank, args=(SHARD_WORLD, str(init),
+                                                str(tmp), paths),
+                             nprocs=SHARD_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"phase 16 ranks still running after {SHARD_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    codes = [proc.exitcode for proc in ctx.processes]
+    check(codes == [0] * SHARD_WORLD, f"phase 16 rank exit codes {codes}")
+    secs = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"slice-{r}.json").read_text())
+             for r in range(SHARD_WORLD)]
+    print(f"[16] (a) {SHARD_WORLD} ranks on {ranks[0]['device']} ({card}), "
+          f"backend {ranks[0]['backend']} over CUDA tensors (staged through "
+          f"the host), a (1, 2) mesh: spawned and joined in {secs:.1f} s, "
+          f"exit codes {codes}")
+    cfgs = {"whitted 1080p": TP_WHITTED, "path 1080p": TP_PATH,
+            f"levels-{BIG_LEVELS} box 256x256": TP_BOX}
+    for r in ranks:
+        check(r["place"] == [0, 1, r["rank"], 2], f"rank {r['rank']} sits "
+              f"at {r['place']}")
+        for name, v in r["tp"].items():
+            cfg = cfgs[name]
+            calls = _intersect_calls(cfg)
+            print(f"[16] (a) rank {r['rank']} render_tp {name} {cfg}: "
+                  f"{v['ms']:.1f} ms (the second run, synchronised), "
+                  f"launches {json.dumps(v['launches'])}, {v['gathers']} "
+                  f"all-gathers of {v['gather_bytes']} bytes in all, "
+                  f"{calls} intersect calls")
+            check(v["digest"] == refs[name], f"rank {r['rank']} render_tp "
+                  f"{name}: not one device's render over the brute sweep")
+            check(v["launches"].get("2", 0) == calls == v["gathers"],
+                  f"rank {r['rank']} {name}: {v['launches']} launches, "
+                  f"{v['gathers']} all-gathers, {calls} intersect calls")
+            add({"2": v["launches"]["2"]})
+        print(f"[16] (a) rank {r['rank']}: one all-gather of a 1080p "
+              f"sweep's [N, 2] int32 buffer alone {r['gather_ms']:.2f} ms "
+              f"for {r['gather_bytes']} bytes")
+    print("[16] (a) every render_tp image is one device's render(intersect="
+          "intersect_brute_kernel) bit for bit (digests "
+          + ", ".join(refs.values()) + ")")
+    mh = np.load(tmp / "slice_multihost.npy")
+    ref = mh_ref.cpu().numpy()
+    err = float(np.abs(mh - ref).max() / np.abs(ref).max())
+    for r in ranks:
+        v = r["multihost"]
+        print(f"[16] (d) rank {r['rank']} render_multihost {MULTIHOST}: "
+              f"{v['ms']:.1f} ms, launches {json.dumps(v['launches'])}, "
+              f"{v['collectives']} collective of {v['bytes']} bytes")
+        check(v["digest"] == ranks[0]["multihost"]["digest"],
+              "render_multihost: the ranks' images differ")
+        check(v["collectives"] == 1, f"render_multihost collectives {v}")
+        add({"2": v["launches"].get("2", 0)})
+    print(f"[16] (d) render_multihost on 2 ranks: both images bit for bit "
+          f"equal; against one device's render({MULTIHOST['samples']}) "
+          f"({mh_ms:.1f} ms): max |diff| {err:.3g} of the largest entry")
+    check(err <= 1e-6, f"render_multihost vs render: {err}")
+
+    # (b) treelets over kernel 5: the cap lowered so that the box splits
+    def treelet(name, rtc, cfg, mode):
+        one = prepare(rtc, device=dev, force_backend="bvh", xres=cfg["xres"],
+                      yres=cfg["yres"])
+        check(one.backend == "bvh-kernel", f"one tree: {one.backend}")
+        cap = engine.RESIDENT_MAX_BUNDLED
+        engine.RESIDENT_MAX_BUNDLED = TREELET_CAP
+        try:
+            tl = prepare(rtc, device=dev, force_backend="bvh",
+                         xres=cfg["xres"], yres=cfg["yres"])
+        finally:
+            engine.RESIDENT_MAX_BUNDLED = cap
+        n = tl.intersect.num_treelets
+        check(tl.backend == "bvh-kernel-treelet" and n >= 3,
+              f"treelets: {tl.backend}, {n}")
+
+        def run(ps):
+            return render(ps.scene, ps.camera, _generator(dev, SLICE_SEED),
+                          samples=cfg["samples"], max_depth=cfg["depth"],
+                          light_samples=cfg["light_samples"], mode=mode,
+                          intersect=ps.intersect,
+                          shadow_intersect=ps.shadow_intersect)
+
+        with torch.no_grad():
+            _zero(counts)
+            ms, img = _sync_ms(lambda: run(tl))
+            got = _read(counts)
+            one_ms, ref = _sync_ms(lambda: run(one))
+        calls = _intersect_calls(cfg)
+        print(f"[16] (b) treelets {name} {cfg}: {n} treelets under a cap "
+              f"of {TREELET_CAP} rows (bundled rows of the one tree: "
+              f"{one.bvh.num_bundled}); {ms:.1f} ms against the one tree's "
+              f"{one_ms:.1f} ms; launches {json.dumps(got)}")
+        # path: the nearest and the NEE calls walk the nearest-hit kernel;
+        # Whitted: half the calls are shadow rays, on the any-hit chain
+        shadow = calls // 2 if mode == "whitted" else 0
+        check(got.get("5", 0) == n * (calls - shadow)
+              and got.get("5 any-hit", 0) == n * shadow,
+              f"treelet launches {got}, {n} treelets, {calls} calls")
+        fused_agree(f"(b) treelets {name} vs one tree", img.reshape(-1, 3),
+                    ref.reshape(-1, 3))
+        add(got)
+
+    treelet(f"levels-{BIG_LEVELS} path", big_rtc, TREELET_PATH, "path")
+    treelet(f"levels-{BIG_LEVELS} Whitted", wbox_rtc, TREELET_WHITTED,
+            "whitted")
+
+    # (c) the viewer on the five megakernel routes
+    for name, rtc, backend, k in (
+            ("Cornell", rtc_path, "fused-kernel", "1"),
+            (f"levels-{BIG_LEVELS} box path", big_rtc, "bvh-path-kernel",
+             "8"),
+            ("Cornell Whitted", wrtc, "fused-whitted-kernel", "4"),
+            (f"levels-{BIG_LEVELS} box Whitted", wbox_rtc,
+             "bvh-whitted-kernel", "7a"),
+            ("textured Whitted", tex_rtc, "bvh-whitted-deferred-kernel",
+             "7b")):
+        _zero(counts)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            viewer.fps_probe(str(rtc), xres=VIEWER["xres"],
+                             yres=VIEWER["yres"], samples=1,
+                             frames=VIEWER["frames"], device="cuda")
+        got = _read(counts)
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"[16] (c) fps_probe {name}: backend {rep['backend']}, "
+              f"{rep['ms_per_frame']} ms a frame, {rep['fps']} fps "
+              f"({VIEWER['frames']} frames at {VIEWER['xres']}x"
+              f"{VIEWER['yres']}, 1 spp, each written as a PNG), launches "
+              f"{json.dumps(got)}")
+        check(rep["backend"] == backend and got.get(k, 0)
+              == VIEWER["frames"] + 1, f"fps_probe {name}: {rep}, {got}")
+        add(got)
+        ps = prepare(rtc, device=dev, xres=VIEWER["xres"],
+                     yres=VIEWER["yres"])
+        depth = int(ps.rtc.recursion_level)
+        fn, built = viewer.build_preview_megakernel(ps, ps.camera, 1, depth)
+        flown = _fly(rtc, VIEWER, dev)
+        fresh, _ = viewer.build_preview_megakernel(ps, flown, 1, depth)
+        a, b = fn(0, camera_override=flown), fresh(0)
+        check(built == backend and torch.equal(a, b)
+              and float(a.max()) > 0, f"{name}: the overridden frame is "
+              "not the frame of a renderer built for that camera")
+    print("[16] (c) on each route the overridden frame equals a renderer "
+          "built for that camera bit for bit")
+    msgs = []
+    _zero(counts)
+    cam = viewer.run_viewer(str(rtc_path), xres=VIEWER["xres"],
+                            yres=VIEWER["yres"], out=str(tmp / "view.png"),
+                            dump_path=str(tmp / "dump.rtc"),
+                            input_stream=["w", "\x1b[C", "d", "p", "q"],
+                            echo=msgs.append)
+    got = _read(counts)
+    dumped = parse_rtc(tmp / "dump.rtc")
+    check(np.allclose(dumped.view_point, cam.position, atol=1e-5)
+          and (tmp / "view.png").exists()
+          and any("dumped" in m for m in msgs) and got.get("1", 0) == 5,
+          f"scripted run_viewer: {got}")
+    add(got)
+    print(f"[16] (c) scripted run_viewer on Cornell: 5 frames, launches "
+          f"{json.dumps(got)}, camera dumped to an .rtc that parses back at "
+          f"{[round(x, 4) for x in dumped.view_point]}")
+
+    # (e) the example ports, --small, side by side
+    root = Path(__file__).resolve().parent
+    procs = {}
+    for ex, extra in (("torch_render_scenes.py", [str(tmp / "ex")]),
+                      ("torch_inverse_rendering.py", []),
+                      ("torch_multichip_render.py", [])):
+        procs[ex] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, str(root / "examples" / ex), *extra, "--small"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for ex, (t0, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        secs = time.perf_counter() - t0
+        print(f"[16] (e) examples/{ex} --small: exit {proc.returncode} in "
+              f"{secs:.1f} s")
+        for line in out.strip().splitlines():
+            print(f"[16] (e)   {line}")
+        check(proc.returncode == 0, f"examples/{ex}: {err[-2000:]}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -27,8 +27,11 @@ grouped-pointer walk (ops/bvh_g8.py); host services: resumable
 accumulation (io/checkpoint.py) and profiling (profiling.py); ray
 sharding over torch.distributed (parallel/: the sharded wavefronts and
 train steps, the megakernels on pixel tiles; regen and checkpoint on
-ranks; the CLI's --shard). Not yet: render_multihost, primitive
-sharding, the viewer and the examples.
+ranks; the CLI's --shard), sample-parallel rendering
+(`parallel.distributed.render_multihost` over `render(sample_offset=)`),
+primitive sharding (parallel/primitive_sharding.py) and treelets
+(engine.py); the viewer (viewer.py, flying the megakernels through their
+`camera_override`) and the examples (examples/torch_*.py).
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """
 
@@ -48,7 +51,10 @@ from orion_tpu_torch.engine import (                         # noqa: F401
     render_report,
 )
 from orion_tpu_torch.render import render, trace_wavefront   # noqa: F401
-from orion_tpu_torch.regen import render_regen               # noqa: F401
+from orion_tpu_torch.regen import (                          # noqa: F401
+    render_regen,
+    render_regen_shardmap,
+)
 from orion_tpu_torch.io.checkpoint import render_accumulate  # noqa: F401
 from orion_tpu_torch.validate import SceneValidationError    # noqa: F401
 from orion_tpu_torch.optim import FitResult, fit             # noqa: F401

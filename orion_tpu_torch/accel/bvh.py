@@ -31,8 +31,9 @@ Node array schema (M = node count; all int32/float32):
   tri_orig         : [B]      global scene triangle id per bundled row
                               (-1 on padding rows)
 
-Not carried over: `partition_triangles` (the treelet decomposition of the
-TPU's on-chip residency cap; it comes with primitive sharding).
+`partition_triangles` cuts a scene into spatial slabs for the treelet
+decomposition (engine._make_treelet_intersect): the same masks as the JAX
+package's on the same input.
 """
 
 from __future__ import annotations
@@ -286,6 +287,44 @@ def _flatten(root: _Node, leaf_width: int,
     return (np.asarray(node_lo, np.float32), np.asarray(node_hi, np.float32),
             np.asarray(node_skip, np.int32), np.asarray(node_start, np.int32),
             np.asarray(node_count, np.int32), order)
+
+
+def partition_triangles(tri_v0: np.ndarray, tri_e1: np.ndarray,
+                        tri_e2: np.ndarray, valid: Optional[np.ndarray],
+                        max_tris: int) -> List[np.ndarray]:
+    """Spatial slab partition: valid triangles sorted (stably) by centroid
+    along the longest axis of the centroids' bounds, cut into equal parts
+    of <= max_tris.
+
+    The treelet decomposition of scenes past engine.RESIDENT_MAX_BUNDLED:
+    each part gets its own BVH (global triangle ids kept through the
+    `valid` mask), the walks visit the parts in turn, and spatial
+    contiguity keeps each part's root box tight, so a ray that misses a
+    part leaves its walk at the root.
+
+    Returns a list of boolean masks over the full triangle array.
+    """
+    tri_v0 = np.asarray(tri_v0, np.float32)
+    T = tri_v0.shape[0]
+    if valid is None:
+        valid = np.ones(T, bool)
+    ids = np.nonzero(np.asarray(valid))[0]
+    v1 = tri_v0[ids] + np.asarray(tri_e1, np.float32)[ids]
+    v2 = tri_v0[ids] + np.asarray(tri_e2, np.float32)[ids]
+    lo = np.minimum(np.minimum(tri_v0[ids], v1), v2)
+    hi = np.maximum(np.maximum(tri_v0[ids], v1), v2)
+    cen = 0.5 * (lo + hi)
+    axis = int(np.argmax(cen.max(axis=0) - cen.min(axis=0)))
+    order = ids[np.argsort(cen[:, axis], kind="stable")]
+    n_parts = -(-len(order) // max_tris)
+    per = -(-len(order) // n_parts)
+    masks = []
+    for p in range(n_parts):
+        m = np.zeros(T, bool)
+        m[order[p * per:(p + 1) * per]] = True
+        if m.any():
+            masks.append(m)
+    return masks
 
 
 def build_bvh(tri_v0: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray,

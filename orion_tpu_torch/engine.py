@@ -15,11 +15,12 @@ Backend selection:
     ("bvh-torch"). A CUDA scene never takes "bvh-torch" unless `force`
     names it.
 
-There is no treelet branch: the JAX package splits scenes whose bundled
-rows exceed its kernel's on-chip residency cap (RESIDENT_MAX_BUNDLED) into
-spatial treelets; here device memory holds the whole tree, so neither the
-cap nor the treelets are carried over (treelets come with primitive
-sharding).
+  - past RESIDENT_MAX_BUNDLED bundled rows: spatial treelets
+    ("bvh-kernel-treelet", `_make_treelet_intersect`), each its own tree
+    and its own walk-kernel closures, visited in turn. The JAX package's
+    cap is its kernel's on-chip residency; the card holds any tree in
+    device memory, and the port's cap is the walk kernel's int32 indexing
+    of the row table instead. No scene the port renders comes near it.
 
 The megakernel routes (cli.py: make_big_path_renderer for path scenes
 past the fused gate, make_whitted_megakernel for point-light scenes) do
@@ -48,6 +49,16 @@ BRUTE_MAX_TRIS = 1024
 # leaf's rows one after another, so small leaves suit it (PERF.md has the
 # measurement; the JAX package builds 128-wide leaves for its lane width)
 GPU_LEAF_SIZE = 2
+# the most bundled rows one tree of the walk kernel (kernel 5) may hold:
+# csrc/bvh_intersect.cu indexes the [B_pad, 16] float32 row table with an
+# int row k and reads row k at float4 index 4 k, i.e. float offset 16 k;
+# every float offset of the table fits int32 while B_pad * 16 <= 2^31, so
+# B_pad <= 2^31 / 16 = 2^27 rows. Past it select_intersect splits the
+# scene into treelets.
+RESIDENT_MAX_BUNDLED = 2 ** 31 // 16
+# partition headroom: bundled rows exceed the triangle count by the leaves'
+# padding; a part that still overflows is split again
+TREELET_MARGIN = 1.8
 
 
 @dataclasses.dataclass
@@ -82,7 +93,9 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
     force: "brute" | "bvh" overrides the size heuristic; "bvh-kernel" and
     "bvh-torch" also pin the implementation (the walk kernel needs a CUDA
     scene, except that on a CPU scene it runs as its plain version, like
-    every kernel wrapper).
+    every kernel wrapper). A walk-kernel tree of more than
+    RESIDENT_MAX_BUNDLED rows becomes treelets: ("bvh-kernel-treelet",
+    bvh None).
     """
     if force not in _FORCE:
         raise ValueError(f"unknown intersection backend {force!r}")
@@ -101,6 +114,9 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
         bvh, stats = build_scene_bvh(scene, strategy=strategy,
                                      leaf_size=GPU_LEAF_SIZE,
                                      order_signs=order_signs)
+        if bvh.num_bundled > RESIDENT_MAX_BUNDLED:
+            fn, stats = _make_treelet_intersect(scene, strategy, order_signs)
+            return fn, "bvh-kernel-treelet", None, stats
         return (make_bvh_intersect_kernel(bvh, scene), "bvh-kernel", bvh,
                 stats)
     bvh, stats = build_scene_bvh(scene, strategy=strategy,
@@ -109,6 +125,78 @@ def select_intersect(scene: Scene, *, strategy: str = SAH,
     from orion_tpu_torch.ops.bvh_traverse import make_bvh_intersect
 
     return make_bvh_intersect(bvh), "bvh-torch", bvh, stats
+
+
+def _make_treelet_intersect(scene: Scene, strategy: str, order_signs):
+    """(intersect, BuildStats) of a scene cut into spatial treelets.
+
+    The slabs of accel/bvh.partition_triangles (at most
+    RESIDENT_MAX_BUNDLED / TREELET_MARGIN triangles each) get their own
+    tree at the walk kernel's leaf size, their own device layout and their
+    own nearest and any-hit walk-kernel closures; a part whose bundled rows
+    still exceed the cap is split again. The intersect walks the parts in
+    turn and keeps a hit only where its t is strictly less than the best
+    so far, so the earlier part wins a tie. Its `any_hit_variant` chains
+    the any-hit walks and narrows `alive` between parts: a ray occluded by
+    part k walks no later part. `num_treelets` counts the parts."""
+    from orion_tpu_torch.accel.bvh import build_bvh, partition_triangles
+    from orion_tpu_torch.ops.bvh_intersect import (_bvh_device_layout,
+                                                   make_bvh_intersect_kernel)
+    from orion_tpu_torch.ops.intersect import Hit
+
+    v0, e1, e2 = (scene.numpy(f) for f in ("tri_v0", "tri_e1", "tri_e2"))
+    valid = scene.numpy("tri_valid")
+    queue = partition_triangles(v0, e1, e2, valid,
+                                int(RESIDENT_MAX_BUNDLED / TREELET_MARGIN))
+    closers, shadow_closers = [], []
+    total = BuildStats()
+    while queue:
+        mask = queue.pop(0)
+        bvh, st = build_bvh(v0, e1, e2, mask, strategy=strategy,
+                            leaf_size=GPU_LEAF_SIZE, order_signs=order_signs)
+        if bvh.num_bundled > RESIDENT_MAX_BUNDLED:
+            queue.extend(partition_triangles(v0, e1, e2, mask,
+                                             int(mask.sum()) // 2 + 1))
+            continue
+        layout = _bvh_device_layout(bvh, scene.device)
+        closers.append(make_bvh_intersect_kernel(bvh, scene, layout=layout))
+        shadow_closers.append(make_bvh_intersect_kernel(
+            bvh, scene, any_hit=True, layout=layout))
+        total.nodes += st.nodes
+        total.leaves += st.leaves
+        total.max_depth = max(total.max_depth, st.max_depth)
+        total.padded_tris += st.padded_tris
+
+    def intersect(scene, orig, dirs, *, alive=None) -> Hit:
+        n, dev = orig.shape[0], orig.device
+        t = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+        tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        for fn in closers:
+            h = fn(scene, orig, dirs, alive=alive)
+            better = h.t < t
+            t = torch.where(better, h.t, t)
+            tri = torch.where(better, h.tri_id, tri)
+        return Hit(t=t, tri_id=tri)
+
+    def any_hit_intersect(scene, orig, dirs, *, alive=None) -> Hit:
+        n, dev = orig.shape[0], orig.device
+        occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+        tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        live = (torch.ones((n,), dtype=torch.bool, device=dev)
+                if alive is None else alive.to(torch.bool))
+        for fn in shadow_closers:
+            h = fn(scene, orig, dirs, alive=live & ~occluded)
+            new = h.mask & ~occluded
+            tri = torch.where(new, h.tri_id, tri)
+            occluded = occluded | (h.mask & live)
+        inf = torch.full((n,), float("inf"), dtype=torch.float32,
+                         device=dev)
+        return Hit(t=torch.where(occluded, torch.ones_like(inf), inf),
+                   tri_id=tri)
+
+    intersect.any_hit_variant = any_hit_intersect
+    intersect.num_treelets = len(closers)
+    return intersect, total
 
 
 # Megakernel candidates for path scenes past the fused brute gate, in the
@@ -247,7 +335,9 @@ def _select_with_shadow(scene: Scene, strategy: str,
                                                force=force_backend,
                                                order_signs=signs)
     shadow_fn = None
-    if backend == "bvh-kernel" and scene.num_lights > 0:
+    if backend == "bvh-kernel-treelet" and scene.num_lights > 0:
+        shadow_fn = fn.any_hit_variant
+    elif backend == "bvh-kernel" and scene.num_lights > 0:
         # Whitted scenes get the any-hit walk for shadow rays; both
         # closures share ONE device layout. Path scenes never read
         # shadow_intersect (NEE needs the nearest hit's mesh).

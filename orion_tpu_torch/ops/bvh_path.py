@@ -42,6 +42,7 @@ from orion_tpu_torch.ops.fused_path import (_C_AREA, _C_KD, _C_KE, _C_MESH,
                                             FUSED_MAX_EMITTER_TRIS,
                                             FUSED_MAX_EMITTERS, _f32,
                                             _regen_steps, camera_vec,
+                                            override_camera_vec,
                                             pack_emitters)
 from orion_tpu_torch.ops.reorder import direction_octant
 from orion_tpu_torch.ops.woop import BIG, woop_rows_np
@@ -415,12 +416,15 @@ def make_bvh_path_renderer(scene: Scene, camera, *, samples: int,
                            leaf_width: int = GPU_LEAF_WIDTH,
                            octants: int = 1, builder: str = "auto",
                            bvh: BVH | None = None):
-    """Build `fn(seed: int, pix_base=0, n_lanes=None) -> image`: the whole
-    path-traced render (all samples, all bounces, all NEE shadow walks) as
-    one BVH megakernel launch on the scene's device (the plain version on
-    the CPU). The whole image comes back as [H, W, 3]; a tile (pix_base /
-    n_lanes given) as [n_lanes, 3]. Raises ValueError outside the gate
-    (textures / emitters). `fn.data` holds the kernel's tensors."""
+    """Build `fn(seed: int, pix_base=0, n_lanes=None, camera_override=None)
+    -> image`: the whole path-traced render (all samples, all bounces, all
+    NEE shadow walks) as one BVH megakernel launch on the scene's device
+    (the plain version on the CPU). The whole image comes back as [H, W,
+    3]; a tile (pix_base / n_lanes given) as [n_lanes, 3].
+    `camera_override`, a camera of the same resolution, replaces the build
+    camera's vector (the tree and tables stay). Raises ValueError outside
+    the gate (textures / emitters). `fn.data` holds the kernel's
+    tensors."""
     if not bvh_path_supported(scene):
         raise ValueError("scene outside the bvh-path gate "
                          "(textures / emitters)")
@@ -431,8 +435,11 @@ def make_bvh_path_renderer(scene: Scene, camera, *, samples: int,
     em = torch.as_tensor(pack_emitters(scene), device=scene.device)
     cam = camera_vec(camera).to(scene.device)
 
-    def render_bvh_path(seed: int, pix_base: int = 0, n_lanes=None):
-        out = bvh_path(nodes, tab, em, cam, seed, W, H, samples, max_depth,
+    def render_bvh_path(seed: int, pix_base: int = 0, n_lanes=None,
+                        camera_override=None):
+        cv = (cam if camera_override is None else
+              override_camera_vec(camera_override, W, H, scene.device))
+        out = bvh_path(nodes, tab, em, cv, seed, W, H, samples, max_depth,
                        light_samples, leaf_width=leaf_width, copies=octants,
                        pix_base=pix_base, n_lanes=n_lanes)
         if pix_base == 0 and n_lanes is None:

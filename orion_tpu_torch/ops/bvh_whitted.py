@@ -56,7 +56,8 @@ from orion_tpu_torch.ops.bvh_path import (GPU_LEAF_WIDTH, TreeData,
                                           pack_bvh_path_table, untextured)
 from orion_tpu_torch.ops.cuda_build import (CudaKernel, check_inputs,
                                             stream_ptr)
-from orion_tpu_torch.ops.fused_path import _f32, camera_vec
+from orion_tpu_torch.ops.fused_path import (_f32, camera_vec,
+                                            override_camera_vec)
 from orion_tpu_torch.ops.prb import _seed32
 from orion_tpu_torch.ops.shade import diffuse_color, specular_color
 from orion_tpu_torch.ops.whitted import (_C_KA, _C_KS, _C_SHIN, _C_UV,
@@ -216,10 +217,12 @@ def make_bvh_whitted_renderer(scene: Scene, camera, *, samples: int,
                               leaf_width: int = GPU_LEAF_WIDTH,
                               octants: int = 1, builder: str = "auto",
                               bvh: BVH | None = None):
-    """Build `fn(seed: int, pix_base=0, n_lanes=None) -> image`: the whole
-    Whitted render (all samples, bounces and shadow walks) as one launch of
-    kernel 7a on the scene's device (the plain version on the CPU). The
-    whole image comes back as [H, W, 3], a tile as [n_lanes, 3]. Raises
+    """Build `fn(seed: int, pix_base=0, n_lanes=None, camera_override=None)
+    -> image`: the whole Whitted render (all samples, bounces and shadow
+    walks) as one launch of kernel 7a on the scene's device (the plain
+    version on the CPU). The whole image comes back as [H, W, 3], a tile
+    as [n_lanes, 3]. `camera_override`, a camera of the same resolution,
+    replaces the build camera's vector (the tree and tables stay). Raises
     ValueError outside the gate (textures / lights). `fn.data` holds the
     kernel's tensors."""
     if not bvh_whitted_supported(scene):
@@ -233,8 +236,11 @@ def make_bvh_whitted_renderer(scene: Scene, camera, *, samples: int,
     cam = camera_vec(camera).to(scene.device)
     with_em = scene.num_emissive > 0
 
-    def render_bvh_whitted(seed: int, pix_base: int = 0, n_lanes=None):
-        out = bvh_whitted(nodes, tab, lights, cam, seed, W, H, samples,
+    def render_bvh_whitted(seed: int, pix_base: int = 0, n_lanes=None,
+                           camera_override=None):
+        cv = (cam if camera_override is None else
+              override_camera_vec(camera_override, W, H, scene.device))
+        out = bvh_whitted(nodes, tab, lights, cv, seed, W, H, samples,
                           max_depth, with_em, leaf_width=leaf_width,
                           copies=octants, pix_base=pix_base, n_lanes=n_lanes)
         if pix_base == 0 and n_lanes is None:
@@ -411,7 +417,9 @@ def make_bvh_whitted_deferred(scene: Scene, camera, *, samples: int,
     textured Whitted render as one launch of kernel 7b on a CUDA scene, and
     as the plain version's record chunks (MAX_REC_GROUPS // (max_depth + 1)
     samples each) resolved and folded by `deferred_epilogue` on the CPU.
-    [H, W, 3] for the whole image, [n_lanes, 3] for a tile. Raises
+    [H, W, 3] for the whole image, [n_lanes, 3] for a tile.
+    `camera_override` (fn's fourth argument), a camera of the same
+    resolution, replaces the build camera's vector. Raises
     ValueError outside the gate (depth / lights). `fn.data` holds the
     kernel's tensors and the plain version's chunks."""
     if not bvh_whitted_deferred_supported(scene, max_depth):
@@ -430,9 +438,12 @@ def make_bvh_whitted_deferred(scene: Scene, camera, *, samples: int,
     chunks = [(c, min(sample_chunk, samples - c))
               for c in range(0, samples, sample_chunk)]
 
-    def render_deferred(seed: int, pix_base: int = 0, n_lanes=None):
+    def render_deferred(seed: int, pix_base: int = 0, n_lanes=None,
+                        camera_override=None):
+        cv = (cam if camera_override is None else
+              override_camera_vec(camera_override, W, H, scene.device))
         out = bvh_whitted_textured(
-            scene, nodes, tab, lights, cam, seed, W, H, samples, max_depth,
+            scene, nodes, tab, lights, cv, seed, W, H, samples, max_depth,
             with_em, leaf_width=leaf_width, copies=octants,
             pix_base=pix_base, n_lanes=n_lanes, texels=texels,
             sample_chunk=sample_chunk)

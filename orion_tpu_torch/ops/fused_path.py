@@ -176,6 +176,17 @@ def camera_vec(camera) -> torch.Tensor:
                       camera.up]).to(torch.float32).contiguous()
 
 
+def override_camera_vec(camera_override, W: int, H: int, device):
+    """The [12] camera tensor of a renderer's `camera_override` on `device`:
+    a camera of the build camera's W x H, or ValueError (the renderer's
+    lane count and pixel steps are the build camera's)."""
+    if (camera_override.xres, camera_override.yres) != (W, H):
+        raise ValueError(f"camera_override is {camera_override.xres}x"
+                         f"{camera_override.yres}; the renderer was built "
+                         f"for {W}x{H}")
+    return camera_vec(camera_override).to(device)
+
+
 def fused_args(scene: Scene, camera):
     """(tab, clo, chi, em, cam): the path kernels' tensors on the scene's
     device."""
@@ -764,7 +775,13 @@ def make_fused_path_renderer(scene: Scene, camera, *, samples: int,
     megakernel on the scene's device (the plain version on the CPU).
 
     The tables are built once here; `seed` is the int32 PCG seed, so calls
-    with different seeds give independent estimates.
+    with different seeds give independent estimates. `camera_override` (a
+    camera of the same resolution) flies the camera without rebuilding a
+    table: its vector replaces the build camera's (the viewer). `tab`
+    replaces the triangle table (pack_fused_tri_table_torch of a scene
+    with other materials), so an optimisation loop re-renders updated
+    materials with the same renderer; the chunk bounds stay the build
+    geometry's, so only material columns may change.
     """
     if not fused_path_supported(scene):
         raise ValueError("scene outside the fused-path gate "
@@ -772,9 +789,15 @@ def make_fused_path_renderer(scene: Scene, camera, *, samples: int,
     H, W = camera.yres, camera.xres
     args = fused_args(scene, camera)
 
-    def render_fused(seed: int) -> torch.Tensor:
-        out = fused_path(*args, seed, W, H, samples, max_depth,
-                         light_samples)
+    def render_fused(seed: int, camera_override=None,
+                     tab=None) -> torch.Tensor:
+        tab_, clo, chi, em, cam = args
+        if camera_override is not None:
+            cam = override_camera_vec(camera_override, W, H, tab_.device)
+        if tab is not None:
+            tab_ = tab.detach().to(torch.float32).contiguous()
+        out = fused_path(tab_, clo, chi, em, cam, seed, W, H, samples,
+                         max_depth, light_samples)
         return out.reshape(H, W, 3)
 
     return render_fused

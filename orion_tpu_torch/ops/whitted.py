@@ -35,7 +35,8 @@ from orion_tpu_torch.ops.cuda_build import CudaKernel, stream_ptr
 from orion_tpu_torch.ops.fused_path import (
     BIAS, FUSED_MAX_TRIS, _C_AREA, _C_KD, _C_KE, _C_MESH, _C_N0, _C_N1, _C_N2,
     _C_WOOP, _f32, _fused_t_pad, _make_primary, _norm3, camera_vec,
-    check_tables, fused_chunk_bounds, pack_fused_tri_table)
+    check_tables, fused_chunk_bounds, override_camera_vec,
+    pack_fused_tri_table)
 from orion_tpu_torch.ops.woop import BIG, nearest_rows, woop_tuv
 from orion_tpu_torch.scene import Scene
 
@@ -362,9 +363,10 @@ def whitted_args(scene: Scene, camera):
 
 def make_fused_whitted_renderer(scene: Scene, camera, *, samples: int,
                                 max_depth: int):
-    """Build `fn(seed: int) -> [H, W, 3]` rendering with the Whitted kernel
-    on the scene's device (the plain version on the CPU); `seed` is the
-    int32 PCG seed."""
+    """Build `fn(seed: int, camera_override=None) -> [H, W, 3]` rendering
+    with the Whitted kernel on the scene's device (the plain version on the
+    CPU); `seed` is the int32 PCG seed, `camera_override` a camera of the
+    same resolution whose vector replaces the build camera's."""
     if not fused_whitted_supported(scene):
         raise ValueError("scene outside the fused-whitted gate "
                          "(textures / lights / size)")
@@ -372,9 +374,13 @@ def make_fused_whitted_renderer(scene: Scene, camera, *, samples: int,
     args = whitted_args(scene, camera)
     with_emissive = scene.num_emissive > 0
 
-    def render_whitted_fused(seed: int) -> torch.Tensor:
-        out = fused_whitted(*args, seed, W, H, samples, max_depth,
-                            with_emissive)
+    def render_whitted_fused(seed: int,
+                             camera_override=None) -> torch.Tensor:
+        tab, clo, chi, lights, cam = args
+        if camera_override is not None:
+            cam = override_camera_vec(camera_override, W, H, tab.device)
+        out = fused_whitted(tab, clo, chi, lights, cam, seed, W, H, samples,
+                            max_depth, with_emissive)
         return out.reshape(H, W, 3)
 
     return render_whitted_fused

@@ -1,6 +1,7 @@
 """Multi-device rendering and training over `torch.distributed`: ray
 sharding (sharding.py, shardmap_render.py), the megakernels on pixel
-tiles (fused_shard.py) and the process group (distributed.py)."""
+tiles (fused_shard.py), primitive sharding (primitive_sharding.py),
+sample-parallel rendering and the process group (distributed.py)."""
 
 from orion_tpu_torch.parallel.sharding import (  # noqa: F401
     make_mesh,
@@ -11,4 +12,9 @@ from orion_tpu_torch.parallel.sharding import (  # noqa: F401
 from orion_tpu_torch.parallel.shardmap_render import (  # noqa: F401
     make_train_step_shardmap,
     render_shardmap,
+)
+from orion_tpu_torch.parallel.primitive_sharding import (  # noqa: F401
+    make_mesh_2d,
+    make_tp_intersect,
+    render_tp,
 )

@@ -21,9 +21,10 @@ through the host (gloo's own CUDA support varies by collective and
 build). NCCL refuses two ranks on one device, so a world of several ranks
 on one card runs on gloo, and says so.
 
-`render_multihost` (sample-parallel rendering) is not ported: it splits
-samples by `render(sample_offset=)`, and the port's sequential generator
-has no sample offset.
+`render_multihost` splits the samples instead of the pixels: each rank
+renders its share of the samples on its device (`render(sample_offset=)`
+skips the samples of the ranks before it in the shared stream), and one
+all-gather merges the weighted parts.
 """
 
 from __future__ import annotations
@@ -159,6 +160,47 @@ def record_collectives():
         yield log
     finally:
         _RECORDERS.remove(log)
+
+
+def render_multihost(scene, camera, generator, *, samples: int,
+                     max_depth: int = 1, light_samples: int = 2,
+                     mode=None, intersect=None, shadow_intersect=None
+                     ) -> torch.Tensor:
+    """Sample-parallel render over the default process group (a world of
+    one without it): rank p of n renders the samples [offset, offset +
+    mine) of the stream of `generator` (every rank passes an identical
+    one, on its device), with mine and offset split as divmod splits
+    `samples`, weights its image by mine / samples, and ONE all-gather
+    brings every rank's part; every rank sums the parts in rank order, so
+    each holds the same [H, W, 3] image bit for bit, and that image is
+    `render(samples=samples)`'s up to float summation. A rank without
+    samples contributes zeros."""
+    from orion_tpu_torch.parallel.sharding import Mesh
+    from orion_tpu_torch.render import render
+
+    dev = camera.device
+    if dist.is_initialized():
+        mesh = Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(),
+                    dev)
+    else:
+        mesh = Mesh(None, 0, 1, dev)
+    base, extra = divmod(samples, mesh.world)
+    mine = base + (1 if mesh.rank < extra else 0)
+    offset = mesh.rank * base + min(mesh.rank, extra)
+    H, W = camera.yres, camera.xres
+    if mine > 0:
+        img = render(scene, camera, generator, samples=mine,
+                     max_depth=max_depth, light_samples=light_samples,
+                     mode=mode, intersect=intersect,
+                     shadow_intersect=shadow_intersect, sample_offset=offset)
+        part = img * (mine / samples)
+    else:
+        part = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+    parts = all_gather_rows(part.reshape(1, -1).detach(), mesh.world, mesh)
+    out = parts[0]
+    for r in range(1, mesh.world):
+        out = out + parts[r]
+    return out.reshape(H, W, 3)
 
 
 def measure_collective_bytes(fn, *args, **kwargs) -> dict:

@@ -385,6 +385,24 @@ def trace_wavefront(scene: Scene, orig: torch.Tensor, dirs: torch.Tensor,
     return torch.zeros_like(total).index_copy(0, pix, total)
 
 
+def skip_samples(scene: Scene, generator: torch.Generator, k: int, H: int,
+                 W: int, dev, *, max_depth: int, light_samples: int,
+                 mode: Optional[str], shared_jitter: bool = True) -> None:
+    """Advance `generator` past k samples of render's per-sample loop over
+    an H x W image: each sample's jitter, then for each of the
+    max_depth + 1 bounces of a path trace `_path_draws`' three tensors (a
+    Whitted trace draws none), in those shapes and that order, dropped.
+    trace_wavefront draws them whatever the rays hit (every ray's, live or
+    retired, every bounce), so the count depends on no data."""
+    if mode is None:
+        mode = "whitted" if scene.num_lights > 0 else "path"
+    for _ in range(k):
+        _rand(generator, (2,) if shared_jitter else (2, H, W), dev)
+        if mode == "path":
+            for _ in range(max_depth + 1):
+                _path_draws(scene, generator, light_samples, H * W, dev)
+
+
 def render(scene: Scene, camera: Camera, generator: torch.Generator, *,
            samples: int = 1, max_depth: int = 1, light_samples: int = 2,
            mode: Optional[str] = None,
@@ -393,7 +411,8 @@ def render(scene: Scene, camera: Camera, generator: torch.Generator, *,
            normal_maps: bool = False, sort_bounces=False,
            shadow_intersect: Optional[IntersectFn] = None,
            prune_zero: bool = True, remat=False,
-           fold_samples: bool = False) -> torch.Tensor:
+           fold_samples: bool = False,
+           sample_offset: int = 0) -> torch.Tensor:
     """Render an [H, W, 3] image with `samples` jittered samples per pixel.
 
     shared_jitter=True replicates the reference's shared sub-pixel pattern
@@ -409,11 +428,28 @@ def render(scene: Scene, camera: Camera, generator: torch.Generator, *,
     resolutions. The same estimator from another order of the uniforms,
     so images differ from the per-sample loop's at the noise level.
     normal_maps and remat are trace_wavefront's.
+
+    sample_offset=k renders the samples k .. k + samples - 1 of the
+    stream `generator` starts: `render(samples=m, sample_offset=k)` is
+    those m samples of `render(samples=k + m)` with the same generator
+    state (parallel/distributed.render_multihost splits samples so). The
+    generator first draws the uniforms of k samples and drops them
+    (`skip_samples`). Not with fold_samples, which draws all samples'
+    jitters first.
     """
     H, W = camera.yres, camera.xres
     dev = camera.device
     px = 2.0 / W
     py = 2.0 / H
+    if sample_offset < 0:
+        raise ValueError(f"sample_offset {sample_offset} < 0")
+    if fold_samples and sample_offset:
+        raise ValueError("fold_samples draws every sample's jitter first; "
+                         "sample_offset skips whole samples of the "
+                         "per-sample loop")
+    skip_samples(scene, generator, sample_offset, H, W, dev,
+                 max_depth=max_depth, light_samples=light_samples, mode=mode,
+                 shared_jitter=shared_jitter)
     trace = dict(max_depth=max_depth, light_samples=light_samples,
                  mode=mode, intersect=intersect,
                  reference_frame=reference_frame, normal_maps=normal_maps,

@@ -1606,3 +1606,156 @@ def test_shardmap_world_of_one_on_nccl(tmp_path, cuda_device):
             ps.scene.mat_diffuse.numel() + 1)
     finally:
         dist.destroy_process_group()
+
+
+def _flown(rtc_path, xres, yres, device):
+    """A camera flown from the rtc's at xres x yres (the viewer's keys)."""
+    from orion_tpu_torch.io.rtc import parse_rtc
+    from orion_tpu_torch.viewer import FlyCamera
+
+    rtc = parse_rtc(rtc_path)
+    rtc.xres, rtc.yres = xres, yres
+    cam = FlyCamera.from_rtc(rtc)
+    cam.move(forward=1, strafe=0.5)
+    cam.turn(dyaw=0.14, dpitch=-0.07)
+    cam.zoom(3.0)
+    return camera_from_rtc(cam.apply_to_rtc(rtc), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["1", "8", "4", "7a", "7b"])
+def test_camera_override_on_card_equals_a_fresh_renderer(tmp_path,
+                                                          cuda_device, name):
+    """Each megakernel flown through camera_override renders, bit for bit,
+    the frame of a renderer built for that camera (kernels 1, 8, 4, 7a,
+    7b at 96x64)."""
+    W, H = 96, 64
+    if name in ("1", "8"):
+        rtc = write_cornell(tmp_path, xres=W, yres=H, depth=3)
+    else:
+        rtc = write_cornell_whitted(tmp_path, xres=W, yres=H, depth=3,
+                                    checker=name == "7b")
+    sc, r = load_scene(rtc, device=cuda_device)
+    if name in ("8", "7a"):
+        sc = subdivide_scene(sc, levels=3)
+    make = {"1": lambda c: fp.make_fused_path_renderer(
+                sc, c, samples=2, max_depth=3),
+            "8": lambda c: bp.make_bvh_path_renderer(
+                sc, c, samples=2, max_depth=3),
+            "4": lambda c: wh.make_fused_whitted_renderer(
+                sc, c, samples=2, max_depth=3),
+            "7a": lambda c: bw.make_bvh_whitted_renderer(
+                sc, c, samples=2, max_depth=3),
+            "7b": lambda c: bw.make_bvh_whitted_deferred(
+                sc, c, samples=2, max_depth=3)}[name]
+    kernel = {"1": fp.KERNEL, "8": bp.KERNEL, "4": wh.KERNEL,
+              "7a": bw.KERNEL, "7b": bw.DEFERRED_KERNEL}[name]
+    fn = make(camera_from_rtc(r, device=cuda_device))
+    flown = _flown(rtc, W, H, cuda_device)
+    before = kernel.launches
+    a = fn(7, camera_override=flown)
+    assert kernel.launches == before + 1
+    b = make(flown)(7)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and float(a.max()) > 0
+    assert not torch.equal(a, fn(7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "levels-4"])
+def test_tp_slab_sweeps_on_kernel2_merge_to_the_whole_sweep(tmp_path,
+                                                            cuda_device,
+                                                            name):
+    """Primitive sharding's slab sweeps on kernel 2, merged rank by rank,
+    equal intersect_brute_kernel over the whole table bit for bit."""
+    from orion_tpu_torch.parallel.primitive_sharding import (merge_slab_hits,
+                                                             slab_hit)
+
+    sc, _ = _scene(tmp_path, cuda_device, name)
+    o, d, alive = random_rays(1 << 18, 3, cuda_device)
+    ref = bi.intersect_brute_kernel(sc, o, d, alive=alive)
+    for n_tp in (2, 3, 8):
+        before = bi.KERNEL.launches
+        parts = [slab_hit(sc, o, d, alive, k, n_tp) for k in range(n_tp)]
+        assert bi.KERNEL.launches == before + n_tp
+        h = merge_slab_hits(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]))
+        assert torch.equal(h.tri_id, ref.tri_id) and torch.equal(h.t, ref.t)
+    assert float(ref.mask.float().mean()) > 0.5
+
+
+@pytest.mark.gpu
+def test_treelet_intersect_on_kernel5_matches_one_tree(tmp_path, cuda_device,
+                                                       monkeypatch):
+    """The treelet intersect (kernel 5 on every part, nearest and any hit)
+    against the one-tree walk of the levels-4 box: on random rays from
+    inside the room hit masks equal and t within rtol 1e-5 (rays from
+    inside a box meet its bottom and the floor at one t, and that tie may
+    break the other way across trees: 0.14% of the ids); on the camera's
+    primary rays ids on >= 99.9% of the hits and t bit for bit."""
+    from orion_tpu_torch import engine
+    from orion_tpu_torch.camera import primary_rays
+
+    sc, cam = _scene(tmp_path, cuda_device, "levels-4", xres=256, yres=256)
+    fn1, name, bvh, _ = engine.select_intersect(sc)
+    assert name == "bvh-kernel"
+    monkeypatch.setattr(engine, "RESIDENT_MAX_BUNDLED", bvh.num_bundled // 3)
+    fn, name, tree, _ = engine.select_intersect(sc)
+    assert name == "bvh-kernel-treelet" and tree is None
+    assert fn.num_treelets >= 3
+    o, d, alive = random_rays(1 << 18, 4, cuda_device)
+    before = (bx.KERNEL.launches, bx.ANY_HIT_KERNEL.launches)
+    h, ref = fn(sc, o, d, alive=alive), fn1(sc, o, d, alive=alive)
+    a = fn.any_hit_variant(sc, o, d, alive=alive)
+    assert (bx.KERNEL.launches - before[0] - 1,
+            bx.ANY_HIT_KERNEL.launches - before[1]) == (fn.num_treelets,
+                                                       fn.num_treelets)
+    assert torch.equal(h.mask, ref.mask) and torch.equal(a.mask, ref.mask)
+    hit = ref.mask
+    assert float(hit.float().mean()) > 0.5
+    np.testing.assert_allclose(h.t[hit].cpu().numpy(),
+                               ref.t[hit].cpu().numpy(), rtol=1e-5)
+    o, d = primary_rays(cam, 0.0131, 0.0217)
+    h, ref = fn(sc, o, d), fn1(sc, o, d)
+    hit = ref.mask
+    assert torch.equal(h.mask, hit) and float(hit.float().mean()) > 0.9
+    assert float((h.tri_id == ref.tri_id)[hit].float().mean()) >= 0.999
+    assert torch.equal(h.t, ref.t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["path", "whitted"])
+def test_sample_offset_on_cuda_generators(tmp_path, cuda_device, mode):
+    """render(samples=m, sample_offset=k) on a CUDA generator continues
+    render(k) on one generator bit for bit, and adds up with it to
+    render(k + m) within 1e-6 of the largest entry; skipping leaves the
+    generator's state as rendering does."""
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.render import render, skip_samples
+
+    rtc = (write_cornell(tmp_path, xres=64, yres=48, depth=3)
+           if mode == "path" else
+           write_cornell_whitted(tmp_path, xres=64, yres=48, depth=3))
+    ps = prepare(rtc, device=cuda_device)
+
+    def gen():
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(11)
+        return g
+
+    cfg = dict(max_depth=3, light_samples=2, intersect=ps.intersect)
+    with torch.no_grad():
+        part = render(ps.scene, ps.camera, gen(), samples=2,
+                      sample_offset=3, **cfg)
+        g = gen()
+        head = render(ps.scene, ps.camera, g, samples=3, **cfg)
+        state = g.get_state()
+        cont = render(ps.scene, ps.camera, g, samples=2, **cfg)
+        whole = render(ps.scene, ps.camera, gen(), samples=5, **cfg)
+    assert torch.equal(part, cont) and float(whole.max()) > 0
+    err = float((part * 2 + head * 3 - whole * 5).abs().max())
+    assert err <= 1e-6 * float((whole * 5).abs().max())
+    s = gen()
+    skip_samples(ps.scene, s, 3, ps.camera.yres, ps.camera.xres,
+                 cuda_device, max_depth=3, light_samples=2, mode=None)
+    assert torch.equal(s.get_state(), state)

@@ -258,6 +258,7 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "orion_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))
+    files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"orion_tpu_torch/accel/bvh.py", "orion_tpu_torch/native.py",
@@ -275,7 +276,12 @@ def test_port_never_imports_jax():
             "orion_tpu_torch/parallel/distributed.py",
             "orion_tpu_torch/parallel/sharding.py",
             "orion_tpu_torch/parallel/shardmap_render.py",
-            "orion_tpu_torch/parallel/fused_shard.py"} <= names
+            "orion_tpu_torch/parallel/fused_shard.py",
+            "orion_tpu_torch/parallel/primitive_sharding.py",
+            "orion_tpu_torch/viewer.py",
+            "examples/torch_render_scenes.py",
+            "examples/torch_inverse_rendering.py",
+            "examples/torch_multichip_render.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -292,7 +298,9 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.ops.bvh_prb, orion_tpu_torch.accel.refit, "
             "orion_tpu_torch.io.checkpoint, orion_tpu_torch.profiling, "
             "orion_tpu_torch.parallel, orion_tpu_torch.parallel.fused_shard, "
-            "orion_tpu_torch.parallel.distributed, chip_smoke; "
+            "orion_tpu_torch.parallel.distributed, "
+            "orion_tpu_torch.parallel.primitive_sharding, "
+            "orion_tpu_torch.viewer, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -260,4 +260,107 @@ def megakernel_task(rank: int, world: int, tmp: Path, scenes: dict,
     return {k: _np(v) if torch.is_tensor(v) else v for k, v in out.items()}
 
 
-TASKS = {"wavefront": wavefront_task, "megakernels": megakernel_task}
+def tp_task(rank: int, world: int, tmp: Path, scenes: dict, shapes: list,
+            rays: dict, jitter: list) -> dict:
+    """Primitive sharding at each (n_ray, n_tp) of `shapes` (n_ray * n_tp
+    == world): the TP intersect on `rays` over the Cornell box and its
+    levels-2 subdivision (and its collectives), render_tp in path and
+    Whitted mode beside render_shardmap over the brute sweep on the same
+    ray mesh, the Whitted render_tp at the given primary-ray `jitter`, and
+    a Whitted make_train_step_shardmap step over the TP intersect."""
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
+    from orion_tpu_torch.parallel import sharding
+    from orion_tpu_torch.parallel.distributed import record_collectives
+    from orion_tpu_torch.parallel.primitive_sharding import (
+        make_mesh_2d, make_tp_intersect, render_tp)
+    from orion_tpu_torch.parallel.shardmap_render import (
+        make_train_step_shardmap, render_shardmap)
+    from orion_tpu_torch.scene import subdivide_scene
+
+    ps = prepare(scenes["cornell"], device="cpu")
+    pw = prepare(scenes["whitted"], device="cpu")
+    lv2 = subdivide_scene(ps.scene, levels=2)
+    o, d = torch.from_numpy(rays["orig"]), torch.from_numpy(rays["dirs"])
+    alive = torch.from_numpy(rays["alive"])
+    out = {}
+    for n_ray, n_tp in shapes:
+        tag = f"{n_ray}x{n_tp}"
+        ray, tp = make_mesh_2d(n_ray, n_tp, device="cpu")
+        out[f"{tag}_place"] = np.array([ray.rank, ray.world, tp.rank,
+                                        tp.world])
+        fn = make_tp_intersect(tp)
+        for name, sc in (("cornell", ps.scene), ("levels2", lv2)):
+            with record_collectives() as log:
+                h = fn(sc, o, d, alive=alive)
+            out[f"{tag}_{name}_t"], out[f"{tag}_{name}_id"] = h.t, h.tri_id
+            out[f"{tag}_{name}_gathers"] = np.array(
+                [len(log), sum(b for k, b in log if k == "all-gather")])
+        path = dict(samples=2, max_depth=3, light_samples=2, mode="path")
+        out[f"{tag}_path"] = render_tp(ps.scene, ps.camera, gen(5),
+                                       mesh=(ray, tp), **path)
+        out[f"{tag}_path_ref"] = render_shardmap(
+            ps.scene, ps.camera, gen(5), mesh=ray,
+            intersect=intersect_brute_kernel, **path)
+        whit = dict(samples=2, max_depth=2, light_samples=1,
+                    mode="whitted")
+        out[f"{tag}_whitted"] = render_tp(pw.scene, pw.camera, gen(6),
+                                          mesh=(ray, tp), **whit)
+        out[f"{tag}_whitted_ref"] = render_shardmap(
+            pw.scene, pw.camera, gen(6), mesh=ray,
+            intersect=intersect_brute_kernel, **whit)
+        # the JAX comparison's primary rays: its sample's jitter
+        draw = sharding._rand
+        sharding._rand = (lambda g, shape, dev: torch.tensor(
+            jitter, dtype=torch.float32) if tuple(shape) == (2,)
+            else draw(g, shape, dev))
+        try:
+            out[f"{tag}_whitted_jax"] = render_tp(
+                pw.scene, pw.camera, gen(7), mesh=(ray, tp), samples=1,
+                max_depth=2, light_samples=1, mode="whitted")
+        finally:
+            sharding._rand = draw
+        # gradients: lr 1, so the step moves the albedos by -grad
+        target = torch.zeros((H, W, 3))
+        kd = pw.scene.mat_diffuse
+        step = make_train_step_shardmap(
+            pw.scene, pw.camera, ray, samples=1, max_depth=1,
+            light_samples=1, mode="whitted", lr=1.0,
+            intersect=make_tp_intersect(tp))
+        new, loss = step({"mat_diffuse": kd}, gen(8), target)
+        out[f"{tag}_grad_kd"] = kd - new["mat_diffuse"]
+        out[f"{tag}_loss"] = loss
+    return {k: _np(v) if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def multihost_task(rank: int, world: int, tmp: Path, scenes: dict,
+                   counts: list) -> dict:
+    """render_multihost of each sample count of `counts` over the world,
+    in path mode (with its collectives) and Whitted mode, and of 16
+    samples on the statistical comparisons' scene."""
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.parallel.distributed import (render_multihost,
+                                                      record_collectives)
+
+    ps = prepare(scenes["cornell"], device="cpu")
+    pw = prepare(scenes["whitted"], device="cpu")
+    out = {}
+    for n in counts:
+        with record_collectives() as log:
+            out[f"path_{n}"] = render_multihost(
+                ps.scene, ps.camera, gen(3), samples=n, max_depth=3,
+                light_samples=2, intersect=ps.intersect)
+        out[f"gathers_{n}"] = np.array([len(log),
+                                        sum(b for _, b in log)])
+        out[f"whitted_{n}"] = render_multihost(
+            pw.scene, pw.camera, gen(4), samples=n, max_depth=2,
+            intersect=pw.intersect)
+    st = prepare(scenes["stats"], device="cpu")
+    out["stats"] = render_multihost(st.scene, st.camera, gen(1), samples=16,
+                                    max_depth=4, light_samples=2,
+                                    mode="path", intersect=st.intersect)
+    return {k: _np(v) if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+TASKS = {"wavefront": wavefront_task, "megakernels": megakernel_task,
+         "tp": tp_task, "multihost": multihost_task}
