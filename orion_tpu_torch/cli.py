@@ -122,7 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Samples per checkpoint flush (default %(default)s; "
                         "read with --checkpoint)")
     p.add_argument("--stats", action="store_true",
-                   help="Print a JSON render report to stderr")
+                   help="Print a JSON render report to stderr, with the "
+                        "program's span and counter totals of this run "
+                        "under \"spans\" (profiling.py)")
     # the reference launcher's thread count (launcher.cpp), accepted as the
     # JAX package's CLI accepts it and ignored: no host threads to set
     p.add_argument("--threads", "-t", type=int, default=0,
@@ -136,7 +138,18 @@ def _fail(msg: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if not args.stats:
+        return _run(args)
+    from orion_tpu_torch import profiling
 
+    # the run's own spans: the totals start empty unless a caller records
+    if not profiling.enabled():
+        profiling.reset()
+    with profiling.recording():
+        return _run(args)
+
+
+def _run(args) -> int:
     import torch
 
     from orion_tpu_torch.engine import (make_big_path_renderer,
@@ -282,6 +295,9 @@ def main(argv=None) -> int:
           f"{args.samples} spp, {report['backend']}] in {dt:.2f}s "
           f"({report['primary_rays_per_s']:.0f} primary rays/s)")
     if args.stats:
+        from orion_tpu_torch import profiling
+
+        report["spans"] = profiling.totals()
         print(json.dumps(report), file=sys.stderr)
     return 0
 

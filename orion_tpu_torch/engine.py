@@ -41,6 +41,7 @@ from orion_tpu_torch.accel.bvh import (DEFAULT_LEAF, SAH, BVH, BuildStats,
                                        build_scene_bvh)
 from orion_tpu_torch.camera import Camera, camera_from_rtc
 from orion_tpu_torch.io.rtc import RTCData
+from orion_tpu_torch.profiling import span
 from orion_tpu_torch.render import IntersectFn
 from orion_tpu_torch.scene import Scene, load_scene
 
@@ -253,35 +254,37 @@ def make_big_path_renderer(scene: Scene, camera, *, samples: int,
     for cand in order:
         if cand not in BIG_PATH_CANDIDATES:
             raise ValueError(f"unknown big-path candidate {cand!r}")
-    tail = "kernel" if scene.device.type == "cuda" else "torch"
-    errs = []
-    for cand in order:
-        try:
-            if cand == "bounce":
-                from orion_tpu_torch.ops.bounce import \
-                    make_bounce_path_renderer
+    with span("route.big_path"):
+        tail = "kernel" if scene.device.type == "cuda" else "torch"
+        errs = []
+        for cand in order:
+            try:
+                if cand == "bounce":
+                    from orion_tpu_torch.ops.bounce import \
+                        make_bounce_path_renderer
 
-                fn = make_bounce_path_renderer(
-                    scene, camera, samples=samples, max_depth=max_depth,
-                    light_samples=light_samples, strategy=strategy)
-                return fn, f"bounce-{tail}"
-            if cand == "binned":
-                from orion_tpu_torch.ops.binned import \
-                    make_binned_path_renderer
+                    fn = make_bounce_path_renderer(
+                        scene, camera, samples=samples, max_depth=max_depth,
+                        light_samples=light_samples, strategy=strategy)
+                    return fn, f"bounce-{tail}"
+                if cand == "binned":
+                    from orion_tpu_torch.ops.binned import \
+                        make_binned_path_renderer
 
-                fn = make_binned_path_renderer(
-                    scene, camera, samples=samples, max_depth=max_depth,
-                    light_samples=light_samples, strategy=strategy)
-                return fn, f"binned-{tail}"
-            fn = make_bvh_path_renderer(scene, camera, samples=samples,
-                                        max_depth=max_depth,
-                                        light_samples=light_samples,
-                                        strategy=strategy,
-                                        order_signs=order_signs)
-            return fn, "bvh-path-kernel"
-        except ValueError as e:
-            errs.append(f"{cand}: {e}")
-    raise ValueError("no big-path megakernel fits: " + "; ".join(errs))
+                    fn = make_binned_path_renderer(
+                        scene, camera, samples=samples, max_depth=max_depth,
+                        light_samples=light_samples, strategy=strategy)
+                    return fn, f"binned-{tail}"
+                fn = make_bvh_path_renderer(scene, camera, samples=samples,
+                                            max_depth=max_depth,
+                                            light_samples=light_samples,
+                                            strategy=strategy,
+                                            order_signs=order_signs)
+                return fn, "bvh-path-kernel"
+            except ValueError as e:
+                errs.append(f"{cand}: {e}")
+        raise ValueError("no big-path megakernel fits: "
+                         + "; ".join(errs))
 
 
 def make_whitted_megakernel(scene: Scene, camera, *, samples: int,
@@ -388,22 +391,27 @@ def prepare(rtc_path: str | Path, *, device="cuda", strategy: str = SAH,
             yres: Optional[int] = None) -> PreparedScene:
     """Load an .rtc scene onto `device` and select the intersection backend."""
     t0 = time.perf_counter()
-    scene, rtc = load_scene(rtc_path, load_textures=load_textures,
-                            device=device)
-    if xres is not None:
-        rtc.xres = xres
-    if yres is not None:
-        rtc.yres = yres
-    from orion_tpu_torch.validate import validate_rtc, validate_scene
+    with span("prepare"):
+        with span("prepare.load_scene"):
+            scene, rtc = load_scene(rtc_path, load_textures=load_textures,
+                                    device=device)
+        if xres is not None:
+            rtc.xres = xres
+        if yres is not None:
+            rtc.yres = yres
+        from orion_tpu_torch.validate import validate_rtc, validate_scene
 
-    validate_rtc(rtc)
-    validate_scene(scene)
-    camera = camera_from_rtc(rtc, device=device)
-    # bake near-first child order for the camera's direction octant into
-    # the BVH flattening (fewer leaf tests on coherent batches)
-    signs = octant_signs(camera.front)
-    fn, backend, bvh, stats, shadow_fn = _select_with_shadow(
-        scene, strategy, force_backend, signs)
+        with span("prepare.validate"):
+            validate_rtc(rtc)
+            validate_scene(scene)
+        with span("prepare.camera"):
+            camera = camera_from_rtc(rtc, device=device)
+        # bake near-first child order for the camera's direction octant
+        # into the BVH flattening (fewer leaf tests on coherent batches)
+        signs = octant_signs(camera.front)
+        with span("prepare.accel"):
+            fn, backend, bvh, stats, shadow_fn = _select_with_shadow(
+                scene, strategy, force_backend, signs)
     return PreparedScene(scene=scene, rtc=rtc, camera=camera, intersect=fn,
                          backend=backend, bvh=bvh, bvh_stats=stats,
                          build_seconds=time.perf_counter() - t0,

@@ -21,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 
+from orion_tpu_torch.profiling import count, span
+
 _PKG = Path(__file__).resolve().parent
 _NATIVE_DIR = _PKG.parent / "native"
 _BUILD_DIR = _PKG / "_build"
@@ -51,13 +53,15 @@ def _try_build(out: Path) -> bool:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp),
-                        *(str(_NATIVE_DIR / s) for s in _SRCS)], check=True,
-                       capture_output=True, timeout=300)
+        with span("kernel.build"):
+            subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp),
+                            *(str(_NATIVE_DIR / s) for s in _SRCS)],
+                           check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
-        return True
     except Exception:
         return False
+    count("kernel.built")
+    return True
 
 
 def get_lib(build: bool = True) -> Optional[ctypes.CDLL]:
@@ -74,9 +78,11 @@ def get_lib(build: bool = True) -> Optional[ctypes.CDLL]:
     if not path.exists() and not (build and _try_build(path)):
         return None
     try:
-        lib = ctypes.CDLL(str(path))
+        with span("kernel.load"):
+            lib = ctypes.CDLL(str(path))
     except OSError:
         return None
+    count("kernel.loaded")
 
     c_i64 = ctypes.c_int64
     c_i32 = ctypes.c_int32

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from orion_tpu_torch.profiling import count, span
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -59,21 +61,22 @@ def build(names) -> dict:
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    for n in todo:
-        out = lib_path(n)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
-    done, failed = {}, []
-    for n, (p, tmp, out) in procs.items():
-        log, _ = p.communicate()
-        done[n] = (time.perf_counter() - t0, log)
-        if p.returncode != 0:
-            failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    with span("kernel.build"):
+        for n in todo:
+            out = lib_path(n)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        done, failed = {}, []
+        for n, (p, tmp, out) in procs.items():
+            log, _ = p.communicate()
+            done[n] = (time.perf_counter() - t0, log)
+            if p.returncode != 0:
+                failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return done
@@ -84,6 +87,8 @@ class CudaKernel:
 
     `launches` grows by one for every successful launch through `launch`
     and nowhere else, so a caller can show that a path ran the kernel.
+    A launch while `launches` is 0, the kernel's first, runs in the span
+    `kernel.first_launch`: CUDA loads the kernel's module there (lazily).
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -95,16 +100,24 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            build([self.source])
-            lib = ctypes.CDLL(str(lib_path(self.source)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
+            if build([self.source]):
+                count("kernel.built")
+            with span("kernel.load"):
+                lib = ctypes.CDLL(str(lib_path(self.source)))
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+            count("kernel.loaded")
             self._fn = fn
         return self._fn
 
     def launch(self, *args) -> None:
-        rc = self._load()(*args)
+        fn = self._load()
+        if self.launches:
+            rc = fn(*args)
+        else:
+            with span("kernel.first_launch"):
+                rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1

@@ -37,6 +37,7 @@ import torch
 from orion_tpu_torch.ops.cuda_build import (CudaKernel, check_inputs,
                                             stream_ptr)
 from orion_tpu_torch.ops.woop import BIG, nearest_rows, woop_rows_np, woop_tuv
+from orion_tpu_torch.profiling import span
 from orion_tpu_torch.scene import Scene
 
 FUSED_CHUNK = 512             # rows per chunk of a chunked sweep
@@ -787,17 +788,19 @@ def make_fused_path_renderer(scene: Scene, camera, *, samples: int,
         raise ValueError("scene outside the fused-path gate "
                          "(textures / emitters / size)")
     H, W = camera.yres, camera.xres
-    args = fused_args(scene, camera)
+    with span("route.fused_path"):
+        args = fused_args(scene, camera)
 
     def render_fused(seed: int, camera_override=None,
                      tab=None) -> torch.Tensor:
-        tab_, clo, chi, em, cam = args
-        if camera_override is not None:
-            cam = override_camera_vec(camera_override, W, H, tab_.device)
-        if tab is not None:
-            tab_ = tab.detach().to(torch.float32).contiguous()
-        out = fused_path(tab_, clo, chi, em, cam, seed, W, H, samples,
-                         max_depth, light_samples)
-        return out.reshape(H, W, 3)
+        with span("render.fused"):
+            tab_, clo, chi, em, cam = args
+            if camera_override is not None:
+                cam = override_camera_vec(camera_override, W, H, tab_.device)
+            if tab is not None:
+                tab_ = tab.detach().to(torch.float32).contiguous()
+            out = fused_path(tab_, clo, chi, em, cam, seed, W, H, samples,
+                             max_depth, light_samples)
+            return out.reshape(H, W, 3)
 
     return render_fused

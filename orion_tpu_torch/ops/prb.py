@@ -48,6 +48,7 @@ from orion_tpu_torch.ops.fused_path import (
     _C_MESH, EM_STRIDE, MAX_SAMPLES, _regen_steps, check_tables, fused_args,
     fused_fwd_ls_plain, fused_path_supported, lane_tile,
     pack_fused_tri_table_torch)
+from orion_tpu_torch.profiling import span
 from orion_tpu_torch.scene import Scene
 
 M_LANES = 128     # materials the replay's accumulator holds
@@ -283,7 +284,8 @@ class FusedPathPRB(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mat_diffuse, mat_emissive, plan: PRBPlan, seed: int):
         with torch.no_grad():
-            tab = plan.table(mat_diffuse, mat_emissive)
+            with span("prb.table"):
+                tab = plan.table(mat_diffuse, mat_emissive)
             img, ls = plan.forward(tab, seed)
         ctx.plan, ctx.seed, ctx.M = plan, seed, mat_diffuse.shape[0]
         ctx.save_for_backward(tab, ls)

@@ -42,6 +42,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from orion_tpu_torch.profiling import span
 from orion_tpu_torch.render import IntersectFn, render
 from orion_tpu_torch.scene import Scene
 
@@ -228,6 +229,43 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
     PCG4D stream, so their losses differ from the wavefront's at the
     noise level.
     """
+    with span("fit"):
+        with span("fit.setup"):
+            theta, opt, value_and_grad = _fit_setup(
+                ps, target, params, learning_rate=learning_rate,
+                optimizer=optimizer, samples=samples, max_depth=max_depth,
+                light_samples=light_samples, mode=mode, loss_fn=loss_fn,
+                use_prb=use_prb)
+        seeds = torch.Generator()
+        seeds.manual_seed(seed)
+        losses = []
+        for i in range(steps):
+            step_seed = (int(torch.randint(0, 2**31 - 1, (1,),
+                                           generator=seeds))
+                         if resample_keys else seed)
+            with span("fit.step"):
+                with span("fit.step.grad"):
+                    value, grads = value_and_grad(theta, step_seed)
+                with span("fit.step.update"):
+                    opt.zero_grad(set_to_none=True)
+                    for k, v in theta.items():
+                        v.grad = grads[k].to(v.dtype)
+                    opt.step()
+                    _project(theta)
+                with span("fit.step.loss_read"):
+                    losses.append(float(value))
+            if callback is not None:
+                callback(i, losses[-1])
+
+    out = {k: v.detach() for k, v in theta.items()}
+    return FitResult(scene=dataclasses.replace(ps.scene, **out),
+                     params=out, losses=losses, steps=steps)
+
+
+def _fit_setup(ps, target, params, *, learning_rate, optimizer, samples,
+               max_depth, light_samples, mode, loss_fn, use_prb):
+    """fit's parameters, optimizer and `value_and_grad(theta, step_seed)
+    -> (loss, grads)` on the route fit takes (the module docstring)."""
     dev = ps.scene.device
     refit_loss = refit_plan = None
     if (any(p in GEOMETRY_PARAMS for p in params)
@@ -283,22 +321,4 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
             light_samples=light_samples, mode=mode, intersect=ps.intersect,
             loss_fn=loss_fn))
 
-    seeds = torch.Generator()
-    seeds.manual_seed(seed)
-    losses = []
-    for i in range(steps):
-        step_seed = (int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
-                     if resample_keys else seed)
-        value, grads = value_and_grad(theta, step_seed)
-        opt.zero_grad(set_to_none=True)
-        for k, v in theta.items():
-            v.grad = grads[k].to(v.dtype)
-        opt.step()
-        _project(theta)
-        losses.append(float(value))
-        if callback is not None:
-            callback(i, losses[-1])
-
-    out = {k: v.detach() for k, v in theta.items()}
-    return FitResult(scene=dataclasses.replace(ps.scene, **out),
-                     params=out, losses=losses, steps=steps)
+    return theta, opt, value_and_grad

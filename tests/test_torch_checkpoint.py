@@ -1,11 +1,11 @@
 """The port's host services: resumable accumulation (io/checkpoint.py),
-profiling.py, and the CLI's --checkpoint and --normal-maps, on the CPU.
+profiling.trace, and the CLI's --checkpoint and --normal-maps, on the CPU
+(the span registry: tests/test_torch_tracing.py).
 
 Resume cases follow the JAX package's (tests/test_engine_cli.py): an
 interrupted and resumed accumulation equals a one-shot one (rtol 1e-5,
 atol 1e-6); a different seed or configuration restarts; a regen
-accumulation resumes with the same `every`. The traversal counters hold
-the JAX walk's on the same tree and rays.
+accumulation resumes with the same `every`.
 """
 
 import contextlib
@@ -16,21 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from orion_tpu.accel.bvh import build_bvh as jbuild_bvh
-from orion_tpu.camera import camera_from_rtc as jcamera_from_rtc
-from orion_tpu.camera import primary_rays as jprimary_rays
-from orion_tpu.profiling import traversal_counters as jcounters
-from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch import cli, profiling
-from orion_tpu_torch.accel.bvh import bvh_from_numpy
 from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.io.checkpoint import (_progress_line, load_checkpoint,
                                            render_accumulate,
                                            save_checkpoint)
 from orion_tpu_torch.io.image import load_hdr
 
+import torch_port_util  # noqa: F401  (one intra-op thread a worker)
 from chip_smoke import write_cornell, write_cornell_whitted
-from torch_port_util import jax_bvh_fields, to_torch
 
 PATH = dict(light_samples=1, max_depth=2, mode="path", progress=False)
 
@@ -126,24 +120,6 @@ def test_progress_lines(cornell, tmp_path, capsys):
     assert [ln.split()[1] for ln in err] == ["2/3", "3/3"]
 
 
-def test_phase_timer_and_progress():
-    pt = profiling.phase_timer()
-    for _ in range(2):
-        with pt.phase("render"):
-            sum(range(1000))
-    with pt.phase("save"):
-        pass
-    s = pt.summary()
-    assert list(s) == ["render", "save"] and s["render"] >= 0.0
-    buf = io.StringIO()
-    pt.report(file=buf)
-    assert "render" in buf.getvalue() and "%" in buf.getvalue()
-    bar = io.StringIO()
-    assert list(profiling.progress(range(4), desc="x ", file=bar)) == [
-        0, 1, 2, 3]
-    assert "4/4" in bar.getvalue() and "#" * 30 in bar.getvalue()
-
-
 def test_trace_writes_chrome_trace(tmp_path):
     with profiling.trace(None):
         pass
@@ -151,24 +127,6 @@ def test_trace_writes_chrome_trace(tmp_path):
         torch.ones(64).sum()
     data = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert data["traceEvents"]
-
-
-def test_traversal_counters_match_jax(tmp_path):
-    rtc = write_cornell(tmp_path, xres=24, yres=16, depth=2, levels=2)
-    js, jrtc = jload_scene(rtc)
-    jb, _ = jbuild_bvh(js.tri_v0, js.tri_e1, js.tri_e2, js.tri_valid,
-                       leaf_size=16, strategy="sah", builder="numpy")
-    ours_bvh = bvh_from_numpy(jax_bvh_fields(jb)).to("cpu")
-    jo, jd = jprimary_rays(jcamera_from_rtc(jrtc), 0.0131, 0.0217)
-    theirs = jcounters(js, jb, jo, jd)
-    ours = profiling.traversal_counters(
-        to_torch(js), ours_bvh, torch.as_tensor(np.array(jo)),
-        torch.as_tensor(np.array(jd)))
-    assert set(ours) == set(theirs)
-    assert ours["rays"] == theirs["rays"] == 24 * 16
-    for k in ("box_tests", "tri_tests", "max_steps"):
-        assert ours[k] == theirs[k], (k, ours[k], theirs[k])
-    assert ours["tri_tests_per_ray"] > 0 and ours["box_tests_per_ray"] > 1
 
 
 def _cli(argv):
