@@ -157,15 +157,19 @@ def bvh_fwd_ls(nodes, tab, em, cam, seed: int, W: int, H: int, samples: int,
 
 def bvh_prb_replay(nodes, tab, em, cam, seed: int, w, ls, W: int, H: int,
                    samples: int, max_depth: int, light_samples: int, *,
-                   leaf_width: int, copies: int = 1):
+                   leaf_width: int, copies: int = 1,
+                   em_mesh: int | None = None):
     """[6, M_LANES] material gradient rows: kernel 9b for CUDA tensors, the
     plain version for CPU tensors. Every material id of the table and the
-    emitter's must index one of the M_LANES accumulator columns."""
+    emitter's must index one of the M_LANES accumulator columns: em_mesh
+    is the emitter's as a plan checked it (`BVHPRBPlan.em_mesh`, for a
+    table of that plan's); None checks `tab` and `em` here."""
     n = W * H
     if tab.device.type == "cpu":
         _check("bvh_prb_replay", nodes, tab, em, cam, copies, samples,
                (("w", w, (n, 3)),))
-        _emitter_column("bvh_prb_replay", tab, em)
+        if em_mesh is None:
+            _emitter_column("bvh_prb_replay", tab, em)
         return bvh_prb_replay_plain(nodes, tab, em, cam, seed, w, ls, W, H,
                                     samples, max_depth, light_samples,
                                     leaf_width=leaf_width, copies=copies)
@@ -174,7 +178,8 @@ def bvh_prb_replay(nodes, tab, em, cam, seed: int, w, ls, W: int, H: int,
     planes = ls.t().contiguous()          # a view when ls came from 9a
     _check("bvh_prb_replay", nodes, tab, em, cam, copies, samples,
            (("w", w, (n, 3)), ("ls", planes, (3 * samples, n))))
-    em_mesh = _emitter_column("bvh_prb_replay", tab, em)
+    if em_mesh is None:
+        em_mesh = _emitter_column("bvh_prb_replay", tab, em)
     out = torch.zeros((6, M_LANES), dtype=torch.float64, device=tab.device)
     nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     REPLAY_KERNEL.launch(cam.data_ptr(), nodes.data_ptr(), tab.data_ptr(),
@@ -195,7 +200,9 @@ def bvh_prb_replay(nodes, tab, em, cam, seed: int, w, ls, W: int, H: int,
 class BVHPRBPlan:
     """What kernels 9a/9b need besides the material tables: the tree's
     nodes (built once), the table updater, the emitter record, the
-    camera and the sizes. The same protocol as prb.PRBPlan."""
+    camera and the sizes. The same protocol as prb.PRBPlan: made, it
+    checks the material ids of its table (the updater regathers kd / ke
+    alone) and of `em`, and keeps the emitter's column, `em_mesh`."""
 
     nodes: torch.Tensor
     update: object
@@ -208,6 +215,10 @@ class BVHPRBPlan:
     light_samples: int
     leaf_width: int
     copies: int
+    em_mesh: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.em_mesh = _emitter_column("BVHPRBPlan", self.update(), self.em)
 
     def table(self, mat_diffuse=None, mat_emissive=None):
         return self.update(mat_diffuse, mat_emissive)
@@ -222,7 +233,8 @@ class BVHPRBPlan:
         return bvh_prb_replay(self.nodes, tab, self.em, self.cam, seed, w,
                               ls, self.W, self.H, self.samples,
                               self.max_depth, self.light_samples,
-                              leaf_width=self.leaf_width, copies=self.copies)
+                              leaf_width=self.leaf_width, copies=self.copies,
+                              em_mesh=self.em_mesh)
 
 
 def make_bvh_train_step(scene: Scene, camera, target, *, samples: int,

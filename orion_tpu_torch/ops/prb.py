@@ -34,6 +34,12 @@ The wrappers take the plain versions only for CPU tensors; for CUDA
 tensors they launch the kernels or raise. `FusedPathPRB` is the
 autograd.Function over the pair: its forward launches the training
 forward and keeps L_s, its backward launches the replay.
+
+The replay's material ids (the table's mesh column, the emitter's mesh)
+come from the scene's geometry, and a plan's `table()` rewrites the kd /
+ke columns alone. So a plan checks them once, when it is made, and hands
+the emitter's column to its replays, which then read nothing back from
+the card: the host queues 3b behind 3a without waiting for 3a.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from orion_tpu_torch.ops.fused_path import (
     _C_MESH, EM_STRIDE, MAX_SAMPLES, _regen_steps, check_tables, fused_args,
     fused_fwd_ls_plain, fused_path_supported, lane_tile,
     pack_fused_tri_table_torch)
-from orion_tpu_torch.profiling import span
+from orion_tpu_torch.profiling import count, span
 from orion_tpu_torch.scene import Scene
 
 M_LANES = 128     # materials the replay's accumulator holds
@@ -191,7 +197,9 @@ def fused_fwd_ls(tab, clo, chi, em, cam, seed: int, W: int, H: int,
 
 def _emitter_column(name, tab, em) -> int:
     """The emitter's material; ValueError unless it and every mesh id of the
-    table index one of the replay's M_LANES accumulator columns."""
+    table index one of the replay's M_LANES accumulator columns. Reads the
+    ids to the host (counter `prb.id_check`)."""
+    count("prb.id_check")
     ids = torch.cat([tab[:, _C_MESH], em[:1, 0]])
     lo, hi, em_mesh = (int(v) for v in
                        torch.stack([ids.min(), ids.max(), ids[-1]]).tolist())
@@ -203,14 +211,18 @@ def _emitter_column(name, tab, em) -> int:
 
 def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
                samples: int, max_depth: int, light_samples: int,
-               pix_base: int = 0, n_lanes: int | None = None):
+               pix_base: int = 0, n_lanes: int | None = None,
+               em_mesh: int | None = None):
     """[6, M_LANES] material gradient rows of the pixels [pix_base,
     pix_base + n_lanes) (default: the whole image; w and ls are that
     tile's): the replay kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. em_mesh: the emitter's material as a plan checked it
+    (`PRBPlan.em_mesh`, for a table of that plan's); None checks the ids
+    of `tab` and `em` here."""
     n = lane_tile("prb_replay", W, H, pix_base, n_lanes)
     if tab.device.type == "cpu":
-        _emitter_column("prb_replay", tab, em)
+        if em_mesh is None:
+            _emitter_column("prb_replay", tab, em)
         return prb_replay_plain(tab, clo, chi, em, cam, seed, w, ls, W, H,
                                 samples, max_depth, light_samples,
                                 pix_base=pix_base, n_lanes=n)
@@ -219,7 +231,8 @@ def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
     planes = ls.t().contiguous()          # a view when ls came from the kernel
     _check_common("prb_replay", tab, clo, chi, em, cam,
                   (("w", w, (n, 3)), ("ls", planes, (3 * samples, n))))
-    em_mesh = _emitter_column("prb_replay", tab, em)
+    if em_mesh is None:
+        em_mesh = _emitter_column("prb_replay", tab, em)
     out = torch.zeros((6, M_LANES), dtype=torch.float64, device=tab.device)
     nxt = torch.zeros((1,), dtype=torch.int32, device=tab.device)
     REPLAY_KERNEL.launch(cam.data_ptr(), tab.data_ptr(), clo.data_ptr(),
@@ -238,7 +251,10 @@ def prb_replay(tab, clo, chi, em, cam, seed: int, w, ls, W: int, H: int,
 @dataclasses.dataclass
 class PRBPlan:
     """What the pair of kernels needs besides the material tables: the
-    device tables of the scene's geometry (built once) and the sizes."""
+    device tables of the scene's geometry (built once) and the sizes.
+    Made, it checks the material ids of `base` and `em` (ValueError past
+    the accumulator) and keeps the emitter's column, `em_mesh`, for every
+    replay of its tables."""
 
     scene: Scene
     base: torch.Tensor          # the host pack of the table, on the device
@@ -251,6 +267,10 @@ class PRBPlan:
     samples: int
     max_depth: int
     light_samples: int
+    em_mesh: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.em_mesh = _emitter_column("PRBPlan", self.base, self.em)
 
     @classmethod
     def build(cls, scene: Scene, camera, *, samples: int, max_depth: int,
@@ -272,7 +292,8 @@ class PRBPlan:
     def replay(self, tab, seed, w, ls):
         return prb_replay(tab, self.clo, self.chi, self.em, self.cam, seed,
                           w, ls, self.W, self.H, self.samples,
-                          self.max_depth, self.light_samples)
+                          self.max_depth, self.light_samples,
+                          em_mesh=self.em_mesh)
 
 
 class FusedPathPRB(torch.autograd.Function):
@@ -314,7 +335,9 @@ def make_fused_grad_fn(scene: Scene, camera, *, samples: int,
     """`grads(seed, dloss_dimg, tab=None) -> {"mat_diffuse": [M, 3],
     "mat_emissive": [M, 3]}`: the gradients of a loss whose cotangent with
     respect to the [H, W, 3] image is `dloss_dimg`, from one training
-    forward (for L_s) and one replay. `seed` is the int32 PCG seed."""
+    forward (for L_s) and one replay. `seed` is the int32 PCG seed;
+    `tab`, default the scene's own, is one of the plan's tables (its
+    material ids are the ones the plan checked)."""
     _gate(scene, samples)
     plan = PRBPlan.build(scene, camera, samples=samples, max_depth=max_depth,
                          light_samples=light_samples)
@@ -354,10 +377,29 @@ def make_fused_train_step(scene: Scene, camera, target, *, samples: int,
     return train_step_over(scene, plan, target, dynamic_params)
 
 
+def _with_host_copy(loss):
+    """`loss`, detached. A CUDA loss also carries `host_copy` = (host
+    tensor, event): a copy into pinned host memory queued right behind the
+    loss and an event recorded after it, so the value can be read without
+    waiting for the work queued later (the replay, the optimizer's
+    update). A host tensor of its own each call: no reading is
+    overwritten before it is read."""
+    loss = loss.detach()
+    if loss.is_cuda:
+        host = torch.empty((), dtype=loss.dtype, pin_memory=True)
+        host.copy_(loss, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(loss.device))
+        loss.host_copy = (host, done)
+    return loss
+
+
 def train_step_over(scene: Scene, plan, target, dynamic_params: bool):
     """The MSE train step of make_fused_train_step over any plan with
     `table`, `forward`, `replay`, W, H and samples (a PRBPlan, or
-    ops/bvh_prb.BVHPRBPlan over a tree)."""
+    ops/bvh_prb.BVHPRBPlan over a tree). On the card the loss it returns
+    carries its own host copy (`_with_host_copy`), queued before the
+    replay."""
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=scene.device)
 
@@ -369,9 +411,10 @@ def train_step_over(scene: Scene, plan, target, dynamic_params: bool):
         img = FusedPathPRB.apply(kd, ke, plan, int(seed))
         diff = img - target
         loss = torch.mean(diff * diff)
+        value = _with_host_copy(loss)
         g_kd, g_ke = torch.autograd.grad(loss, (kd, ke))
         g = {"mat_diffuse": g_kd, "mat_emissive": g_ke}
-        return loss.detach(), {k: g[k] for k in wanted}
+        return value, {k: g[k] for k in wanted}
 
     if not dynamic_params:
         def step(seed: int):

@@ -33,6 +33,14 @@ Step seeds: with resample_keys=False every step uses `seed`; otherwise a
 torch.Generator seeded with `seed` draws one int32 seed per step. The seed
 is the PCG seed of the path-replay kernels, seeds the Whitted trainer's
 jitter generator, and seeds the wavefront's torch.Generator.
+
+Where the host waits: a step is queued whole (gradients, update,
+projection) before its loss is read. A step whose loss carries its own
+host copy (the path-replay kernels' steps, ops/prb.train_step_over) is
+read as soon as that copy lands, so the host issues the next step while
+the card still runs this one's replay and update; any other loss is read
+by `float`, which waits for everything queued. `fit` returns once the
+card has finished all it queued.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from orion_tpu_torch.profiling import span
+from orion_tpu_torch.profiling import count, span
 from orion_tpu_torch.render import IntersectFn, render
 from orion_tpu_torch.scene import Scene
 
@@ -73,6 +81,19 @@ def _project(params: Dict[str, torch.Tensor]) -> None:
                 v.clamp_(0.0, 1.0)
             elif k == "mat_emissive":
                 v.clamp_(min=0.0)
+
+
+def _read_loss(value) -> float:
+    """A step's loss as a float: from its own host copy once that copy's
+    event has passed (`host_copy`, counter `fit.loss_event`), else
+    `float(value)`."""
+    early = getattr(value, "host_copy", None)
+    if early is None:
+        return float(value)
+    host, done = early
+    done.synchronize()
+    count("fit.loss_event")
+    return float(host)
 
 
 def make_loss(scene: Scene, camera, *, samples: int, max_depth: int,
@@ -253,9 +274,12 @@ def fit(ps, target, *, params: Sequence[str] = DEFAULT_PARAMS,
                     opt.step()
                     _project(theta)
                 with span("fit.step.loss_read"):
-                    losses.append(float(value))
+                    losses.append(_read_loss(value))
             if callback is not None:
                 callback(i, losses[-1])
+        if ps.scene.device.type == "cuda":
+            # the last step's replay and update may still be queued
+            torch.cuda.current_stream(ps.scene.device).synchronize()
 
     out = {k: v.detach() for k, v in theta.items()}
     return FitResult(scene=dataclasses.replace(ps.scene, **out),

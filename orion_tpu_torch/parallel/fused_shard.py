@@ -199,7 +199,7 @@ def make_fused_train_step_sharded(scene: Scene, camera, target, *,
             # lanes sum their samples; the image is the mean
             w = (diff * (2.0 / (H * W * 3 * samples))).contiguous()
             acc = prb_replay(tab, *geo, int(seed), w, ls, *cfg, pix_base=lo,
-                             n_lanes=n)
+                             n_lanes=n, em_mesh=plan.em_mesh)
             buf = all_reduce_sum(torch.cat([torch.sum(diff * diff)
                                             .reshape(1), acc.reshape(-1)]),
                                  mesh)

@@ -47,6 +47,11 @@ Where the program opens spans and counters:
                               materials (FusedPathPRB.forward)
   counters kernel.built       libraries compiled
            kernel.loaded      libraries loaded
+           prb.id_check       reads of the PRB replay's material ids
+                              (ops/prb._emitter_column): one a plan, or
+                              one a replay called without a plan's
+           fit.loss_event     fit steps whose loss was read from its own
+                              host copy, not by waiting for the whole step
 """
 
 from __future__ import annotations

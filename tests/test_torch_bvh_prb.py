@@ -252,3 +252,48 @@ def test_fit_trains_emission_past_the_fused_gate(cornell, monkeypatch):
     assert all(b < a for a, b in zip(res.losses, res.losses[1:]))
     em = int(ts.numpy("emissive_mesh_ids")[0])
     assert (res.params["mat_emissive"][em] > ke[em]).all()
+
+
+@pytest.mark.parametrize("where", ["table", "emitter"])
+def test_bvh_plan_rejects_materials_past_accumulator_when_built(cornell,
+                                                                where):
+    """BVHPRBPlan checks its table's and emitter's material ids once, when
+    it is made, with the replay's error."""
+    rtc, js, jrtc, target = cornell
+    plan = bvp.make_bvh_train_step(
+        to_torch(js), camera_from_rtc(jrtc, device="cpu"), target,
+        samples=S, max_depth=D, light_samples=LS).plan
+    if where == "table":
+        bad = plan.table().detach().clone()
+        bad[0, fp._C_MESH] = prb.M_LANES
+        kw = {"update": lambda *a: bad}
+    else:
+        em = plan.em.clone()
+        em[0, 0] = prb.M_LANES
+        kw = {"em": em}
+    with pytest.raises(ValueError, match="accumulator columns"):
+        dataclasses.replace(plan, **kw)
+
+
+def test_bvh_fit_checks_material_ids_once_a_plan(cornell, monkeypatch):
+    """Past the fused gate, a 3-step fit over the tree reads the replay's
+    material ids once, when its plan is made."""
+    from orion_tpu_torch import profiling
+    from orion_tpu_torch.engine import prepare
+
+    rtc, js, jrtc, _ = cornell
+    ps = prepare(rtc, device="cpu")
+    target = fp.make_fused_path_renderer(ps.scene, ps.camera, samples=S,
+                                         max_depth=D, light_samples=LS)(3)
+    monkeypatch.setattr(prb, "fused_train_supported", lambda *a: False)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            optim.fit(ps, target, params=("mat_emissive",), steps=3,
+                      optimizer=lambda p: torch.optim.SGD(p, lr=1.0),
+                      samples=S, max_depth=D, light_samples=LS, seed=3)
+        t = profiling.totals()
+    finally:
+        profiling.reset()
+    assert t["prb.id_check"] == {"count": 1}
+    assert t["fit.step"]["n"] == 3

@@ -1759,3 +1759,147 @@ def test_sample_offset_on_cuda_generators(tmp_path, cuda_device, mode):
     skip_samples(ps.scene, s, 3, ps.camera.yres, ps.camera.xres,
                  cuda_device, max_depth=3, light_samples=2, mode=None)
     assert torch.equal(s.get_state(), state)
+
+
+FIT_CFG = dict(samples=2, max_depth=3, light_samples=2)
+
+
+def _fit_problem(tmp_path, device, whitted=False):
+    """A PreparedScene of the 32x24 box with its albedos x 0.8, and a grey
+    target."""
+    from orion_tpu_torch.engine import prepare
+
+    write = write_cornell_whitted if whitted else write_cornell
+    ps = prepare(write(tmp_path, xres=32, yres=24, depth=3), device=device)
+    ps = dataclasses.replace(ps, scene=dataclasses.replace(
+        ps.scene, mat_diffuse=ps.scene.mat_diffuse * 0.8))
+    return ps, torch.full((24, 32, 3), 0.1, device=device)
+
+
+def _fit_counted(ps, target, **kw):
+    """(FitResult, whether the stream was idle when fit returned, the
+    registry's totals over the fit)."""
+    from orion_tpu_torch import profiling
+    from orion_tpu_torch.optim import fit
+
+    profiling.reset()
+    try:
+        with profiling.recording():
+            res = fit(ps, target, **kw)
+            idle = torch.cuda.current_stream().query()
+        return res, idle, profiling.totals()
+    finally:
+        profiling.reset()
+
+
+@pytest.mark.gpu
+def test_fit_on_the_fused_route_reads_each_loss_from_its_copy(
+        tmp_path, cuda_device):
+    """fit over kernels 3a/3b reads each step's loss from its own host
+    copy (one `fit.loss_event` a step, one id check a job) and returns
+    with the stream idle; its losses, the parameters each callback reads
+    and its result are bit for bit those of driving make_fused_train_step
+    by hand with float(loss) after every step, the same Adam and the same
+    projection."""
+    ps, target = _fit_problem(tmp_path, cuda_device)
+    steps, lr, seed = 4, 5e-2, 9
+    opts, seen = [], []
+
+    def adam(p):
+        opts.append(torch.optim.Adam(p, lr=lr))
+        return opts[-1]
+
+    def callback(i, loss):
+        seen.append(opts[0].param_groups[0]["params"][0].detach().clone())
+
+    res, idle, t = _fit_counted(ps, target, params=("mat_diffuse",),
+                                steps=steps, optimizer=adam, seed=seed,
+                                callback=callback, **FIT_CFG)
+    assert idle
+    assert t["fit.loss_event"] == {"count": steps}
+    assert t["prb.id_check"] == {"count": 1}
+    step = prb.make_fused_train_step(ps.scene, ps.camera, target,
+                                     dynamic_params=True, **FIT_CFG)
+    theta = ps.scene.mat_diffuse.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([theta], lr=lr)
+    seeds = torch.Generator()
+    seeds.manual_seed(seed)
+    losses, after = [], []
+    for _ in range(steps):
+        s = int(torch.randint(0, 2**31 - 1, (1,), generator=seeds))
+        loss, g = step({"mat_diffuse": theta.detach()}, s)
+        opt.zero_grad(set_to_none=True)
+        theta.grad = g["mat_diffuse"]
+        opt.step()
+        with torch.no_grad():
+            theta.clamp_(0.0, 1.0)
+        losses.append(float(loss))
+        after.append(theta.detach().clone())
+    assert res.losses == losses
+    assert len(seen) == steps
+    assert all(torch.equal(a, b) for a, b in zip(seen, after))
+    assert torch.equal(res.params["mat_diffuse"], after[-1])
+
+
+@pytest.mark.gpu
+def test_fit_over_the_tree_reads_each_loss_from_its_copy(
+        tmp_path, cuda_device, monkeypatch):
+    """Past the fused gate a mat_emissive fit takes kernels 9a/9b: one
+    loss event a step, one id check a job, the stream idle at return."""
+    from orion_tpu_torch.ops import bvh_prb
+
+    ps, target = _fit_problem(tmp_path, cuda_device)
+    monkeypatch.setattr(prb, "fused_train_supported", lambda *a: False)
+    made = []
+    real = bvh_prb.make_bvh_train_step
+    monkeypatch.setattr(bvh_prb, "make_bvh_train_step",
+                        lambda *a, **k: made.append(1) or real(*a, **k))
+    res, idle, t = _fit_counted(
+        ps, target, params=("mat_emissive",), steps=3, seed=4,
+        optimizer=lambda p: torch.optim.SGD(p, lr=1.0), **FIT_CFG)
+    assert made == [1] and idle
+    assert t["fit.loss_event"] == {"count": 3}
+    assert t["prb.id_check"] == {"count": 1}
+    assert all(np.isfinite(res.losses))
+
+
+@pytest.mark.gpu
+def test_whitted_fit_reads_each_loss_by_float(tmp_path, cuda_device):
+    """The Whitted closed form gives no early reading: no loss event, and
+    fit still returns with the stream idle."""
+    ps, target = _fit_problem(tmp_path, cuda_device, whitted=True)
+    res, idle, t = _fit_counted(ps, target, params=("mat_diffuse",),
+                                steps=2, samples=1, max_depth=2,
+                                use_prb=True)
+    assert idle and t["fit.step"]["n"] == 2
+    assert "fit.loss_event" not in t and "prb.id_check" not in t
+    assert all(np.isfinite(res.losses))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["table", "emitter"])
+def test_replays_check_material_ids_on_the_card(tmp_path, cuda_device,
+                                                where):
+    """prb_replay and bvh_prb_replay called directly check each call's
+    table and emitter, and a plan its own when it is made: an id past the
+    accumulator raises."""
+    sc, cam = _scene(tmp_path, cuda_device, "cornell")
+    base, clo, chi, em, cam_v = fp.fused_args(sc, cam)
+    nodes, _, update = bvp.make_bvh_tab_updater(sc)
+    tab = update()
+    if where == "table":
+        base[0, fp._C_MESH] = prb.M_LANES
+        tab[0, fp._C_MESH] = prb.M_LANES
+    else:
+        em[0, 0] = prb.M_LANES
+    n = 32 * 24
+    w = torch.zeros((n, 3), device=cuda_device)
+    ls = torch.zeros((n, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="accumulator columns"):
+        prb.prb_replay(base, clo, chi, em, cam_v, 0, w, ls, 32, 24, 1, 1, 1)
+    with pytest.raises(ValueError, match="accumulator columns"):
+        bvp.bvh_prb_replay(nodes, tab, em, cam_v, 0, w, ls, 32, 24, 1, 1, 1,
+                           leaf_width=bp.GPU_LEAF_WIDTH)
+    with pytest.raises(ValueError, match="accumulator columns"):
+        prb.PRBPlan(scene=sc, base=base, clo=clo, chi=chi, em=em, cam=cam_v,
+                    W=32, H=24, samples=1, max_depth=1, light_samples=1)

@@ -34,9 +34,12 @@ from orion_tpu.ops import pallas_fused as jf
 from orion_tpu.ops import pallas_prb as jp
 from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu.scene import subdivide_scene as jsubdivide
+from orion_tpu_torch import profiling
 from orion_tpu_torch.camera import camera_from_rtc
+from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
+from orion_tpu_torch.optim import fit
 
 from chip_smoke import two_emitter, write_cornell
 from torch_port_util import to_torch
@@ -278,3 +281,44 @@ def test_replay_rejects_materials_past_accumulator(cornell, where):
     ls = torch.zeros((n, 3 * S))
     with pytest.raises(ValueError, match="accumulator columns"):
         prb.prb_replay(tab, clo, chi, em, cam, 0, w, ls, RES, RES, S, D, LS)
+
+
+@pytest.mark.parametrize("where", ["table", "emitter"])
+def test_plan_rejects_materials_past_accumulator_when_built(cornell, where):
+    """A plan checks its material ids once, when it is made, with the
+    replay's error."""
+    js, jrtc, _ = cornell
+    ts = to_torch(js)
+    base, clo, chi, em, cam = fp.fused_args(
+        ts, camera_from_rtc(jrtc, device="cpu"))
+    if where == "table":
+        base[0, fp._C_MESH] = prb.M_LANES
+    else:
+        em[0, 0] = prb.M_LANES
+    with pytest.raises(ValueError, match="accumulator columns"):
+        prb.PRBPlan(scene=ts, base=base, clo=clo, chi=chi, em=em, cam=cam,
+                    W=RES, H=RES, samples=S, max_depth=D, light_samples=LS)
+
+
+def test_fit_checks_material_ids_once_a_plan(tmp_path):
+    """A 3-step fit on the fused route reads the replay's material ids
+    once (its plan's check), not once a step; on the CPU its losses are
+    read by float, not from a host copy."""
+    ps = prepare(write_cornell(tmp_path, xres=RES, yres=RES, depth=D),
+                 device="cpu")
+    target = fp.make_fused_path_renderer(ps.scene, ps.camera, samples=S,
+                                         max_depth=D, light_samples=LS)(5)
+    ps = dataclasses.replace(ps, scene=dataclasses.replace(
+        ps.scene, mat_diffuse=ps.scene.mat_diffuse * 0.8))
+    profiling.reset()
+    try:
+        with profiling.recording():
+            res = fit(ps, target, params=("mat_diffuse",), steps=3,
+                      samples=S, max_depth=D, light_samples=LS, seed=11)
+        t = profiling.totals()
+    finally:
+        profiling.reset()
+    assert t["prb.id_check"] == {"count": 1}
+    assert t["fit.step"]["n"] == 3 and t["prb.table"]["n"] == 3
+    assert "fit.loss_event" not in t
+    assert len(res.losses) == 3

@@ -21,7 +21,7 @@ from orion_tpu_torch import cli, profiling
 from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.ops import cuda_build
 from orion_tpu_torch.ops.fused_path import make_fused_path_renderer
-from orion_tpu_torch.optim import fit
+from orion_tpu_torch.optim import _read_loss, fit
 
 FIT = dict(samples=2, max_depth=3, light_samples=2)
 
@@ -192,6 +192,35 @@ def test_fit_losses_are_the_same_with_spans_on_and_off(fit_problem):
     on = _fit(fit_problem).losses
     assert on == off
     assert profiling.totals()["fit.step"]["n"] == 3
+
+
+def test_fit_counts_one_id_check_a_job(fit_problem):
+    profiling.enable()
+    _fit(fit_problem, steps=3)
+    t = profiling.totals()
+    assert t["prb.id_check"] == {"count": 1}
+    assert t["fit.step"]["n"] == 3
+    # the CPU's plain versions give no early reading of the loss
+    assert "fit.loss_event" not in t
+
+
+class _Event:
+    def __init__(self):
+        self.waits = 0
+
+    def synchronize(self):
+        self.waits += 1
+
+
+def test_fit_reads_a_loss_from_its_own_host_copy():
+    """A loss that carries `host_copy` (a CUDA PRB step's) is read from
+    that copy after its event, and counted; any other by float."""
+    profiling.enable()
+    value, done = torch.tensor(0.0), _Event()
+    value.host_copy = (torch.tensor(1.5), done)
+    assert _read_loss(value) == 1.5 and done.waits == 1
+    assert _read_loss(torch.tensor(2.5)) == 2.5
+    assert profiling.totals()["fit.loss_event"] == {"count": 1}
 
 
 class _FakeLib:
