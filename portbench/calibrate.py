@@ -1,10 +1,12 @@
 """Readings that set a cell's limits: the program's compared numbers over
 many seeds (the lower reading), the control's (the plain reference in
-bfloat16 put in the program's place: the upper reading) and, for a fit
-cell, the program with a fault planted.
+bfloat16 put in the program's place: the upper reading) and the faults:
+for a fit cell the program with a fault planted ("half"), for a Whitted
+render cell the reference's retrace with one rule broken
+(WHITTED_FAULTS) put in the program's place.
 
     python3 portbench/calibrate.py --workload <cell> --seeds 12 \
-        --control-seeds 3 [--first-seed N] [--faults half]
+        --control-seeds 3 [--first-seed N] [--faults half | no_mirror,...]
 
 One process: the cell's set-up once, then per seed one unit of its loop
 (one render, or one fit job) and its check, at the cell's own sizes. The
@@ -19,8 +21,43 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
+import reference
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+
+class NoShadowQuirk(reference.WhittedTracer):
+    """A hit beyond the light (t >= 1) no longer blocks a shadow ray."""
+
+    SHADOW_CAP = 1.0
+
+
+class NoMirror(reference.WhittedTracer):
+    """No mirror continuation: every path ends at its first hit."""
+
+    def reflectivity(self, m):
+        return torch.zeros_like(self.ks[m])
+
+
+class PowZeroZero(reference.WhittedTracer):
+    """pow(0, 0) = 0 in the specular term."""
+
+    def pow_c(self, x, e):
+        return torch.where(x > 0.0, super().pow_c(x, e), torch.zeros_like(x))
+
+
+class NoFalloff(reference.WhittedTracer):
+    """A light's intensity is not divided by the squared distance."""
+
+    def light_distance2(self, d2):
+        return torch.ones_like(d2)
+
+
+WHITTED_FAULTS = {"no_shadow_quirk": NoShadowQuirk, "no_mirror": NoMirror,
+                  "pow00_zero": PowZeroZero, "no_falloff": NoFalloff}
 
 
 def program_readings(loop, ctx, seeds) -> dict:
@@ -36,38 +73,40 @@ def program_readings(loop, ctx, seeds) -> dict:
     return out
 
 
-def render_control(ctx, seeds, loop_mod) -> dict:
-    """bad_px of the reference in bfloat16 against it in float32, at the
-    cell's pixels and samples."""
+def render_readings(ctx, seeds, loop_mod, make_other) -> dict:
+    """bad_px of the tracer `make_other(scene)` against the configuration's
+    reference retrace in float32, at the cell's pixels and samples."""
     import numpy as np
-    import torch
-
-    import reference
 
     tr = ctx.traffic
     sc = reference.load_scene(ctx.tmp / "scene" / "cornell.rtc")
-    acc = ctx.config["reference_accel"]
-    f32 = reference.Tracer(sc, ctx.device, accel=acc)
-    bf16 = reference.Tracer(sc, ctx.device, dtype=torch.bfloat16, accel=acc)
+    cls = reference.TRACERS[ctx.config.get("integrator", "path")]
+    f32 = cls(sc, ctx.device, accel=ctx.config["reference_accel"])
+    other = make_other(sc)
     out = {}
     for s in seeds:
         rng = np.random.default_rng([s, 0])
         pix = torch.as_tensor(np.sort(rng.choice(
             tr["xres"] * tr["yres"], tr["check"]["pixels"], replace=False)),
             device=ctx.device)
-        args = (pix, tr["samples"], tr["max_depth"], tr["light_samples"], s)
+        args = (pix, tr["samples"], tr["max_depth"], tr.get("light_samples"),
+                s)
         want = f32.trace(*args).cpu().numpy()
-        got = bf16.trace(*args).cpu().numpy()
+        got = other.trace(*args).cpu().numpy()
         out[s] = {"bad_px": loop_mod.bad_pixel_share(got[None], want[None])}
-        ctx.log(f"control seed {s}: {out[s]}")
+        ctx.log(f"seed {s}: {out[s]}")
     return out
 
 
+def render_control(ctx, seeds, loop_mod) -> dict:
+    """The configuration's retrace in bfloat16 in the program's place."""
+    cls = reference.TRACERS[ctx.config.get("integrator", "path")]
+    return render_readings(ctx, seeds, loop_mod, lambda sc: cls(
+        sc, ctx.device, dtype=torch.bfloat16,
+        accel=ctx.config["reference_accel"]))
+
+
 def fit_control(ctx, seeds, loop_mod) -> dict:
-    import torch
-
-    import reference
-
     tr = ctx.traffic
     sc = reference.load_scene(ctx.tmp / "scene" / "cornell.rtc")
     acc = ctx.config["reference_accel"]
@@ -120,13 +159,18 @@ def main(argv=None) -> int:
               for k in range(args.control_seeds)]
     out = {"workload": args.workload, "program": program_readings(
         loop, ctx, seeds)}
-    for fault in filter(None, args.faults.split(",")):
+    faults = list(filter(None, args.faults.split(",")))
+    for fault in [f for f in faults if f not in WHITTED_FAULTS]:
         undo = plant(fault)
         try:
             out[f"fault:{fault}"] = program_readings(loop, ctx, cseeds)
         finally:
             undo()
     loop.free()
+    for fault in [f for f in faults if f in WHITTED_FAULTS]:
+        out[f"fault:{fault}"] = render_readings(
+            ctx, cseeds, mod, lambda sc, f=fault: WHITTED_FAULTS[f](
+                sc, ctx.device))
     if cell.traffic["loop"] == "fit":
         out["control"] = fit_control(ctx, cseeds, mod)
     else:

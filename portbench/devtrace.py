@@ -11,6 +11,7 @@ host was doing are worked out.
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 from pathlib import Path
@@ -74,20 +75,43 @@ class DeviceTrace:
 
     def idle_gaps(self, n: int = 10) -> list:
         """The idle time of the slice grouped by the innermost host
-        operation running at each gap's middle, longest first."""
+        operation running at each gap's middle (the least (duration,
+        name) among those whose [start, end] holds it), longest first.
+
+        One sweep: the gaps' middles rise, so the host operations are
+        taken in order of start as the sweep reaches them, and a heap
+        keyed by (duration, name) drops an operation once a middle lies
+        past its end, which no later middle can lie before."""
         merged = self._merged()
         edges = [self.t0] + [x for ab in merged for x in ab] + [self.t1]
+        host = sorted((ts, ts + dur, dur, name) for name, ts, dur
+                      in self.host)
+        heap, nxt = [], 0
         by = {}
         for a, b in zip(edges[0::2], edges[1::2]):
             if b <= a:
                 continue
             mid = 0.5 * (a + b)
-            cover = [(dur, name) for name, ts, dur in self.host
-                     if ts <= mid <= ts + dur]
-            label = min(cover)[1] if cover else "host (no traced call)"
+            while nxt < len(host) and host[nxt][0] <= mid:
+                ts, end, dur, name = host[nxt]
+                heapq.heappush(heap, (dur, name, end))
+                nxt += 1
+            while heap and heap[0][2] < mid:
+                heapq.heappop(heap)
+            label = heap[0][1] if heap else "host (no traced call)"
             by[label] = by.get(label, 0.0) + (b - a) * 1e-6
         gaps = sorted(by.items(), key=lambda kv: -kv[1])
         return [[name, s] for name, s in gaps[:n]]
+
+
+def idle_pct(ctx, units):
+    """The idle_pct.* readers' one reading: the share (%) of the traced
+    slice in which nothing ran on the card, or None without a trace or
+    where `units(window)` finds no unit of the reader's loop."""
+    tr = ctx["trace"]
+    if tr is None or not units(ctx["window"]):
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
 
 
 def profiled(fn, tmpdir, cuda: bool):

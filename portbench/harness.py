@@ -10,7 +10,10 @@ metric is a file found by its name:
     settings, the loop that drives them, what the check samples);
   - a loop is portbench/loops/<loop>.py (class Loop);
   - a cell's limits are portbench/cells/<cell>.json;
-  - a metric is portbench/metrics/<name>.py (read(ctx) -> number | None).
+  - a metric is portbench/metrics/<name>.py (read(ctx) -> number | None);
+  - a cell held back from BENCHMARK.json keeps its entries (configs,
+    workloads, metrics) in portbench/held/<cell>.json: it runs by hand
+    and in the tests, and no check of the benchmark runs it.
 """
 
 from __future__ import annotations
@@ -116,13 +119,18 @@ def applies(metric: dict, cell: str) -> bool:
 
 
 class Cell:
-    """A workload of BENCHMARK.json with its configuration, traffic and
-    limits, read from the files under `root`."""
+    """A workload of BENCHMARK.json, or one held back from it, with its
+    configuration, traffic and limits, read from the files under `root`."""
 
     def __init__(self, name: str, root: Path = ROOT):
         self.root = Path(root)
         self.bench = json.loads((self.root / "BENCHMARK.json").read_text())
         cells = {w["name"]: w for w in self.bench["workloads"]}
+        held = self.root / "portbench" / "held" / f"{name}.json"
+        if name not in cells and held.is_file():
+            for group, entries in json.loads(held.read_text()).items():
+                self.bench[group] = self.bench[group] + entries
+            cells = {w["name"]: w for w in self.bench["workloads"]}
         if name not in cells:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
         self.name = name
@@ -189,16 +197,23 @@ class Context:
         print(f"[portbench] {msg}", file=sys.stderr, flush=True)
 
 
-def route(ps, *, samples: int, max_depth: int, light_samples: int):
-    """(fn(seed) -> [H, W, 3], backend) of a path scene, picked as
-    cli.main picks its megakernel route (a copy of its path-mode branch):
-    the fused path kernel inside its gate, else the big-path chain."""
-    from orion_tpu_torch.engine import make_big_path_renderer
+def route(ps, *, samples: int, max_depth: int, light_samples: int | None):
+    """(fn(seed) -> [H, W, 3], backend) of a scene, picked as cli.main
+    picks its megakernel route (a copy of its two branches): for a scene
+    with rtc point lights the Whitted megakernels in
+    engine.make_whitted_megakernel's order; else the fused path kernel
+    inside its gate, then the big-path chain. Raises ValueError for a
+    scene outside every megakernel gate."""
+    from orion_tpu_torch.engine import (make_big_path_renderer,
+                                        make_whitted_megakernel)
     from orion_tpu_torch.ops.fused_path import (fused_path_supported,
                                                 make_fused_path_renderer)
 
     if ps.scene.num_lights > 0:
-        raise ValueError("the render loop drives path scenes only")
+        return make_whitted_megakernel(ps.scene, ps.camera, samples=samples,
+                                       max_depth=max_depth,
+                                       strategy=ps.strategy,
+                                       order_signs=ps.order_signs)
     if fused_path_supported(ps.scene):
         return (make_fused_path_renderer(ps.scene, ps.camera, samples=samples,
                                          max_depth=max_depth,

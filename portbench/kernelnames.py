@@ -25,3 +25,7 @@ def renders(window):
 def steps(window):
     """Train steps in the window, or None for a window of another loop."""
     return sum(window.steps) if hasattr(window, "samples_per_step") else None
+
+
+# kernel 4, the Whitted megakernel over the brute sweep (csrc/whitted.cu)
+IS_K4 = kernel("whitted_kernel")

@@ -1,4 +1,5 @@
-"""The plain reference of the benchmark: the path tracer in plain PyTorch.
+"""The plain reference of the benchmark: the path and Whitted tracers in
+plain PyTorch.
 
 It reads the scene files the benchmark wrote (its own .rtc/.obj/.mtl
 parser), builds its own camera, Woop rows and tree, and traces each
@@ -19,6 +20,15 @@ carry one normal, this equals the "legacy" form the training kernels use
 value. The frozen copies of the program's arithmetic (`pcg4d`, the camera,
 the Woop rows and test, the cosine bounce) each name their origin.
 
+The Whitted estimator (`WhittedTracer`, for scenes with rtc point lights)
+follows raytracer.cpp:195-207 and material.hpp:72-93 as the Whitted
+kernel documents them (ops/whitted.py): the same PCG4D-jittered primary
+rays, the nearest hit, depth-0 emission scaled by mesh area, one shadow
+test per point light in which ANY hit at any t >= 0 blocks (even geometry
+beyond the light), Phong ambient + diffuse + specular x colour x
+intensity / d^2 with C's pow(0, 0) = 1, and the mirror continuation
+scaled by Ks, a path ending where its throughput is zero.
+
 `dtype` selects the precision of every floating-point operation: float32,
 the configurations' stated precision, or bfloat16 for the control.
 
@@ -28,6 +38,8 @@ search over this reference's structure makes: a brute sweep tests every
 triangle; the tree walk (`RefTree`) counts its node visits and the real
 triangles of the leaves it enters. Shadow segments are counted only where
 the geometry term is positive, the ones any correct estimator must trace.
+A Whitted shadow test stops at its first hit, in the order of the scene
+file's triangles.
 """
 
 from __future__ import annotations
@@ -64,6 +76,9 @@ class RefScene:
     mesh_area: np.ndarray   # [M] float32
     kd: np.ndarray          # [M, 3] float32
     ke: np.ndarray          # [M, 3] float32
+    ka: np.ndarray          # [M, 3] float32
+    ks: np.ndarray          # [M, 3] float32
+    ns: np.ndarray          # [M] float32 Phong exponent
     mesh_names: list
     emitters: list          # [(mesh id, first triangle, count)]
     xres: int
@@ -73,6 +88,7 @@ class RefScene:
     look_at: tuple
     vector_up: tuple
     y_view: float
+    lights: list            # [(position, colour / 255, intensity)]
 
     @property
     def num_triangles(self) -> int:
@@ -86,14 +102,22 @@ def _data_lines(path: Path):
             yield line
 
 
+# the material keys read, and their values where a material lacks them
+MTL_DEFAULTS = {"Kd": (0.0, 0.0, 0.0), "Ke": (0.0, 0.0, 0.0),
+                "Ka": (0.0, 0.0, 0.0), "Ks": (0.0, 0.0, 0.0), "Ns": 0.0}
+
+
 def _parse_mtl(path: Path) -> dict:
     mats, cur = {}, None
     for line in _data_lines(path):
         tok = line.split()
         if tok[0] == "newmtl":
-            cur = mats.setdefault(tok[1], {"Kd": (0.0, 0.0, 0.0),
-                                           "Ke": (0.0, 0.0, 0.0)})
-        elif tok[0] in ("Kd", "Ke") and cur is not None:
+            cur = mats.setdefault(tok[1], dict(MTL_DEFAULTS))
+        elif cur is None or tok[0] not in MTL_DEFAULTS:
+            continue
+        elif tok[0] == "Ns":
+            cur["Ns"] = float(tok[1])
+        else:
             cur[tok[0]] = tuple(float(x) for x in tok[1:4])
     return mats
 
@@ -101,7 +125,9 @@ def _parse_mtl(path: Path) -> dict:
 def load_scene(rtc_path) -> RefScene:
     """Parse the .rtc and the .obj/.mtl it names. A mesh is a run of faces
     of one `o` group and one material; faces are triangles with `v//vn`
-    or `v/vt/vn` corners."""
+    or `v/vt/vn` corners; a material's absent keys are MTL_DEFAULTS'. The
+    .rtc's lines after the eighth are point lights `L x y z r g b
+    intensity`, the colour given in 0..255."""
     rtc_path = Path(rtc_path)
     lines = list(_data_lines(rtc_path))
     vec = [tuple(float(x) for x in lines[k].split()[:3]) for k in (4, 5, 6)]
@@ -136,8 +162,8 @@ def load_scene(rtc_path) -> RefScene:
             meshes[-1][2].append(corners)
     pos = np.asarray(pos, np.float32)
     nrm = np.asarray(nrm, np.float32)
-    v0s, e1s, e2s, ns, mesh_ids, areas, kd, ke, names = ([] for _ in
-                                                         range(9))
+    v0s, e1s, e2s, ns, mesh_ids, areas, names = ([] for _ in range(7))
+    props_of = []
     emitters, first = [], 0
     for m, (name, mat, faces) in enumerate(meshes):
         f = np.asarray(faces, np.int64)                     # [F, 3, 2]
@@ -149,20 +175,30 @@ def load_scene(rtc_path) -> RefScene:
         areas.append(float(np.sum(0.5 * np.linalg.norm(np.cross(e1, e2),
                                                         axis=1))))
         props = mats[mat]
-        kd.append(props["Kd"]), ke.append(props["Ke"]), names.append(name)
+        props_of.append(props), names.append(name)
         if any(x != 0.0 for x in props["Ke"]):
             emitters.append((m, first, len(f)))
         first += len(f)
     n = np.concatenate(ns)
+
+    def column(key):
+        return np.asarray([p[key] for p in props_of], np.float32)
+
+    lights = []
+    for line in lines[8:]:
+        tok = line.split()
+        at, col = (tuple(float(x) for x in tok[k:k + 3]) for k in (1, 4))
+        lights.append((at, tuple(c / 255.0 for c in col), float(tok[7])))
     return RefScene(
         v0=np.concatenate(v0s), e1=np.concatenate(e1s),
         e2=np.concatenate(e2s), n0=n[:, 0].copy(), n1=n[:, 1].copy(),
         n2=n[:, 2].copy(), mesh=np.concatenate(mesh_ids),
         mesh_area=np.asarray(areas, np.float32),
-        kd=np.asarray(kd, np.float32), ke=np.asarray(ke, np.float32),
-        mesh_names=names, emitters=emitters, xres=xres, yres=yres,
-        depth=int(lines[2].split()[0]), view_point=vec[0], look_at=vec[1],
-        vector_up=vec[2], y_view=float(lines[7].split()[0]))
+        kd=column("Kd"), ke=column("Ke"), ka=column("Ka"), ks=column("Ks"),
+        ns=column("Ns"), mesh_names=names, emitters=emitters, xres=xres,
+        yres=yres, depth=int(lines[2].split()[0]), view_point=vec[0],
+        look_at=vec[1], vector_up=vec[2], y_view=float(lines[7].split()[0]),
+        lights=lights)
 
 
 def camera_vec(sc: RefScene) -> torch.Tensor:
@@ -648,3 +684,133 @@ class Tracer:
             o = (h + sn * BIAS).detach()
             idx, o, d, T = idx[cont], o[cont], bd.detach()[cont], T[cont]
         return acc.view(P, spp, 3).sum(dim=1) * (1.0 / spp)
+
+
+class WhittedTracer(Tracer):
+    """The Whitted estimator over the reference scene's rtc point lights
+    and Phong materials, in one precision. The methods `pow_c`,
+    `light_distance2` and `reflectivity` and the constant SHADOW_CAP each
+    hold one rule of the estimator."""
+
+    # the specular term's weight, 0.5 * pow(cos, Ns) (a copy of the
+    # constant in ops/whitted._whitted_plain)
+    SPEC_WEIGHT = 0.5
+    # a shadow ray is blocked by a hit at any t below this: the quirk
+    # (raytracer.cpp:196-201), a hit beyond the light (t > 1) blocks too
+    SHADOW_CAP = BIG
+
+    def __init__(self, sc: RefScene, device, *, dtype=torch.float32,
+                 accel: str = "brute"):
+        if accel != "brute":
+            raise ValueError("the Whitted reference sweeps every triangle")
+        super().__init__(sc, device, dtype=dtype, accel=accel)
+
+        def put(x):
+            return torch.as_tensor(np.asarray(x, np.float32),
+                                   device=self.dev).to(dtype)
+
+        self.ka, self.ks, self.ns = put(sc.ka), put(sc.ks), put(sc.ns)
+        self.lights = [(put(p), put(c), float(i)) for p, c, i in sc.lights]
+
+    def pow_c(self, x, e):
+        """C's powf for x >= 0: pow(0, 0) == 1, pow(0, e > 0) == 0."""
+        one = torch.ones_like(x)
+        return torch.where(x > 0.0, torch.pow(torch.where(x > 0.0, x, one),
+                                              e),
+                           torch.where(e == 0.0, one, torch.zeros_like(x)))
+
+    def light_distance2(self, d2):
+        """The divisor of a light's intensity: the squared distance."""
+        return torch.clamp(d2, min=1e-20)
+
+    def reflectivity(self, m):
+        """[n, 3] factor of the mirror continuation: the material's Ks."""
+        return self.ks[m]
+
+    def blocked(self, so, sd, counts=None):
+        """Whether each shadow ray (so, sd) hits a triangle at a t below
+        SHADOW_CAP; counts the tests of a sweep that stops at its first
+        hit, in the scene file's order."""
+        n, T = so.shape[0], self.rows.shape[0]
+        out = torch.zeros((n,), dtype=torch.bool, device=so.device)
+        tests = 0
+        w = tuple(self.rows[None, :, i] for i in range(13))
+        step = max(1, (1 << 24) // max(T, 1))
+        for s in range(0, n, step):
+            oo = tuple(so[s:s + step, i, None] for i in range(3))
+            dd = tuple(sd[s:s + step, i, None] for i in range(3))
+            hit = woop_tuv(oo, dd, w)[0] < self.SHADOW_CAP
+            any_hit = hit.any(dim=1)
+            first = torch.argmax(hit.to(torch.int8), dim=1)
+            tests += int(torch.where(any_hit, first + 1,
+                                     torch.full_like(first, T)).sum())
+            out[s:s + step] = any_hit
+        if counts is not None:
+            counts.add("shadow", n, 0, tests)
+        return out
+
+    def trace(self, pix, spp: int, max_depth: int, light_samples: int,
+              seed, *, kd=None, counts: Counts | None = None):
+        """[P, 3] radiance / spp of pixels `pix` (int64 [P] on the
+        device): every one of their spp Whitted paths traced to its end.
+        `seed` is the render's PCG seed or an int64 [P] tensor of one per
+        entry of `pix`; `light_samples` is not used (point lights)."""
+        dev, dt, sc = self.dev, self.dt, self.sc
+        kd = self.kd if kd is None else kd.to(dt)
+        P = pix.numel()
+        lane_pix = pix.repeat_interleave(spp)
+        lane_samp = torch.arange(spp, device=dev).repeat(P)
+        lane_seed = (torch.as_tensor(seed, dtype=torch.int64, device=dev)
+                     .expand(P) & M32).repeat_interleave(spp)
+        o, d = primary_rays(self.cam, lane_pix, lane_samp, lane_seed,
+                            sc.xres, sc.yres)
+        o, d = o.to(dt), d.to(dt)
+        N = lane_pix.numel()
+        acc = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+        idx = torch.arange(N, device=dev)
+        T = torch.ones((N, 3), dtype=dt, device=dev)
+        for depth in range(max_depth + 1):
+            t, tri = self.nearest(o, d, BIG, counts, "nearest")
+            keep = tri >= 0
+            idx, o, d, T, t, tri = (x[keep] for x in (idx, o, d, T, t, tri))
+            if not idx.numel():
+                break
+            g = self.rows[tri]
+            _, u, v = woop_tuv(o.unbind(1), d.unbind(1), g.unbind(1))
+            h = o + t[:, None] * d
+            w = (1.0 - u - v)[:, None]
+            sn = _norm(w * self.n[0][tri] + u[:, None] * self.n[1][tri]
+                       + v[:, None] * self.n[2][tri])
+            gn = g[:, 6:9] * torch.sqrt(g[:, 12:13])
+            m = self.mesh[tri]
+            r = torch.zeros((idx.numel(), 3), dtype=dt, device=dev)
+            if depth == 0:
+                cosv = -(_norm(d) * sn).sum(dim=1)
+                r = r + self.ke[m] * (self.area[m] * cosv)[:, None]
+            so = h + BIAS * gn
+            vd = _norm(-d)
+            for lp, lc, intensity in self.lights:
+                tl = lp[None, :] - h
+                d2 = (tl * tl).sum(dim=1)
+                lit = ~self.blocked(so, tl, counts)
+                ld = _norm(tl)
+                ndotl = torch.clamp((sn * ld).sum(dim=1), min=0.0)
+                dot_ln = -(ld * sn).sum(dim=1)
+                refl = -ld - 2.0 * dot_ln[:, None] * sn
+                spec_cos = torch.clamp((vd * refl).sum(dim=1), min=0.0)
+                spec = self.SPEC_WEIGHT * self.pow_c(spec_cos, self.ns[m])
+                scale = lit.to(dt) * intensity / self.light_distance2(d2)
+                r = r + lc[None, :] * (self.ka[m] + ndotl[:, None] * kd[m]
+                                       + spec[:, None] * self.ks[m]) \
+                    * scale[:, None]
+            acc = acc.index_add(0, idx, (T * r).to(torch.float32))
+            T = T * self.reflectivity(m)
+            cont = (T > 0.0).any(dim=1) & (depth < max_depth)
+            bd = d - 2.0 * (d * sn).sum(dim=1)[:, None] * sn
+            o = h + sn * BIAS
+            idx, o, d, T = idx[cont], o[cont], bd[cont], T[cont]
+        return acc.view(P, spp, 3).sum(dim=1) * (1.0 / spp)
+
+
+# the retrace of each configuration's `integrator`
+TRACERS = {"path": Tracer, "whitted": WhittedTracer}

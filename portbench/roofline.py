@@ -18,6 +18,16 @@ PEAK_BYTES = 3.35e12
 WOOP_TEST_FLOPS = 39
 # FP32 arithmetic of one slab (ray-box) test: 6 subtracts, 6 multiplies
 SLAB_TEST_FLOPS = 12
+# floats a megakernel reads once a triangle (Woop rows, three normals,
+# material; the Whitted row adds Ka, Ks and the exponent) and a point light
+TABLE_ROW_FLOATS = {"path": 32, "whitted": 40}
+LIGHT_FLOATS = 8
+
+
+def table_bytes(integrator: str, triangles: int, lights: int = 0) -> int:
+    """Bytes of the scene a megakernel of `integrator` reads once."""
+    return 4 * (TABLE_ROW_FLOATS[integrator] * triangles
+                + LIGHT_FLOATS * lights)
 
 
 def bound_s(flops: float, nbytes: float) -> float:

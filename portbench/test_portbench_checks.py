@@ -17,6 +17,7 @@ for _p in (str(ROOT), str(HERE)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
+import calibrate  # noqa: E402
 import harness  # noqa: E402
 import reference  # noqa: E402
 import scenegen  # noqa: E402
@@ -179,4 +180,111 @@ def test_fit_fault_half_the_batch(monkeypatch):
     monkeypatch.setattr(optim, "_prb_loss_and_grad", half)
     res = harness.run_cell("cornell.fit-1080p", 47, 0.0, False,
                            device="cpu", traffic_overrides=FIT)
+    assert not res["correct"]
+
+
+WHITTED = "cornell-whitted.render-256-1spp"
+WHITTED_RENDER = dict(xres=16, yres=12, max_depth=2,
+                      check={"pixels": 16 * 12, "renders": 2,
+                             "online": True})
+# the light moved out of the box's open front, so that few shadow rays
+# are blocked and mirror chains land on lit walls; the mirror's Ns 0, so
+# that pow(0, 0) reaches the image
+FRONT_LIGHT = ("L 0 1.8 0.5 255 255 255 2.0", "L 0 1 2.5 255 255 255 2.0")
+
+
+def _whitted_scene(d, variant: bool, W: int = 32, H: int = 24,
+                   depth: int = 100):
+    rtc = scenegen.write_cornell_whitted(d, xres=W, yres=H, depth=depth)
+    if variant:
+        rtc.write_text(rtc.read_text().replace(*FRONT_LIGHT))
+        mtl = rtc.with_suffix(".mtl")
+        mtl.write_text(mtl.read_text().replace("Ns 20", "Ns 0"))
+    return rtc
+
+
+@pytest.mark.parametrize("variant", [False, True])
+def test_whitted_retrace_follows_the_program(tmp_path, variant):
+    # the Whitted kernel's plain version against the retrace on every
+    # pixel, and the retrace's tests against the plain version's count
+    from orion_tpu_torch.engine import prepare
+    from orion_tpu_torch.ops import whitted as wh
+
+    W, H = 32, 24
+    rtc = _whitted_scene(tmp_path, variant)
+    ps = prepare(rtc, device="cpu")
+    args = wh.whitted_args(ps.scene, ps.camera)
+    tracer = reference.WhittedTracer(reference.load_scene(rtc), "cpu")
+    loop = harness.load_module(HERE / "loops" / "render.py", "loop")
+    for seed in (1, 2**31 + 7):
+        stats, counts = {}, reference.Counts()
+        got = wh.fused_whitted_plain(*args, seed, W, H, 1, 100, True,
+                                     stats=stats).numpy()
+        want = tracer.trace(torch.arange(W * H), 1, 100, None, seed,
+                            counts=counts).numpy()
+        assert loop.bad_pixel_share(got, want) == 0.0
+        assert stats["tests"] == sum(c["tri"]
+                                     for c in counts.by_kind.values())
+        assert counts.by_kind["shadow"]["segments"] > 0
+
+
+def _whitted_other(name, sc):
+    if name == "bf16":
+        return reference.WhittedTracer(sc, "cpu", dtype=torch.bfloat16)
+    return calibrate.WHITTED_FAULTS[name](sc, "cpu")
+
+
+@pytest.mark.parametrize("name", ["bf16"] + sorted(calibrate.WHITTED_FAULTS))
+def test_whitted_control_and_faults_fail(tmp_path, name):
+    # the control and each broken rule, in the program's place, fail the
+    # cell's limit: on the configuration's scene where it reaches the
+    # image at this size, else on the variant
+    variant = name in ("no_mirror", "pow00_zero")
+    rtc = _whitted_scene(tmp_path, variant)
+    sc = reference.load_scene(rtc)
+    f32 = reference.WhittedTracer(sc, "cpu")
+    other = _whitted_other(name, sc)
+    loop = harness.load_module(HERE / "loops" / "render.py", "loop")
+    pix = torch.arange(32 * 24)
+    for seed in (1, 2, 3):
+        want = f32.trace(pix, 1, 100, None, seed).numpy()
+        got = other.trace(pix, 1, 100, None, seed).numpy()
+        assert loop.bad_pixel_share(got, want) > limit(WHITTED, "bad_px")
+
+
+def _wrap_whitted(monkeypatch, fn):
+    import orion_tpu_torch.ops.whitted as wh
+
+    orig = wh.fused_whitted
+    monkeypatch.setattr(wh, "fused_whitted",
+                        lambda *a, **kw: fn(orig, *a, **kw))
+
+
+def test_whitted_cell_passes_and_logs_its_route(capsys):
+    res = harness.run_cell(WHITTED, 48, 0.5, False, device="cpu",
+                           traffic_overrides=WHITTED_RENDER)
+    assert res["correct"] and res["attempted"] >= 3, res["checks"]
+    assert "route: fused-whitted-kernel" in capsys.readouterr().err
+
+
+def test_whitted_fault_altered_answer(monkeypatch):
+    _wrap_whitted(monkeypatch, lambda orig, *a, **kw: orig(*a, **kw) * 1.01)
+    res = harness.run_cell(WHITTED, 49, 0.0, False, device="cpu",
+                           traffic_overrides=WHITTED_RENDER)
+    assert not res["correct"]
+
+
+def test_whitted_fault_stale_answer(monkeypatch):
+    # the renderer hands back its first image whatever the seed
+    first = []
+
+    def stale(orig, *a, **kw):
+        if not first:
+            first.append(orig(*a, **kw))
+        return first[0].clone()
+
+    _wrap_whitted(monkeypatch, stale)
+    res = harness.run_cell(WHITTED, 50, 0.5, False, device="cpu",
+                           traffic_overrides=WHITTED_RENDER)
+    assert res["attempted"] >= 3
     assert not res["correct"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import json
 import shutil
 import subprocess
+import tempfile
 import sys
 import time
 import types
@@ -30,6 +31,8 @@ import windowstats  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
+# cells held back from BENCHMARK.json (portbench/held/<cell>.json)
+HELD = sorted(p.stem for p in (HERE / "held").glob("*.json"))
 
 # tiny shapes per loop: every cell's generator, route, loop and check run
 TINY = {
@@ -53,7 +56,7 @@ def cuda_device():
     return "cuda"
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + HELD)
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_runs_tiny_on_cpu(cell, trace):
     res = harness.run_cell(cell, 2**31 + 12345, 0.05, trace, device="cpu",
@@ -84,6 +87,24 @@ def test_every_listed_file_exists():
         assert (HERE / "metrics" / f"{m['name']}.py").exists(), m["name"]
         for w in m.get("workloads", []):
             assert w in CELLS
+
+
+@pytest.mark.parametrize("cell", HELD)
+def test_a_held_cell_is_out_of_the_benchmark(cell):
+    # its entries are found beside BENCHMARK.json, not in it, and name
+    # files that are there
+    held = json.loads((HERE / "held" / f"{cell}.json").read_text())
+    for group, entries in held.items():
+        names = {e["name"] for e in BENCH[group]}
+        assert not names & {e["name"] for e in entries}, group
+    c = harness.Cell(cell)
+    assert c.entry["name"] == cell and c.limits
+    for cfg in held.get("configs", []):
+        assert json.loads((ROOT / cfg["file"]).read_text())["name"] \
+            == cfg["name"]
+    for m in held.get("end_to_end", []) + held.get("per_layer", []):
+        assert (HERE / "metrics" / f"{m['name']}.py").exists(), m["name"]
+        assert m in c.metrics(m in held.get("per_layer", []))
 
 
 def test_rate_keeps_a_stalled_unit():
@@ -295,3 +316,99 @@ def test_cell_runs_on_the_card(cuda_device):
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"] and res["device"]["platform"] == "gpu"
+
+
+def test_percentile_is_the_nearest_rank():
+    xs = list(range(1, 101))                  # 1..100
+    assert windowstats.percentile(xs, 95) == 95.0
+    assert windowstats.percentile(reversed(xs), 50) == 50.0
+    assert windowstats.percentile([3.0], 95) == 3.0
+    assert windowstats.percentile([1.0, 2.0], 95) == 2.0
+
+
+def test_reservoir_keeps_the_least_keys():
+    import numpy as np
+
+    loop = harness.load_module(HERE / "loops" / "render.py", "loop")
+    n_units = 12305
+    res = loop.Reservoir(2**31 + 99, 2)
+    for u in range(n_units):
+        res.offer(u, f"img{u}")
+    keys = np.random.default_rng([2**31 + 99, 2]).random(n_units)
+    want = sorted(np.argsort(keys)[:2].tolist())
+    assert sorted(res.kept) == want
+    assert {u: img for u, (_, img) in res.kept.items()} == {
+        u: f"img{u}" for u in want}
+
+
+def _render_window(cell, seed, seconds, online=False):
+    light = dict(TINY["render"], xres=8, yres=6, samples=1, max_depth=1,
+                 check={"pixels": 48, "renders": 2, "online": online})
+    ctx = harness.Context(harness.Cell(cell), dict(
+        harness.Cell(cell).traffic, **light), seed, "cpu",
+        Path(tempfile.mkdtemp(prefix="portbench-test-")))
+    loop = harness.load_module(ctx.cell.loop_path, "loop").Loop(ctx)
+    loop.setup()
+    return loop.run(seconds)
+
+
+def test_render_loop_checks_the_renders_it_always_did():
+    # without check.online the renders are drawn once the window has
+    # closed, from the seed's stream [seed, 1], as they always were
+    import numpy as np
+
+    seed = 2**31 + 77
+    win = _render_window("cornell.render-2048spp", seed, 0.5)
+    assert win.attempted >= 3
+    want = sorted(np.random.default_rng([seed, 1]).choice(
+        win.attempted, 2, replace=False).tolist())
+    assert sorted(win.chosen) == want
+
+
+def test_online_render_loop_keeps_two_images():
+    seed = 2**31 + 78
+    win = _render_window("cornell.render-2048spp", seed, 0.5,
+                         online=True)
+    assert win.attempted >= 3 and len(win.chosen) == 2
+    assert all(v.shape == (48, 3) for v in win.chosen.values())
+    assert win.check()["numbers"]["bad_px"] == 0.0
+
+
+def test_whitted_readers_on_a_made_up_trace():
+    ev = [{"name": devtrace.SLICE, "cat": "user_annotation", "ph": "X",
+           "ts": 0.0, "dur": 1000.0},
+          {"name": "whitted_kernel(WhittedParams, int, int*)",
+           "cat": "kernel", "ph": "X", "ts": 100.0, "dur": 20.0},
+          {"name": "whitted_kernel(WhittedParams, int, int*)",
+           "cat": "kernel", "ph": "X", "ts": 600.0, "dur": 20.0},
+          {"name": "bvh_whitted_kernel(P)", "cat": "kernel", "ph": "X",
+           "ts": 300.0, "dur": 100.0},
+          {"name": "Memcpy DtoH", "cat": "gpu_memcpy", "ph": "X",
+           "ts": 120.0, "dur": 80.0}]
+    tr = devtrace.DeviceTrace(ev)
+    win = types.SimpleNamespace(samples_per_unit=1, attempted=2,
+                                times=[1e-3, 2e-3])
+    counts = {"nearest": {"segments": 10, "box": 0, "tri": 360},
+              "shadow": {"segments": 4, "box": 0, "tri": 30}}
+    ctx = {"trace": tr, "window": win, "counts": counts,
+           "sizes": {"input_bytes": 0, "output_bytes": 0}}
+
+    def read(name):
+        return harness.load_module(HERE / "metrics" / f"{name}.py",
+                                   "metric").read(ctx)
+
+    # 2 renders of 390 tests each over kernel 4's 40 us
+    assert read("k4_roofline") == pytest.approx(
+        100 * 2 * 390 * 39 / 67e12 / 40e-6)
+    assert read("idle_pct.whitted") == pytest.approx(100 * (1 - 220 / 1000))
+    assert read("idle_pct.render") == read("idle_pct.whitted")
+    assert read("render_ms_p95") == pytest.approx(2.0)
+    fit = {"trace": tr, "window": types.SimpleNamespace(
+        attempted=1, steps=[3], samples_per_step=1)}
+    for name in ("k4_roofline", "idle_pct.whitted", "render_ms_p95"):
+        mod = harness.load_module(HERE / "metrics" / f"{name}.py", "metric")
+        assert mod.read(fit) is None
+    train = harness.load_module(HERE / "metrics" / "idle_pct.train.py",
+                                "metric")
+    assert train.read(fit) == pytest.approx(100 * (1 - 220 / 1000))
+    assert train.read(ctx) is None

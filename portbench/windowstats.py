@@ -1,7 +1,8 @@
-"""Arithmetic over a window's units: rates and quartiles."""
+"""Arithmetic over a window's units: rates, quartiles and percentiles."""
 
 from __future__ import annotations
 
+import math
 import statistics
 
 
@@ -19,3 +20,11 @@ def quartiles(values):
         return (float(xs[0]),) * 3
     q1, q2, q3 = statistics.quantiles(xs, n=4)
     return float(q1), float(q2), float(q3)
+
+
+def percentile(values, q: float) -> float:
+    """The q-th percentile (0 < q < 100) by the nearest rank: the least
+    value with at least q% of the values at or below it."""
+    xs = sorted(values)
+    k = max(1, math.ceil(q / 100.0 * len(xs)))
+    return float(xs[k - 1])
