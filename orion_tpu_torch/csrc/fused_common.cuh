@@ -7,7 +7,7 @@
 // skip-pointer walk over a flattened tree (`Tree`: nearest and any hit),
 // primary rays, and what the path lane loop
 // (render_lane.cuh's `render_lanes`) computes at a path vertex: the NEE
-// (`nee`, fast-shadow and legacy forms) and a bounce's contribution
+// (`nee`, the legacy form over a tree) and a bounce's contribution
 // (`bounce_contrib`).
 //
 // The training pairs (prb.cu: 3a/3b over a table, 9a/9b over a tree) run
@@ -415,14 +415,13 @@ __device__ __forceinline__ void bounce_contrib(const float T[3],
   }
 }
 
-// Next-event estimation at hit point h. Fast form (kLegacy false): light
-// normal and emitted color from the sampled emitter triangle; visible iff
-// the nearest hit below kNeeTCap lies on the sampled mesh; lanes whose
-// geometry term is <= 0 skip the sweep. Legacy form: the shadow sweep runs
-// for every sample, and the light normal (at the winner's u, v) and the
-// emitted color are the shadow winner's. Returns A (NEE radiance without
-// the surface kd) and sum(scale).
-template <bool kLegacy, class P>
+// Next-event estimation at hit point h, the legacy form (kernels 8, 9a,
+// 9b over a tree; render_lane.cuh's `nee_pairs` is the same over a swept
+// table, and `nee_fast_pairs` is kernel 1's fast-shadow form): the shadow
+// sweep runs for every sample, and the light normal (at the winner's u, v)
+// and the emitted color are the shadow winner's. Returns A (NEE radiance
+// without the surface kd) and sum(scale).
+template <class P>
 __device__ __forceinline__ void nee(const P& p, const float* sgeo,
                                     uint32_t upix, uint32_t site_sd,
                                     float hx, float hy, float hz, float gnx,
@@ -457,56 +456,31 @@ __device__ __forceinline__ void nee(const P& p, const float* sgeo,
       norm3(ldx, ldy, ldz);
       const float cos_s = snx * ldx + sny * ldy + snz * ldz;
       sray.dx = sdx; sray.dy = sdy; sray.dz = sdz;
-      float lnx, lny, lnz, ske0, ske1, ske2;
-      if (kLegacy) {
-        float ts;
-        const int srow = nearest<kCols>(p.geo, sgeo, sray, kNeeTCap, ts);
-        if (srow < 0) continue;
-        const float* gs = p.geo.tab + srow * kCols;
-        if (__ldg(gs + C_MESH) != mesh) continue;
-        float su, sv;
-        woop<true>(gs, sray, &su, &sv);
-        const float sw = 1.0f - su - sv;
-        lnx = sw * __ldg(gs + C_N0) + su * __ldg(gs + C_N1) + sv * __ldg(gs + C_N2);
-        lny = sw * __ldg(gs + C_N0 + 1) + su * __ldg(gs + C_N1 + 1) +
-              sv * __ldg(gs + C_N2 + 1);
-        lnz = sw * __ldg(gs + C_N0 + 2) + su * __ldg(gs + C_N1 + 2) +
-              sv * __ldg(gs + C_N2 + 2);
-        norm3(lnx, lny, lnz);
-        ske0 = __ldg(gs + C_KE);
-        ske1 = __ldg(gs + C_KE + 1);
-        ske2 = __ldg(gs + C_KE + 2);
-      } else {
-        const float lw = 1.0f - la - lb;
-        lnx = lw * __ldg(L + 10) + la * __ldg(L + 13) + lb * __ldg(L + 16);
-        lny = lw * __ldg(L + 11) + la * __ldg(L + 14) + lb * __ldg(L + 17);
-        lnz = lw * __ldg(L + 12) + la * __ldg(L + 15) + lb * __ldg(L + 18);
-        norm3(lnx, lny, lnz);
-        ske0 = __ldg(E + 2);
-        ske1 = __ldg(E + 3);
-        ske2 = __ldg(E + 4);
-      }
+      float ts;
+      const int srow = nearest<kCols>(p.geo, sgeo, sray, kNeeTCap, ts);
+      if (srow < 0) continue;
+      const float* gs = p.geo.tab + srow * kCols;
+      if (__ldg(gs + C_MESH) != mesh) continue;
+      float su, sv;
+      woop<true>(gs, sray, &su, &sv);
+      const float sw = 1.0f - su - sv;
+      float lnx = sw * __ldg(gs + C_N0) + su * __ldg(gs + C_N1) +
+                  sv * __ldg(gs + C_N2);
+      float lny = sw * __ldg(gs + C_N0 + 1) + su * __ldg(gs + C_N1 + 1) +
+                  sv * __ldg(gs + C_N2 + 1);
+      float lnz = sw * __ldg(gs + C_N0 + 2) + su * __ldg(gs + C_N1 + 2) +
+                  sv * __ldg(gs + C_N2 + 2);
+      norm3(lnx, lny, lnz);
+      const float ske0 = __ldg(gs + C_KE), ske1 = __ldg(gs + C_KE + 1),
+                  ske2 = __ldg(gs + C_KE + 2);
       const float cos_l = -(lnx * ldx + lny * ldy + lnz * ldz);
-      const float geom = kLegacy ? fmaxf(cos_s * cos_l, 0.0f) : cos_s * cos_l;
-      if (!kLegacy) {
-        if (!(geom > 0.0f)) continue;  // contributes 0 whatever is visible
-        float ts;
-        const int srow = nearest<kCols>(p.geo, sgeo, sray, kNeeTCap, ts);
-        if (srow < 0 || __ldg(p.geo.tab + srow * kCols + C_MESH) != mesh)
-          continue;
-      }
+      const float geom = fmaxf(cos_s * cos_l, 0.0f);
       const float d2 = sdx * sdx + sdy * sdy + sdz * sdz;
       const float scale = geom * __ldg(L + 9) / (1.0f + d2) * inv_ls;
-      if (kLegacy) {
-        A[0] = __fadd_rn(A[0], __fmul_rn(ske0, scale));
-        A[1] = __fadd_rn(A[1], __fmul_rn(ske1, scale));
-        A[2] = __fadd_rn(A[2], __fmul_rn(ske2, scale));
-        sum_scale = __fadd_rn(sum_scale, scale);
-      } else {
-        A[0] += ske0 * scale;
-        A[1] += ske1 * scale;
-        A[2] += ske2 * scale;
-      }
+      A[0] = __fadd_rn(A[0], __fmul_rn(ske0, scale));
+      A[1] = __fadd_rn(A[1], __fmul_rn(ske1, scale));
+      A[2] = __fadd_rn(A[2], __fmul_rn(ske2, scale));
+      sum_scale = __fadd_rn(sum_scale, scale);
     }
   }
 }

@@ -8,14 +8,19 @@
 // Woop nearest-hit sweep over the [T_pad, 32] table (min t, ties -> min row);
 // depth-0 emission Ke * meshArea * cos; next-event estimation over every
 // emissive mesh (<= 8 meshes of <= 8 triangles), `light_samples` draws each,
-// visible iff the nearest hit with t < NEE_T_CAP lies on the sampled mesh;
+// visible iff the nearest hit with t < NEE_T_CAP lies on the sampled mesh
+// (two draws of a mesh share one sweep of the rows, render_lane.cuh's
+// `nee_fast_pairs`);
 // Russian roulette on max(kd); cosine-weighted bounce; on termination the
 // path regenerates as the pixel's next sample. Output: [n_lanes, 3] =
 // radiance / spp of the launch's tile of pixels.
 //
 // What bounds it on the H100: operations. Every sweep tests each ray
 // against every real table row, chunk-culled for big tables, and every path
-// vertex runs 1 + n_emitters * light_samples sweeps. A test is 39 FP32
+// vertex tests each row against 1 + n_emitters * light_samples rays: the
+// vertex's nearest hit, then per emitter ceil(light_samples / 2) shadow
+// sweeps, each of which loads a row once and tests it against the two
+// rays of a pair (one origin, so one origin transform). A test is 39 FP32
 // operations (chip_smoke.py's WOOP_TEST_FLOPS): origin transform
 // 3 x (3 mul + 3 add), direction transform 3 x (3 mul + 2 add), one divide,
 // u/v 2 x (mul + add), the eps product. The bytes are the 128-byte table
@@ -38,8 +43,8 @@
 // the image is a pure function of the seed.
 //
 // The lane loop and the table's sweep live in render_lane.cuh, shared with
-// kernel 8 (bvh_path.cu) and the training kernels (prb.cu); the NEE in
-// fused_common.cuh.
+// kernel 8 (bvh_path.cu) and the training kernels (prb.cu), and so does
+// this kernel's NEE (`nee_fast_pairs`, the one NEE in fast-shadow form).
 
 #include "render_lane.cuh"
 

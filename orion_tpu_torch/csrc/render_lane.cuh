@@ -7,10 +7,12 @@
 //
 // `render_lanes` is the radiance / spp estimator of
 // orion_tpu/ops/pallas_fused.py::_make_regen_body: PCG4D-jittered primary
-// ray, nearest hit, depth-0 emission, next-event estimation (`nee` of
-// fused_common.cuh, fast-shadow or legacy form; over a table the legacy
-// form is `nee_pairs`, the same terms), Russian roulette on
-// max(kd), cosine bounce, regeneration onto the pixel's next sample. The
+// ray, nearest hit, depth-0 emission, next-event estimation, Russian
+// roulette on max(kd), cosine bounce, regeneration onto the pixel's next
+// sample. The NEE: kernel 1's fast-shadow form is `nee_fast_pairs` (below);
+// the legacy form is `nee_pairs` (below) over a table (3a, 3b) and `nee` of
+// fused_common.cuh over a tree (8, 9a, 9b), the same terms; over a table
+// both forms sweep the rows once for two light samples (`nearest_pair`). The
 // geometry `G` (`RGeo`, or fused_common.cuh's `Tree`) supplies
 // `nearest<kCols>` and the table of winner attributes (`p.geo.tab`). Its
 // mode (kRender, kForwardLs, kReplay) adds the training pairs' records at
@@ -34,7 +36,9 @@
 // the lowest active lane of a warp counts the warp's loop iterations and
 // their active lanes (__popc(__activemask())), and the kernel records per
 // warp and per block the cycles from the first lane running out of pixels
-// to the last.
+// to the last; kernel 1's NEE counts its paired shadow sweeps' warp
+// entries and active lanes, and each lane in one whether it needs both
+// samples' winners or one.
 // `path_counters_read` / `path_counters_reset` (extern "C", below) read
 // and clear them.
 
@@ -72,6 +76,10 @@ enum PathCounter {
   kPcAccGroups,     // distinct materials summed over those entries
   kPcAccPeers,      // each lane's count of lanes on its material, summed
   kPcAccMax,        // the largest such count of each entry, summed
+  kPcPairIters,     // warp entries into kernel 1's paired shadow sweep
+  kPcPairLanes,     // active lanes summed over those entries
+  kPcPairBoth,      // of those lanes, the ones needing both samples' winners
+  kPcPairOne,       // the ones needing one (the other draw is gated)
   kPcCount
 };
 __device__ unsigned long long g_path_counters[kPcCount];
@@ -80,7 +88,9 @@ struct LaneCounters {
   long long t_start = 0, t_done = 0, nearest = 0, nee = 0, acc = 0;
   unsigned long long iters = 0, iter_lanes = 0, nee_iters = 0,
                      nee_lanes = 0, acc_entries = 0, acc_lanes = 0,
-                     acc_groups = 0, acc_peers = 0, acc_max = 0;
+                     acc_groups = 0, acc_peers = 0, acc_max = 0,
+                     pair_iters = 0, pair_lanes = 0, pair_both = 0,
+                     pair_one = 0;
 };
 
 __device__ __forceinline__ void pc_warp_vote(unsigned long long& iters,
@@ -110,6 +120,10 @@ __device__ __forceinline__ void pc_flush(const LaneCounters& c) {
   atomicAdd(g + kPcAccGroups, c.acc_groups);
   atomicAdd(g + kPcAccPeers, c.acc_peers);
   atomicAdd(g + kPcAccMax, c.acc_max);
+  atomicAdd(g + kPcPairIters, c.pair_iters);
+  atomicAdd(g + kPcPairLanes, c.pair_lanes);
+  atomicAdd(g + kPcPairBoth, c.pair_both);
+  atomicAdd(g + kPcPairOne, c.pair_one);
 }
 
 // The collisions at the replay's accumulation site, by the lanes that reach
@@ -187,9 +201,9 @@ __device__ __forceinline__ void pc_exit(long long t_done) {
 // needs no division per row, and a row replaces the best (n_b, D_b) iff
 // n D_b < n_b D; rows are swept in order, so ties keep the smaller row. The
 // winner's t = n_b / D_b is -ow / dw of that row, bit for bit as the Woop
-// test computes it. The legacy NEE of 3a/3b sweeps the same rows for two
-// shadow rays a pass (`nee_pairs`); the winner's u, v come from `woop` on
-// its global row.
+// test computes it. Both NEE forms sweep the rows for two shadow rays a
+// pass (`nearest_pair`: kernel 1's `nee_fast_pairs`, 3a/3b's `nee_pairs`);
+// the legacy winner's u, v come from `woop` on its global row.
 struct RGeo : Geo {};
 
 // Shared-memory image of a resident table: one float4 header (x: the rows
@@ -297,14 +311,14 @@ __device__ __forceinline__ void nearest_pair(const RGeo& g, const float* sgeo,
   }
 }
 
-// One light sample of the legacy NEE: the sampled emitter triangle `L`,
-// the shadow ray's direction s (unnormalised, to the sampled point), its
-// normalised copy l and cos at the surface. `nee`'s arithmetic, op by op
-// (nee does not call these two: written over them, it compiled kernel 8
-// with other registers, PERF.md).
+// One light sample of the NEE: the sampled emitter triangle `L`, the
+// sampled point's barycentrics (la, lb) on it, the shadow ray's direction
+// s (unnormalised, to the sampled point), its normalised copy l and cos at
+// the surface. `nee`'s arithmetic, op by op (nee does not call these two:
+// written over them, it compiled kernel 8 with other registers, PERF.md).
 struct ShadowDraw {
   const float* L;
-  float sdx, sdy, sdz, ldx, ldy, ldz, cos_s;
+  float la, lb, sdx, sdy, sdz, ldx, ldy, ldz, cos_s;
 };
 
 template <class P>
@@ -324,6 +338,8 @@ __device__ __forceinline__ ShadowDraw shadow_draw(
   const bool flip = (ua + ub) > 1.0f;
   const float la = flip ? 1.0f - ua : ua;
   const float lb = flip ? 1.0f - ub : ub;
+  s.la = la;
+  s.lb = lb;
   s.sdx = __ldg(L + 0) + la * __ldg(L + 3) + lb * __ldg(L + 6) - hx;
   s.sdy = __ldg(L + 1) + la * __ldg(L + 4) + lb * __ldg(L + 7) - hy;
   s.sdz = __ldg(L + 2) + la * __ldg(L + 5) + lb * __ldg(L + 8) - hz;
@@ -367,10 +383,10 @@ __device__ __forceinline__ void shadow_term(const P& p, const ShadowDraw& s,
   sum_scale = __fadd_rn(sum_scale, scale);
 }
 
-// `nee<true>` over a swept table, two light samples a sweep
+// `nee` (the legacy form) over a swept table, two light samples a sweep
 // (nearest_pair; an odd last sample sweeps alone): the same draws,
 // winners and terms, added in the same order, so A and sum(scale) are
-// nee<true>'s bit for bit.
+// nee's bit for bit.
 template <class P>
 __device__ __forceinline__ void nee_pairs(const P& p, const float* sgeo,
                                           uint32_t upix, uint32_t site_sd,
@@ -406,6 +422,101 @@ __device__ __forceinline__ void nee_pairs(const P& p, const float* sgeo,
       }
       shadow_term(p, s0, r0, w0, mesh, inv_ls, A, sum_scale);
       if (two) shadow_term(p, s1, r1, w1, mesh, inv_ls, A, sum_scale);
+    }
+  }
+}
+
+// A light sample of the fast-shadow NEE before its sweep: light normal at
+// the sampled point of the emitter triangle, the geometry term, and the
+// term's scale; `on` iff the geometry term is > 0 (else the sample adds
+// nothing whatever is visible, and its winner is not needed).
+struct FastTerm {
+  float scale;
+  bool on;
+};
+
+__device__ __forceinline__ FastTerm fast_term(const ShadowDraw& s,
+                                              float inv_ls) {
+  const float* L = s.L;
+  const float lw = 1.0f - s.la - s.lb;
+  float lnx = lw * __ldg(L + 10) + s.la * __ldg(L + 13) + s.lb * __ldg(L + 16);
+  float lny = lw * __ldg(L + 11) + s.la * __ldg(L + 14) + s.lb * __ldg(L + 17);
+  float lnz = lw * __ldg(L + 12) + s.la * __ldg(L + 15) + s.lb * __ldg(L + 18);
+  norm3(lnx, lny, lnz);
+  const float cos_l = -(lnx * s.ldx + lny * s.ldy + lnz * s.ldz);
+  const float geom = s.cos_s * cos_l;
+  FastTerm f{0.0f, geom > 0.0f};
+  if (f.on) {
+    const float d2 = s.sdx * s.sdx + s.sdy * s.sdy + s.sdz * s.sdz;
+    f.scale = geom * __ldg(L + 9) / (1.0f + d2) * inv_ls;
+  }
+  return f;
+}
+
+// the sample's emitted color (the mesh's) times its scale, added to A when
+// the sample is on and its shadow winner `srow` lies on the sampled mesh
+template <class P>
+__device__ __forceinline__ void fast_add(const P& p, const float* E,
+                                         float mesh, const FastTerm& f,
+                                         int srow, float A[3]) {
+  if (!f.on || srow < 0 || __ldg(p.geo.tab + srow * kCols + C_MESH) != mesh)
+    return;
+  A[0] += __ldg(E + 2) * f.scale;
+  A[1] += __ldg(E + 3) * f.scale;
+  A[2] += __ldg(E + 4) * f.scale;
+}
+
+// The fast-shadow NEE over a swept table (kernel 1): the emitted color and
+// the light normal are the sampled emitter triangle's, and a sample is
+// visible iff the nearest hit below kNeeTCap lies on the sampled mesh. Two
+// light samples of one emissive mesh share one sweep (nearest_pair),
+// entered by a lane when either sample's geometry term is > 0; the lane
+// keeps the winners of the samples that pass. An odd last sample sweeps
+// alone, and only if it passes. The draws, terms and their order in A are
+// those of one sweep a sample, and each winner is nearest()'s, so A is the
+// same bit for bit. Returns A (NEE radiance without the surface kd).
+template <class P>
+__device__ __forceinline__ void nee_fast_pairs(
+    const P& p, const float* sgeo, uint32_t upix, uint32_t site_sd,
+    float hx, float hy, float hz, float gnx, float gny, float gnz, float snx,
+    float sny, float snz, float A[3] ORION_PC_ARG) {
+  const float inv_ls = static_cast<float>(1.0 / p.light_samples);
+  Ray r0, r1;
+  r0.ox = r1.ox = hx + kBias * gnx;
+  r0.oy = r1.oy = hy + kBias * gny;
+  r0.oz = r1.oz = hz + kBias * gnz;
+  for (int mi = 0; mi < p.n_em; ++mi) {
+    const float* E = p.em + mi * kEmStride;
+    const float mesh = __ldg(E);
+    const int count = static_cast<int>(__ldg(E + 1));
+    for (int ls = 0; ls < p.light_samples; ls += 2) {
+      const int site = ls + p.light_samples * mi;
+      const ShadowDraw s0 = shadow_draw(p, E, count, upix, site_sd, site, hx,
+                                        hy, hz, snx, sny, snz);
+      const FastTerm f0 = fast_term(s0, inv_ls);
+      r0.dx = s0.sdx; r0.dy = s0.sdy; r0.dz = s0.sdz;
+      int w0 = -1;
+      if (ls + 1 < p.light_samples) {
+        const ShadowDraw s1 = shadow_draw(p, E, count, upix, site_sd,
+                                          site + 1, hx, hy, hz, snx, sny,
+                                          snz);
+        const FastTerm f1 = fast_term(s1, inv_ls);
+        r1.dx = s1.sdx; r1.dy = s1.sdy; r1.dz = s1.sdz;
+        int w1 = -1;
+        if (f0.on || f1.on) {
+          ORION_PC(pc_warp_vote(pc.pair_iters, pc.pair_lanes);
+                   ++(f0.on && f1.on ? pc.pair_both : pc.pair_one);)
+          nearest_pair(p.geo, sgeo, r0, r1, kNeeTCap, w0, w1);
+        }
+        fast_add(p, E, mesh, f0, w0, A);
+        fast_add(p, E, mesh, f1, w1, A);
+      } else {
+        if (f0.on) {
+          float ts;
+          w0 = nearest<kCols>(p.geo, sgeo, r0, kNeeTCap, ts);
+        }
+        fast_add(p, E, mesh, f0, w0, A);
+      }
     }
   }
 }
@@ -467,8 +578,8 @@ __device__ __forceinline__ void add_adjoint(double* sacc, int mat,
 
 // Persistent lanes: run pixels p.pix_base + [0, n_lanes), each taken from
 // *next (zero at launch). kLegacy picks the NEE form (false: the fast
-// shadow test of kernel 1; true: the legacy NEE of kernels 8, 3a, 3b, 9a,
-// 9b). kMode:
+// shadow test of kernel 1, `nee_fast_pairs`, over a table only; true: the
+// legacy NEE of kernels 8, 3a, 3b, 9a, 9b). kMode:
 //   kRender    : write each pixel's radiance / spp to p.out (kernels 1, 8);
 //   kForwardLs : the same, with each bounce's contribution rounded op by op
 //                (bounce_contrib), plus each sample's radiance L_s to
@@ -556,12 +667,15 @@ __device__ __forceinline__ void render_lanes(const P& p, const float* sgeo,
       float sum_scale = 0.f;
       ORION_PC(pc_warp_vote(pc.nee_iters, pc.nee_lanes);
                const long long pc1 = clock64();)
-      if constexpr (kLegacy && std::is_same_v<decltype(P::geo), RGeo>)
+      if constexpr (!kLegacy)
+        nee_fast_pairs(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz,
+                       snx, sny, snz, A ORION_PC(, pc));
+      else if constexpr (std::is_same_v<decltype(P::geo), RGeo>)
         nee_pairs(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
                   sny, snz, A, sum_scale);
       else
-        nee<kLegacy>(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx,
-                     sny, snz, A, sum_scale);
+        nee(p, sgeo, upix, site_sd, hx, hy, hz, gnx, gny, gnz, snx, sny,
+            snz, A, sum_scale);
       ORION_PC(pc.nee += clock64() - pc1;)
       if constexpr (kMode == kRender) {
         float rr = ke[0] * em_scale, rg = ke[1] * em_scale,

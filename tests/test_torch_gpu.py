@@ -9,7 +9,9 @@ Tolerances: the brute sweep is written without FMA contraction and must
 equal its plain version bit for bit; the fused kernel contracts FMAs and
 rounds sqrt/sin/cos differently from the plain version's op-by-op float32
 order, so at most 1% of pixels may differ by more than 1e-4 + 1e-3*|ref|
-and the image means agree to rel 1e-3. The PRB training forward (image
+and the image means agree to rel 1e-3; its images are also held bit for
+bit to digests of those it rendered before its shadow sweeps were
+paired. The PRB training forward (image
 and per-sample radiance) and the Whitted kernel are held to the same; the
 replay's gradients (float32 terms summed in double by atomics in an order
 that varies from run to run) to 1e-3 x the largest entry, chip_smoke.py's
@@ -64,9 +66,27 @@ from torch_port_util import cuda_device  # noqa: F401  (fixture)
 from torch_port_util import regroup_meshes
 
 
+def _big_light(rtc):
+    """Make the Cornell box's light (written by write_cornell at `rtc`) a
+    1.8 x 1.6 panel facing +z just before the back wall, from y = 0.3 to
+    1.9: its plane crosses those of the boxes' tops and sides, so at a hit
+    there one light sample can see the light's front while the other's
+    geometry term is <= 0."""
+    obj = rtc.with_suffix(".obj")
+    text = obj.read_text()
+    at = text.index("o light")
+    corners = iter(["v -0.9 0.3 -0.9", "v 0.9 0.3 -0.9", "v 0.9 1.9 -0.9",
+                    "v -0.9 1.9 -0.9"])
+    light = re.sub(r"^v .*$", lambda m: next(corners), text[at:], flags=re.M)
+    light = re.sub(r"^vn .*$", "vn 0 0 1", light, flags=re.M)
+    obj.write_text(text[:at] + light)
+
+
 def _scene(tmp_path, device, name, xres=32, yres=24):
-    sc, rtc = load_scene(write_cornell(tmp_path, xres=xres, yres=yres),
-                         device=device)
+    rtc = write_cornell(tmp_path, xres=xres, yres=yres)
+    if name == "big-light":
+        _big_light(rtc)
+    sc, rtc = load_scene(rtc, device=device)
     if name.startswith("levels-"):
         sc = subdivide_scene(sc, levels=int(name[-1]))
     elif name == "two-emitter":
@@ -182,11 +202,15 @@ def test_brute_kernel_ties_and_dead_sweeps(tmp_path, cuda_device, rows, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("light_samples", [1, 2, 3])
 @pytest.mark.parametrize("name", ["cornell", "levels-2", "two-emitter"])
-def test_fused_kernel_matches_plain(tmp_path, cuda_device, name):
+def test_fused_kernel_matches_plain(tmp_path, cuda_device, name,
+                                    light_samples):
+    """Kernel 1 against its plain version with one light sample, a pair
+    (one shadow sweep for both) and a pair and an odd last sample."""
     sc, cam = _scene(tmp_path, cuda_device, name)
     args = fp.fused_args(sc, cam)
-    cfg = (32, 24, 4, 4, 2)
+    cfg = (32, 24, 4, 4, light_samples)
     before = fp.KERNEL.launches
     k = fp.fused_path(*args, 99, *cfg)
     torch.cuda.synchronize()
@@ -199,6 +223,45 @@ def test_fused_kernel_matches_plain(tmp_path, cuda_device, name):
     off = np.abs(k - p) > 1e-4 + 1e-3 * np.abs(p)
     assert off.any(axis=-1).mean() <= 0.01
     assert k.mean() == pytest.approx(p.mean(), rel=1e-3)
+
+
+# sha256 (first 16 hex digits) of the float32 bytes of kernel 1's image at
+# 32x24, 4 spp, depth 4, seed 99, by (scene, light samples), as the kernel
+# rendered them on an H100 when it swept the rows once for each light
+# sample (`_fused_digest` on that tree)
+ONE_SWEEP_A_SAMPLE_DIGESTS = {
+    ("cornell", 2): "326d235fefda21b8",
+    ("levels-2", 2): "42dce6d0b69c861b",
+    ("two-emitter", 2): "6a33a483c8412eff",
+    ("cornell", 1): "199a80d3d52d59ee",
+    ("cornell", 3): "d4650e4d337aee8e",
+    ("big-light", 2): "d84d2b9d626773b9",
+    ("levels-2", 3): "89d10b47071af833",
+    ("big-light", 3): "2b21282f9efe05db",
+}
+
+
+def _fused_digest(tmp_path, device, name, light_samples) -> str:
+    sc, cam = _scene(tmp_path, device, name)
+    img = fp.fused_path(*fp.fused_args(sc, cam), 99, 32, 24, 4, 4,
+                        light_samples)
+    return hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,light_samples",
+                         list(ONE_SWEEP_A_SAMPLE_DIGESTS))
+def test_fused_kernel_paired_shadow_sweeps_render_as_before(
+        tmp_path, cuda_device, name, light_samples):
+    """Kernel 1 sweeps the rows once for two light samples of a path
+    vertex; its image is, bit for bit, the one it rendered with a sweep a
+    sample: the digests are those of that earlier kernel. The cases hold
+    a table swept chunk by chunk (levels-2), two emitters, an odd last
+    sample (3) and one sample, and a light whose plane crosses other
+    surfaces' (big-light), where a lane sweeps for one of its two samples
+    and gates the other."""
+    assert (_fused_digest(tmp_path, cuda_device, name, light_samples)
+            == ONE_SWEEP_A_SAMPLE_DIGESTS[name, light_samples])
 
 
 def _images_agree(k, p):

@@ -75,6 +75,24 @@ def test_report_accumulation_shares(capsys):
     assert "accumulation" not in capsys.readouterr().out
 
 
+def test_report_paired_shadow_sweep_shares(capsys):
+    """Kernel 1's paired shadow sweeps: warp entries per NEE entry, their
+    SIMT efficiency (active lanes / (32 x entries)), and the shares of
+    their lanes that need both samples' winners and that need one."""
+    c = _counters(lane_cycles=1000, nee_cycles=500, iters=10,
+                  iter_lanes=300, nee_iters=8, nee_lanes=200, lanes=1,
+                  pair_iters=4, pair_lanes=100, pair_both=90, pair_one=10)
+    path_probe._report_counters("kernel 1", c)
+    out = capsys.readouterr().out
+    assert ("paired shadow sweeps: 4 warp entries (0.5000 a NEE entry), "
+            "SIMT 0.7812") in out
+    assert "0.9000 need both samples' winners, 0.1000 one" in out
+    # a kernel that sweeps one shadow ray at a time prints no such line
+    path_probe._report_counters("k", _counters(lane_cycles=10, lanes=1,
+                                               nee_iters=3))
+    assert "paired" not in capsys.readouterr().out
+
+
 SASS = """\
 	code for sm_90a
 		Function : _ZN12_GLOBAL__N_121bvh_prb_replay_kernelEN5orion11PathParamsTINS0_4TreeEEEPiPdi

@@ -38,6 +38,10 @@ same way (`hook_whitted_lane`), and so does one whose kernel 4 runs it
   bounce), the SIMT efficiency of the loop (active lanes per warp
   iteration / 32) and of NEE's entries, the cycles from a warp's (and a
   block's) first lane running out of pixels to its last;
+- for kernel 1, its paired shadow sweeps (two light samples a sweep):
+  their warp entries per NEE entry, their SIMT efficiency, and the shares
+  of their lanes that need both samples' winners and that need one (the
+  other draw's geometry term is <= 0);
 - for 3b and 9b, the replay's share of cycles in its adjoint accumulation and
   the collisions there: a warp entry's active lanes, its distinct
   materials, the collision degree (the mean over lanes of the lanes on
@@ -117,7 +121,8 @@ SASS_LOOPS = 8
 COUNTERS = ("lane_cycles", "nearest_cycles", "nee_cycles", "iters",
             "iter_lanes", "nee_iters", "nee_lanes", "warp_tail", "warps",
             "block_tail", "blocks", "lanes", "acc_cycles", "acc_entries",
-            "acc_lanes", "acc_groups", "acc_peers", "acc_max")
+            "acc_lanes", "acc_groups", "acc_peers", "acc_max", "pair_iters",
+            "pair_lanes", "pair_both", "pair_one")
 
 
 _LOGS: dict = {}
@@ -224,6 +229,13 @@ def _report_counters(name: str, c: dict, nee: str = "NEE") -> None:
               f"{c['acc_groups'] / e:.4f} distinct materials, collision "
               f"degree {c['acc_peers'] / max(c['acc_lanes'], 1):.4f}, "
               f"largest group {c['acc_max'] / e:.4f} ({e} entries)")
+    if c["pair_iters"]:
+        e, n = c["pair_iters"], max(c["pair_lanes"], 1)
+        print(f"[{name}] paired shadow sweeps: {e} warp entries "
+              f"({e / max(c['nee_iters'], 1):.4f} a {nee} entry), SIMT "
+              f"{c['pair_lanes'] / (32 * e):.4f}; of their lanes "
+              f"{c['pair_both'] / n:.4f} need both samples' winners, "
+              f"{c['pair_one'] / n:.4f} one")
 
 
 def _same(a, b) -> str:
@@ -302,8 +314,9 @@ def _run(name, src, symbol, kernel_name, info, launch, tmp: Path,
     _report_counters(name, dict(zip(COUNTERS, buf)), nee)
 
 
-def _probe_path_kernels(tmp: Path, dev) -> None:
-    """Kernels 1 and 8 at the render main path's shapes."""
+def _probe_path_kernels(tmp: Path, dev, kernels) -> None:
+    """Kernels 1 and 8 (those of `kernels`) at the render main path's
+    shapes."""
     import torch
 
     from chip_smoke import BIG_LEVELS, write_cornell
@@ -324,8 +337,12 @@ def _probe_path_kernels(tmp: Path, dev) -> None:
         return fp.fused_path(*args, 0, *cfg)
 
     fused.module = fp.__name__
-    _run("kernel 1", "fused_path", "fused_path_launch", "fused_path_kernel",
-         lambda lib, out: lib.fused_path_info(t_pad, out), fused, tmp)
+    if "1" in kernels:
+        _run("kernel 1", "fused_path", "fused_path_launch",
+             "fused_path_kernel",
+             lambda lib, out: lib.fused_path_info(t_pad, out), fused, tmp)
+    if "8" not in kernels:
+        return
 
     big, _ = load_scene(write_cornell(tmp / "b", xres=64, yres=64, depth=4,
                                       levels=BIG_LEVELS), device=dev)
@@ -997,7 +1014,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         if args.kernels & {"1", "8"}:
-            _probe_path_kernels(tmp, dev)
+            _probe_path_kernels(tmp, dev, args.kernels)
         for pair in ("9", "3"):
             if pair in args.kernels:
                 _probe_pair(pair, tmp, dev)
