@@ -1,6 +1,6 @@
 """Inverse rendering demo on the port: recover wall colours from a target.
 
-Writes the Cornell box with chip_smoke.write_cornell, renders a target
+Writes the Cornell box with cornell_scenes.write_cornell, renders a target
 image, replaces every diffuse albedo with a random one, and fits them back
 with Adam through the differentiable path tracer (orion_tpu_torch.fit).
 
@@ -19,7 +19,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 import torch
 
-import chip_smoke
+from cornell_scenes import write_cornell
 from orion_tpu_torch import fit, prepare
 from orion_tpu_torch.render import render
 
@@ -34,8 +34,8 @@ def main(argv=None) -> int:
         sys.exit("--device cuda, but no CUDA device is available")
     xres, yres, steps = (32, 24, 12) if args.small else (64, 48, 120)
     with tempfile.TemporaryDirectory() as tmp:
-        ps = prepare(chip_smoke.write_cornell(tmp, xres=xres, yres=yres,
-                                              depth=3), device=args.device)
+        ps = prepare(write_cornell(tmp, xres=xres, yres=yres,
+                                   depth=3), device=args.device)
     g = torch.Generator(device=ps.scene.device)
     g.manual_seed(0)
     with torch.no_grad():

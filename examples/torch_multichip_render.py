@@ -127,7 +127,7 @@ def _spawned(rank: int, world: int, init: str, args, rtc: str) -> None:
 def main(argv=None) -> int:
     import torch.multiprocessing as mp
 
-    import chip_smoke
+    from cornell_scenes import write_cornell
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ranks", type=int, default=2,
@@ -139,7 +139,7 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("--device cuda, but no CUDA device is available")
     with tempfile.TemporaryDirectory() as tmp:
-        rtc = str(chip_smoke.write_cornell(tmp, depth=4))
+        rtc = str(write_cornell(tmp, depth=4))
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             from orion_tpu_torch.parallel.distributed import init_distributed
 

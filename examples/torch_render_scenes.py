@@ -1,6 +1,6 @@
 """Render the port's demo scenes (smoke demo of orion_tpu_torch).
 
-Writes four scenes with chip_smoke's scene writers (the Cornell box path
+Writes four scenes with cornell_scenes' writers (the Cornell box path
 traced, the Cornell box with a point light (Whitted), the 34,818-triangle
 levels-5 box, and the box with an 8x8 checker texture), renders each with
 the wavefront over the engine's intersect on the device, and saves PNGs.
@@ -19,17 +19,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch
 
-import chip_smoke
+from cornell_scenes import write_cornell, write_cornell_whitted
 from orion_tpu_torch import prepare
 from orion_tpu_torch.io.image import save_image
 from orion_tpu_torch.render import render
 
 # name: (writer, keyword arguments, spp, depth)
 SCENES = {
-    "cornell-path": (chip_smoke.write_cornell, {}, 16, 6),
-    "cornell-whitted": (chip_smoke.write_cornell_whitted, {}, 4, 4),
-    "box-levels5": (chip_smoke.write_cornell, {"levels": 5}, 4, 4),
-    "box-textured": (chip_smoke.write_cornell, {"checker": True}, 8, 4),
+    "cornell-path": (write_cornell, {}, 16, 6),
+    "cornell-whitted": (write_cornell_whitted, {}, 4, 4),
+    "box-levels5": (write_cornell, {"levels": 5}, 4, 4),
+    "box-textured": (write_cornell, {"checker": True}, 8, 4),
 }
 
 

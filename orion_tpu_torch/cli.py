@@ -4,7 +4,8 @@ Mirrors the reference launcher's surface (orion/launcher.cpp:15-45) and
 `orion_tpu.cli`: positional rtc file; -o/--output; -p pixel samples; -l
 shadow-ray (light) samples.
 
-Routing (as in the JAX package, cli.py:74-143):
+Routing (as in the JAX package, cli.py:74-143; the megakernel chain is
+engine.make_megakernel_renderer, the wavefront engine.render_wavefront):
   - path-mode scenes inside the fused gate -> the path megakernel
     (ops/fused_path.py);
   - path-mode scenes past the fused gate -> engine.make_big_path_renderer:
@@ -152,9 +153,8 @@ def main(argv=None) -> int:
 def _run(args) -> int:
     import torch
 
-    from orion_tpu_torch.engine import (make_big_path_renderer,
-                                        make_whitted_megakernel, prepare,
-                                        render_report)
+    from orion_tpu_torch.engine import (make_megakernel_renderer, prepare,
+                                        render_report, render_wavefront)
     from orion_tpu_torch.io.image import save_image
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -187,44 +187,23 @@ def _run(args) -> int:
     fused_fn = None
     # --normal-maps leaves the automatic megakernel routing (as in JAX);
     # --backend fused pins the megakernel all the same
-    megakernel = ((args.backend == "fused"
-                   or (args.backend is None and not args.normal_maps))
-                  and not args.regen and not args.checkpoint
-                  and not args.shard)
-    if megakernel and mode == "whitted":
+    if ((args.backend == "fused"
+         or (args.backend is None and not args.normal_maps))
+            and not args.regen and not args.checkpoint and not args.shard):
         try:
-            fused_fn, ps.backend = make_whitted_megakernel(
-                ps.scene, ps.camera, samples=args.samples,
-                max_depth=max_depth, strategy=args.strategy,
-                order_signs=ps.order_signs)
+            fused_fn, ps.backend = make_megakernel_renderer(
+                ps, mode=mode, samples=args.samples, max_depth=max_depth,
+                light_samples=args.light_samples)
         except ValueError:
-            # outside every gate: the Whitted wavefront, as in JAX
+            # outside every gate: the wavefront it is, as in JAX
             if args.backend == "fused":
                 _fail("--backend fused, but the scene is outside every "
                       "Whitted megakernel gate (1..8 point lights; textured "
-                      "scenes depth <= 4); see ops/bvh_whitted.py")
-    elif megakernel:
-        from orion_tpu_torch.ops.fused_path import (fused_path_supported,
-                                                    make_fused_path_renderer)
-
-        if fused_path_supported(ps.scene):
-            fused_fn = make_fused_path_renderer(
-                ps.scene, ps.camera, samples=args.samples,
-                max_depth=max_depth, light_samples=args.light_samples)
-            ps.backend = "fused-kernel"
-        else:
-            try:
-                # past the brute gate: the big-scene path megakernel
-                fused_fn, ps.backend = make_big_path_renderer(
-                    ps.scene, ps.camera, samples=args.samples,
-                    max_depth=max_depth, light_samples=args.light_samples,
-                    strategy=args.strategy, order_signs=ps.order_signs)
-            except ValueError:
-                # outside every gate: the wavefront it is, as in JAX
-                if args.backend == "fused":
-                    _fail("--backend fused, but the scene is outside the "
-                          "megakernel gate (textures / emitters / triangle "
-                          "count); see ops/fused_path.py FUSED_* limits")
+                      "scenes depth <= 4); see ops/bvh_whitted.py"
+                      if mode == "whitted" else
+                      "--backend fused, but the scene is outside the "
+                      "megakernel gate (textures / emitters / triangle "
+                      "count); see ops/fused_path.py FUSED_* limits")
 
     def sync():
         if ps.scene.device.type == "cuda":
@@ -246,40 +225,11 @@ def _run(args) -> int:
     else:
         gen = torch.Generator(device=ps.scene.device)
         gen.manual_seed(args.seed)
-        if args.shard and args.regen:
-            from orion_tpu_torch.regen import render_regen_shardmap
-
-            img = render_regen_shardmap(
-                ps.scene, ps.camera, gen, mesh=mesh, samples=args.samples,
-                light_samples=args.light_samples, max_depth=max_depth,
-                intersect=ps.intersect)
-        elif args.shard:
-            from orion_tpu_torch.parallel.shardmap_render import (
-                render_shardmap)
-
-            with torch.no_grad():
-                img = render_shardmap(
-                    ps.scene, ps.camera, gen, mesh=mesh,
-                    samples=args.samples, light_samples=args.light_samples,
-                    max_depth=max_depth, mode=mode, intersect=ps.intersect,
-                    shadow_intersect=ps.shadow_intersect)
-        elif args.regen:
-            from orion_tpu_torch.regen import render_regen
-
-            img = render_regen(ps.scene, ps.camera, gen,
-                               samples=args.samples,
+        img = render_wavefront(ps, gen, samples=args.samples,
                                light_samples=args.light_samples,
-                               max_depth=max_depth, intersect=ps.intersect)
-        else:
-            from orion_tpu_torch.render import render
-
-            with torch.no_grad():
-                img = render(ps.scene, ps.camera, gen, samples=args.samples,
-                             light_samples=args.light_samples,
-                             max_depth=max_depth, mode=mode,
-                             intersect=ps.intersect,
-                             normal_maps=args.normal_maps,
-                             shadow_intersect=ps.shadow_intersect)
+                               max_depth=max_depth, mode=mode,
+                               regen=args.regen, mesh=mesh,
+                               normal_maps=args.normal_maps)
     sync()
     dt = time.perf_counter() - t0
     if mesh is not None and mesh.rank != 0:

@@ -22,9 +22,10 @@ Backend selection:
     device memory, and the port's cap is the walk kernel's int32 indexing
     of the row table instead. No scene the port renders comes near it.
 
-The megakernel routes (cli.py: make_big_path_renderer for path scenes
-past the fused gate, make_whitted_megakernel for point-light scenes) do
-not use this selection.
+The megakernel routes (make_megakernel_renderer: the fused path kernel,
+make_big_path_renderer for path scenes past the fused gate,
+make_whitted_megakernel for point-light scenes) do not use this
+selection; render_wavefront renders over it.
 """
 
 from __future__ import annotations
@@ -321,6 +322,67 @@ def make_whitted_megakernel(scene: Scene, camera, *, samples: int,
     raise ValueError("scene outside every Whitted megakernel gate "
                      f"(1..{bw.MAX_LIGHTS} point lights; textured scenes "
                      f"max_depth <= {bw.MAX_DEFERRED_DEPTH})")
+
+
+def make_megakernel_renderer(ps: PreparedScene, *, mode: Optional[str],
+                             samples: int, max_depth: int, light_samples: int,
+                             big_path_order: Optional[tuple] = None,
+                             camera: Optional[Camera] = None):
+    """(fn(seed: int) -> [H, W, 3], backend_name) of a prepared scene's
+    megakernel route, as the JAX CLI picks it (cli.py:74-143): Whitted
+    mode (mode None: "whitted" when the scene has rtc point lights) ->
+    make_whitted_megakernel; path mode -> the fused path kernel inside its
+    gate ("fused-kernel", ops/fused_path.py), else make_big_path_renderer
+    over `big_path_order` (None: BIG_PATH_ORDER). Trees take ps.strategy
+    and ps.order_signs; the kernel is built for `camera` (default
+    ps.camera). Raises ValueError outside every gate of the mode: the
+    caller then takes the wavefront, as in the JAX package."""
+    sc, cam = ps.scene, ps.camera if camera is None else camera
+    kw = dict(samples=samples, max_depth=max_depth)
+    trees = dict(strategy=ps.strategy, order_signs=ps.order_signs)
+    if (mode or ("whitted" if sc.num_lights > 0 else "path")) == "whitted":
+        return make_whitted_megakernel(sc, cam, **kw, **trees)
+    from orion_tpu_torch.ops.fused_path import (fused_path_supported,
+                                                make_fused_path_renderer)
+
+    kw["light_samples"] = light_samples
+    if fused_path_supported(sc):
+        return make_fused_path_renderer(sc, cam, **kw), "fused-kernel"
+    return make_big_path_renderer(sc, cam, **kw, **trees,
+                                  order=big_path_order)
+
+
+def render_wavefront(ps: PreparedScene, generator, *, samples: int,
+                     light_samples: int, max_depth: int,
+                     mode: Optional[str], regen: bool = False, mesh=None,
+                     normal_maps: bool = False) -> torch.Tensor:
+    """[H, W, 3] of the forward-only wavefront over ps.intersect:
+    render.render, or with `regen=True` regen.render_regen (path mode
+    only); with a parallel.sharding.Mesh `mesh`, render_shardmap or
+    render_regen_shardmap, every rank getting the whole image. Only
+    render.render maps normals."""
+    kw = dict(samples=samples, light_samples=light_samples,
+              max_depth=max_depth, intersect=ps.intersect)
+    with torch.no_grad():
+        if regen:
+            from orion_tpu_torch.regen import (render_regen,
+                                               render_regen_shardmap)
+
+            if mesh is not None:
+                return render_regen_shardmap(ps.scene, ps.camera, generator,
+                                             mesh=mesh, **kw)
+            return render_regen(ps.scene, ps.camera, generator, **kw)
+        kw.update(mode=mode, shadow_intersect=ps.shadow_intersect)
+        if mesh is not None:
+            from orion_tpu_torch.parallel.shardmap_render import \
+                render_shardmap
+
+            return render_shardmap(ps.scene, ps.camera, generator,
+                                   mesh=mesh, **kw)
+        from orion_tpu_torch.render import render
+
+        return render(ps.scene, ps.camera, generator,
+                      normal_maps=normal_maps, **kw)
 
 
 def octant_signs(front) -> tuple:

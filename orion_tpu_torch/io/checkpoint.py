@@ -105,18 +105,18 @@ def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
     overwritten. `progress=True` prints one progress line per chunk on
     stderr.
 
-    Chunks go through the wavefront (render.py) over the scene's
-    intersect, or with `regen=True` through the regenerative wavefront
-    (regen.py; path mode only).
+    Chunks go through engine.render_wavefront: the wavefront (render.py)
+    over the scene's intersect, without normal maps, or with `regen=True`
+    the regenerative wavefront (regen.py; path mode only).
 
     mesh: a parallel.sharding.Mesh whose ranks all call this with the
-    same arguments: chunks render through render_shardmap (or
-    render_regen_shardmap), every rank returns the image, rank 0 alone
-    reads and writes the file (the others get its resume state by one
-    broadcast, and wait at a barrier after each write), and only rank 0
-    prints progress.
+    same arguments: chunks render through render_wavefront(mesh=)
+    (render_shardmap or render_regen_shardmap), every rank returns the
+    image, rank 0 alone reads and writes the file (the others get its
+    resume state by one broadcast, and wait at a barrier after each
+    write), and only rank 0 prints progress.
     """
-    from orion_tpu_torch.render import render
+    from orion_tpu_torch.engine import render_wavefront
 
     if regen and (mode == "whitted"
                   or (mode is None and ps.scene.num_lights > 0)):
@@ -164,36 +164,10 @@ def render_accumulate(ps, seed: int, *, samples: int, light_samples: int,
     while done < samples:
         t_chunk = time.perf_counter()
         n = min(every, samples - done)
-        with torch.no_grad():
-            if regen and mesh is not None:
-                from orion_tpu_torch.regen import render_regen_shardmap
-
-                img = render_regen_shardmap(
-                    ps.scene, ps.camera, gen, mesh=mesh, samples=n,
-                    max_depth=max_depth, light_samples=light_samples,
-                    intersect=ps.intersect)
-            elif regen:
-                from orion_tpu_torch.regen import render_regen
-
-                img = render_regen(ps.scene, ps.camera, gen, samples=n,
-                                   max_depth=max_depth,
-                                   light_samples=light_samples,
-                                   intersect=ps.intersect)
-            elif mesh is not None:
-                from orion_tpu_torch.parallel.shardmap_render import (
-                    render_shardmap)
-
-                img = render_shardmap(
-                    ps.scene, ps.camera, gen, mesh=mesh, samples=n,
-                    max_depth=max_depth, light_samples=light_samples,
-                    mode=mode, intersect=ps.intersect,
-                    shadow_intersect=ps.shadow_intersect)
-            else:
-                img = render(ps.scene, ps.camera, gen, samples=n,
-                             max_depth=max_depth,
-                             light_samples=light_samples, mode=mode,
-                             intersect=ps.intersect,
-                             shadow_intersect=ps.shadow_intersect)
+        img = render_wavefront(ps, gen, samples=n,
+                               light_samples=light_samples,
+                               max_depth=max_depth, mode=mode, regen=regen,
+                               mesh=mesh)
         accum = accum + img.cpu().numpy().astype(np.float32) * n
         done += n
         if lead:

@@ -113,32 +113,21 @@ def dump_rtc(rtc, cam: FlyCamera, path: str | Path = "dump.rtc") -> Path:
 
 def build_preview_megakernel(ps, camera, samples: int, depth: int):
     """(fn(seed, camera_override=) -> [H, W, 3], backend name) of the
-    preview megakernel of a CUDA scene, in the order the module docstring
-    gives, or None where no megakernel takes the scene (or the scene is on
-    the CPU). One light sample, as the JAX viewer. The trees' child order
-    is baked for the build camera's octant: a camera flown across octants
-    loses the near-first order's speed, not its correctness."""
-    from orion_tpu_torch.engine import (make_big_path_renderer,
-                                        make_whitted_megakernel)
-    from orion_tpu_torch.ops.fused_path import (fused_path_supported,
-                                                make_fused_path_renderer)
+    preview megakernel of a CUDA scene (engine.make_megakernel_renderer,
+    the big-path chain restricted to the BVH path kernel), or None where
+    no megakernel takes the scene (or the scene is on the CPU). One light
+    sample, as the JAX viewer. The trees' child order is baked for the
+    build camera's octant: a camera flown across octants loses the
+    near-first order's speed, not its correctness."""
+    from orion_tpu_torch.engine import make_megakernel_renderer
 
-    scene = ps.scene
-    if scene.device.type != "cuda":
+    if ps.scene.device.type != "cuda":
         return None
     try:
-        if scene.num_lights > 0:
-            return make_whitted_megakernel(scene, camera, samples=samples,
-                                           max_depth=depth,
-                                           order_signs=ps.order_signs)
-        if fused_path_supported(scene):
-            return make_fused_path_renderer(
-                scene, camera, samples=samples, max_depth=depth,
-                light_samples=1), "fused-kernel"
-        return make_big_path_renderer(scene, camera, samples=samples,
-                                      max_depth=depth, light_samples=1,
-                                      order_signs=ps.order_signs,
-                                      order=("walk",))
+        return make_megakernel_renderer(ps, mode=None, samples=samples,
+                                        max_depth=depth, light_samples=1,
+                                        big_path_order=("walk",),
+                                        camera=camera)
     except ValueError:          # outside every gate: the wavefront
         return None
 

@@ -30,7 +30,7 @@ from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import binned as bn
 from orion_tpu_torch.ops import bounce as bo
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import jax_bvh_fields, to_torch
 
 S, D, LS = 2, 2, 2

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from orion_tpu_torch.ops import binned as bn
 from orion_tpu_torch.ops import cuda_build
 from orion_tpu_torch.ops.woop import BIG, woop_t

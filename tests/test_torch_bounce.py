@@ -34,7 +34,7 @@ from orion_tpu_torch.ops import bvh_path as bp
 from orion_tpu_torch.ops import reorder
 from orion_tpu_torch.scene import load_scene
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import jax_bvh_fields, to_torch, write_textured
 
 S, D, LS = 2, 3, 2

@@ -32,7 +32,7 @@ from orion_tpu_torch.ops import prb
 from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
 from orion_tpu_torch.scene import subdivide_scene
 
-from chip_smoke import two_emitter, write_cornell
+from cornell_scenes import two_emitter, write_cornell
 from torch_port_util import jax_bvh_fields, to_torch
 
 S, D, LS = 2, 3, 2

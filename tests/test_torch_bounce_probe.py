@@ -199,7 +199,7 @@ def test_ab_main_runs_in_turns(monkeypatch, capsys):
 def test_red_wall_scales_the_reddest_albedo(tmp_path):
     """The train problem's perturbation: the reddest mesh's albedo x 0.6,
     the other meshes and the scene's own table untouched."""
-    from chip_smoke import write_cornell
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.scene import load_scene
 
     sc, _ = load_scene(write_cornell(tmp_path, xres=8, yres=8),

@@ -25,7 +25,7 @@ from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch.ops import brute_intersect as bi
 from orion_tpu_torch.scene import load_scene, subdivide_scene
 
-from chip_smoke import random_rays, write_cornell
+from cornell_scenes import random_rays, write_cornell
 
 def split_sweep(tab, orig, dirs, alive, k: int):
     """(t, id) of the kernel's K-lane split: lane j's best over rows j::k

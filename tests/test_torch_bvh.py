@@ -37,7 +37,7 @@ from orion_tpu_torch.ops.bvh_traverse import (make_bvh_intersect, traverse,
 from orion_tpu_torch.ops.intersect import intersect_brute
 from orion_tpu_torch.ops.woop import BIG, woop_t
 
-from chip_smoke import random_rays, write_cornell
+from cornell_scenes import random_rays, write_cornell
 from torch_port_util import jax_bvh_fields, to_torch
 
 SIGNS = {"ppp": (1.0, 1.0, 1.0), "npn": (-1.0, 1.0, -1.0)}

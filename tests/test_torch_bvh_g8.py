@@ -26,7 +26,7 @@ from orion_tpu_torch.accel.bvh import bvh_from_numpy
 from orion_tpu_torch.ops import bvh_g8 as g8
 from orion_tpu_torch.ops import bvh_intersect as bx
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import g8_walk_model, jax_bvh_fields, to_torch
 
 

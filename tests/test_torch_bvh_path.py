@@ -34,7 +34,7 @@ from orion_tpu_torch.regen import render_regen
 from orion_tpu_torch.render import render
 from orion_tpu_torch.scene import load_scene
 
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from torch_port_util import jax_bvh_fields, to_torch, write_textured
 
 W, H, S, D, LS = 16, 16, 2, 3, 2

@@ -7,7 +7,7 @@ rtol 1e-6 and both gradient tables to 3e-4 x their largest entry (the
 bound PR 4 held the bounce trainer to: float32 terms in another op order,
 summed in double). On a box without channel ties the tree trainer equals
 the port's brute-sweep trainer to the same bound. On boxes written by
-chip_smoke.write_cornell (levels 2 and 4, one tree or eight octant copies
+cornell_scenes.write_cornell (levels 2 and 4, one tree or eight octant copies
 of it, emission fitted), the loss agrees to rtol 1e-3 and the gradients to
 1e-3 x their largest entry (chip_smoke.py's tolerances for the kernels):
 an octant copy may break a tie between leaves the other way.
@@ -38,7 +38,7 @@ from orion_tpu_torch.ops import prb
 from orion_tpu_torch.scene import (STATIC_FIELDS, TENSOR_FIELDS, load_scene,
                                    scene_to_numpy)
 
-from chip_smoke import two_emitter, write_cornell
+from cornell_scenes import two_emitter, write_cornell
 from torch_port_util import (jax_bvh_fields, jax_fields, regroup_meshes,
                              to_torch, write_textured)
 

@@ -39,7 +39,7 @@ from orion_tpu_torch.scene import (STATIC_FIELDS, TENSOR_FIELDS,
                                    make_synthetic_scene, scene_from_numpy,
                                    scene_to_numpy)
 
-from chip_smoke import write_cornell_whitted
+from cornell_scenes import write_cornell_whitted
 from torch_port_util import jax_bvh_fields, to_torch
 
 TOL = dict(rtol=1e-5, atol=1e-6)

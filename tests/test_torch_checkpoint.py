@@ -24,7 +24,7 @@ from orion_tpu_torch.io.checkpoint import (_progress_line, load_checkpoint,
 from orion_tpu_torch.io.image import load_hdr
 
 import torch_port_util  # noqa: F401  (one intra-op thread a worker)
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 
 PATH = dict(light_samples=1, max_depth=2, mode="path", progress=False)
 

@@ -23,7 +23,7 @@ from orion_tpu.scene import subdivide_scene as jsubdivide
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import fused_path as fp
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import to_torch, write_textured
 
 
@@ -205,7 +205,7 @@ def test_division_free_row_test_keeps_the_winners(cornell, name, cap):
     faces whose t differ in the last place, box bottoms on the floor, can
     swap: 5 rays in 4,096), and where the ids agree t = n_b / D_b is that
     row's t bit for bit."""
-    from chip_smoke import random_rays
+    from cornell_scenes import random_rays
     from orion_tpu_torch.ops.woop import nearest_rows
 
     ts = to_torch(_variant(cornell[0], name))

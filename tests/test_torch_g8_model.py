@@ -21,7 +21,7 @@ from orion_tpu_torch.accel.bvh import build_scene_bvh
 from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.scene import load_scene, subdivide_scene
 
-from chip_smoke import random_rays, write_cornell
+from cornell_scenes import random_rays, write_cornell
 from torch_port_util import g8_tie_layout, g8_walk_model
 
 

@@ -39,10 +39,10 @@ import pytest
 import torch
 
 from chip_smoke import (SECOND, agreeing_lanes, binned_round_agree,
-                        bounce_kernels_agree, draws_agree,
-                        mask_agree, random_rays, record_sweeps, shade_agree,
-                        two_emitter, vis_agree, walk_agree, write_cornell,
-                        write_cornell_whitted)
+                        bounce_kernels_agree, draws_agree, mask_agree,
+                        record_sweeps, shade_agree, vis_agree, walk_agree)
+from cornell_scenes import (random_rays, two_emitter, write_cornell,
+                            write_cornell_whitted)
 from orion_tpu_torch.accel.bvh import build_bvh, build_scene_bvh
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import binned as bn

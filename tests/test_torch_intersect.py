@@ -34,7 +34,7 @@ from orion_tpu_torch.ops import shade
 from orion_tpu_torch.ops.intersect import hit_attributes, intersect_brute
 from orion_tpu_torch.ops.woop import woop_rows, woop_rows_np
 
-from chip_smoke import random_rays, write_cornell
+from cornell_scenes import random_rays, write_cornell
 from torch_port_util import to_torch, write_textured
 
 RTOL, ATOL = 1e-5, 1e-6

@@ -25,7 +25,7 @@ from orion_tpu_torch.scene import (STATIC_FIELDS, TENSOR_FIELDS, load_scene,
 from orion_tpu_torch.validate import (SceneValidationError, validate_rtc,
                                       validate_scene)
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import jax_fields, write_textured, write_whitted
 
 

@@ -32,7 +32,7 @@ from orion_tpu_torch.ops import prb_whitted as pw
 from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
 from orion_tpu_torch.scene import subdivide_scene
 
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from torch_port_util import to_torch
 
 S, D, LS = 2, 3, 2

@@ -28,7 +28,7 @@ from orion_tpu_torch.ops import shade
 from orion_tpu_torch.ops.intersect import Hit, intersect_brute
 from orion_tpu_torch.render import render, trace_wavefront
 
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from torch_port_util import to_torch
 
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -41,7 +41,7 @@ from orion_tpu_torch.ops import fused_path as fp
 from orion_tpu_torch.ops import prb
 from orion_tpu_torch.optim import fit
 
-from chip_smoke import two_emitter, write_cornell
+from cornell_scenes import two_emitter, write_cornell
 from torch_port_util import to_torch
 
 S, D, LS = 2, 3, 2

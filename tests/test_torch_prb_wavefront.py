@@ -26,7 +26,7 @@ from orion_tpu_torch.accel.bvh import bvh_from_numpy
 from orion_tpu_torch.camera import camera_from_rtc
 from orion_tpu_torch.ops import prb_wavefront as pw
 
-from chip_smoke import two_emitter, write_cornell
+from cornell_scenes import two_emitter, write_cornell
 from torch_port_util import jax_bvh_fields, to_torch
 
 

@@ -25,7 +25,7 @@ from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.ops import bvh_intersect as bx
 from orion_tpu_torch.scene import load_scene
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from torch_port_util import jax_bvh_fields
 
 

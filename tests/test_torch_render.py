@@ -29,14 +29,14 @@ from orion_tpu.render import trace_wavefront as jtrace
 from orion_tpu.scene import load_scene as jload_scene
 from orion_tpu_torch import cli
 from orion_tpu_torch.camera import camera_from_rtc, primary_rays
-from orion_tpu_torch.engine import (GPU_LEAF_SIZE, prepare,
-                                    select_intersect)
+from orion_tpu_torch.engine import (GPU_LEAF_SIZE, make_megakernel_renderer,
+                                    prepare, select_intersect)
 from orion_tpu_torch.ops.intersect import intersect_brute
 from orion_tpu_torch.io.image import load_hdr
 from orion_tpu_torch.render import render, trace_wavefront
 from orion_tpu_torch.scene import subdivide_scene
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell, write_cornell_whitted
 from torch_port_util import to_torch, write_textured, write_whitted
 
 REPO = Path(__file__).resolve().parents[1]
@@ -160,6 +160,39 @@ def test_cli_routes(tmp_path, capsys, backend):
     assert ps.scene.device.type == "cpu"
 
 
+@pytest.mark.parametrize("scene", ["cornell", "levels5", "checker",
+                                   "whitted", "whitted-levels5"])
+def test_megakernel_route_is_one(tmp_path, monkeypatch, scene):
+    """engine.make_megakernel_renderer, the backend cli.main reports and
+    the benchmark's frozen copy of the chain (portbench/harness.route)
+    pick the same megakernel: the fused path kernel, the big-path chain
+    past its gate (levels 5: 34,818 triangles) and for a textured box,
+    the Whitted kernel and past its gate the BVH Whitted kernel for
+    point-light boxes."""
+    writer = write_cornell_whitted if scene.startswith("whitted") else \
+        write_cornell
+    rtc = writer(tmp_path, xres=8, yres=6, depth=1,
+                 levels=5 if scene.endswith("levels5") else 0,
+                 checker=scene == "checker")
+    ps = prepare(rtc, device="cpu")
+    cfg = dict(samples=1, max_depth=1, light_samples=2)
+    _, ours = make_megakernel_renderer(ps, mode=None, **cfg)
+    monkeypatch.syspath_prepend(str(REPO / "portbench"))
+    import harness
+
+    _, bench = harness.route(ps, **cfg)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main([str(rtc), "-o", str(tmp_path / "o.hdr"), "-p", "1",
+                         "-l", "2", "--device", "cpu", "--stats"]) == 0
+    reported = json.loads(err.getvalue().splitlines()[-1])["backend"]
+    assert ours == bench == reported
+    assert ours == {"cornell": "fused-kernel", "levels5": "bounce-torch",
+                    "checker": "bounce-torch",
+                    "whitted": "fused-whitted-kernel",
+                    "whitted-levels5": "bvh-whitted-torch"}[scene]
+
+
 @pytest.mark.parametrize("flags", [["-t", "8"], ["--threads", "8"],
                                    ["--checkpoint-every", "4"]])
 def test_cli_accepts_launcher_flags(tmp_path, capsys, flags):
@@ -256,7 +289,7 @@ def _imports(path):
 
 def test_port_never_imports_jax():
     files = sorted((REPO / "orion_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "cornell_scenes.py"]
     files += sorted((REPO / "tools").glob("*.py"))
     files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 10
@@ -300,7 +333,7 @@ def test_port_never_imports_jax():
             "orion_tpu_torch.parallel, orion_tpu_torch.parallel.fused_shard, "
             "orion_tpu_torch.parallel.distributed, "
             "orion_tpu_torch.parallel.primitive_sharding, "
-            "orion_tpu_torch.viewer, chip_smoke; "
+            "orion_tpu_torch.viewer, chip_smoke, cornell_scenes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'orion_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

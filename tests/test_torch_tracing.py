@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import torch_port_util  # noqa: F401  (one intra-op thread a worker)
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from orion_tpu_torch import cli, profiling
 from orion_tpu_torch.engine import prepare
 from orion_tpu_torch.ops import cuda_build

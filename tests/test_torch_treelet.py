@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import orion_tpu.ops.pallas_bvh as jpb
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from orion_tpu.accel.bvh import partition_triangles as jpartition
 from orion_tpu.engine import _make_treelet_intersect as jtreelets
 from orion_tpu.ops.intersect import intersect_brute as jintersect_brute

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from orion_tpu.io.rtc import parse_rtc as jparse_rtc
 from orion_tpu.viewer import FlyCamera as JFlyCamera
 from orion_tpu.viewer import dump_rtc as jdump_rtc

@@ -23,7 +23,7 @@ from orion_tpu_torch.ops.fused_path import _C_MESH, NEE_T_CAP
 from orion_tpu_torch.ops.woop import BIG, woop_t
 from orion_tpu_torch.scene import load_scene, subdivide_scene
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 
 SLOTS = 32
 

@@ -13,7 +13,7 @@ from orion_tpu_torch.ops import cuda_build
 from orion_tpu_torch.scene import load_scene, subdivide_scene
 from tools import bvh_probe, walk_ab
 
-from chip_smoke import random_rays, write_cornell
+from cornell_scenes import random_rays, write_cornell
 
 
 def test_thread_a_ray_model():

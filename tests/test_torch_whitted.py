@@ -36,7 +36,7 @@ from orion_tpu_torch.ops.brute_intersect import intersect_brute_kernel
 from orion_tpu_torch.render import render
 from orion_tpu_torch.scene import load_scene
 
-from chip_smoke import write_cornell, write_cornell_whitted
+from cornell_scenes import write_cornell, write_cornell_whitted
 from torch_port_util import to_torch, write_textured
 
 RES = 16

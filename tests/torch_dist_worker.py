@@ -20,7 +20,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-import chip_smoke
+from cornell_scenes import write_cornell, write_cornell_whitted
 
 # the scenes every task renders: W x H = 77 pixels, uneven tiles at 2
 # ranks (39 + 38) and at 3 (26 + 26 + 25)
@@ -32,13 +32,13 @@ STATS = dict(xres=48, yres=28)
 def write_scenes(tmp: Path) -> dict:
     """The tasks' scene files under tmp: {name: rtc path}."""
     return {
-        "cornell": chip_smoke.write_cornell(tmp / "cornell", xres=W, yres=H,
-                                            depth=3),
-        "whitted": chip_smoke.write_cornell_whitted(tmp / "whitted", xres=W,
-                                                    yres=H, depth=2),
-        "levels2": chip_smoke.write_cornell(tmp / "levels2", xres=W, yres=H,
-                                            depth=3, levels=2),
-        "stats": chip_smoke.write_cornell(tmp / "stats", depth=4, **STATS),
+        "cornell": write_cornell(tmp / "cornell", xres=W, yres=H,
+                                 depth=3),
+        "whitted": write_cornell_whitted(tmp / "whitted", xres=W,
+                                         yres=H, depth=2),
+        "levels2": write_cornell(tmp / "levels2", xres=W, yres=H,
+                                 depth=3, levels=2),
+        "stats": write_cornell(tmp / "stats", depth=4, **STATS),
     }
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_cornell
+from cornell_scenes import write_cornell
 from orion_tpu_torch.scene import (STATIC_FIELDS, TENSOR_FIELDS,
                                    scene_from_numpy)
 
@@ -44,7 +44,7 @@ def jax_bvh_fields(jb) -> dict:
 
 def regroup_meshes(fields: dict, groups: int) -> dict:
     """The fields of a scene whose emitter is its last mesh (as
-    chip_smoke.write_cornell writes the box), with every other triangle
+    cornell_scenes.write_cornell writes the box), with every other triangle
     given the first mesh's material and cut, in its order, into `groups`
     contiguous meshes: the same geometry and the same radiance, with
     `groups` + 1 meshes and two materials. Areas are each new mesh's."""

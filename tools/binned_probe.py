@@ -209,6 +209,7 @@ def _rounds(dev, card: str, builds: dict) -> None:
     import torch
 
     import chip_smoke as cs
+    from cornell_scenes import write_cornell
     from orion_tpu_torch import engine
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.io.rtc import parse_rtc
@@ -219,8 +220,8 @@ def _rounds(dev, card: str, builds: dict) -> None:
     cfg = dict(samples=T["samples"], max_depth=T["depth"],
                light_samples=T["light_samples"])
     with tempfile.TemporaryDirectory() as tmp:
-        big = cs.write_cornell(Path(tmp), xres=64, yres=64, depth=4,
-                               levels=cs.BIG_LEVELS)
+        big = write_cornell(Path(tmp), xres=64, yres=64, depth=4,
+                            levels=cs.BIG_LEVELS)
         lv5, _ = load_scene(big, device=dev)
         rtc = parse_rtc(big)
     cam_q = camera_from_rtc(cs._resized(rtc, dict(xres=256, yres=256)),
@@ -294,6 +295,7 @@ def main(argv=None) -> int:
     import torch
 
     import chip_smoke as cs
+    from cornell_scenes import write_cornell
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
     if args.rounds:
@@ -336,10 +338,10 @@ def main(argv=None) -> int:
                 print(f"{name}: {line.strip()}")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        rtc = cs.write_cornell(tmp, xres=64, yres=64, depth=4)
+        rtc = write_cornell(tmp, xres=64, yres=64, depth=4)
         cornell, r = load_scene(rtc, device=dev)
-        big = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
-                               levels=cs.BIG_LEVELS)
+        big = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                            levels=cs.BIG_LEVELS)
         lv5, _ = load_scene(big, device=dev)
         cam_w = camera_from_rtc(cs._resized(parse_rtc(rtc), cs.SECOND),
                                 device=dev)

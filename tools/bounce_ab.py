@@ -62,8 +62,8 @@ def _time_one(root: str, label: str, keep: str | None = None) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from chip_smoke import (BIG_LEVELS, MAIN, _resized, run_cli,
-                            write_cornell)
+    from chip_smoke import BIG_LEVELS, MAIN, _resized, run_cli
+    from cornell_scenes import write_cornell
     from orion_tpu_torch import engine
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.io.rtc import parse_rtc

@@ -66,6 +66,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402,F401  (this tree's harness, also with --root)
+from cornell_scenes import write_cornell  # noqa: E402
 from tools.ab_turns import (TRAIN_SEED, card,  # noqa: E402
                              red_wall_problem, with_constant)
 
@@ -476,9 +477,9 @@ def _vis(tmp: Path, dev, sweep: bool) -> None:
     rc = ctypes.CDLL(str(so)).bounce_info(5, out)
     print(f"[6b vis] built kernel: {out[1]} registers, {out[2]} B local, "
           f"{out[0]} resident blocks of 128 threads an SM (rc {rc})")
-    rtc = cs.write_cornell(tmp / "big", xres=cs.MAIN["xres"],
-                           yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
-                           levels=cs.BIG_LEVELS)
+    rtc = write_cornell(tmp / "big", xres=cs.MAIN["xres"],
+                        yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
+                        levels=cs.BIG_LEVELS)
     lv5, _ = load_scene(rtc, device=dev)
     cam = camera_from_rtc(cs._resized(parse_rtc(rtc), cs.MAIN), device=dev)
     cfg = dict(samples=cs.MAIN["samples"], max_depth=cs.MAIN["depth"],
@@ -539,14 +540,14 @@ def _phase11(checks: bool, dev, card_line: str) -> int:
         tmp = Path(tmp)
         errs = [0.0, 0.0, 0.0]
         if checks:
-            rtc = cs.write_cornell(tmp, xres=64, yres=64, depth=4)
+            rtc = write_cornell(tmp, xres=64, yres=64, depth=4)
             cornell, r = load_scene(rtc, device=dev)
             errs = cs._phase_bounce_checks(
                 (("cornell", cornell),
                  ("levels-2", subdivide_scene(cornell, levels=2))),
                 camera_from_rtc(r, device=dev))
-        big = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
-                               levels=cs.BIG_LEVELS)
+        big = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                            levels=cs.BIG_LEVELS)
         lv5, _ = load_scene(big, device=dev)
         records = cs._phase_bounce(tmp, dev, card_line, lv5, errs)
     for name, rec in records.items():
@@ -599,9 +600,9 @@ def main(argv=None) -> int:
         tmp = Path(tmp)
         builds = _builds(tmp, args.sweep)
         _resources(builds)
-        rtc = cs.write_cornell(tmp / "big", xres=cs.MAIN["xres"],
-                               yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
-                               levels=cs.BIG_LEVELS)
+        rtc = write_cornell(tmp / "big", xres=cs.MAIN["xres"],
+                            yres=cs.MAIN["yres"], depth=cs.MAIN["depth"],
+                            levels=cs.BIG_LEVELS)
         lv5, _ = load_scene(rtc, device=dev)
         cam = camera_from_rtc(cs._resized(parse_rtc(rtc), cs.MAIN),
                               device=dev)

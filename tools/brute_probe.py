@@ -188,7 +188,8 @@ def _lanes(lib, n: int) -> int:
 
 def _scenes(tmp: Path, dev):
     """(the Cornell scene, {levels: scene}, {set: sweeps})."""
-    from chip_smoke import SECOND, record_sweeps, write_cornell
+    from chip_smoke import SECOND, record_sweeps
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.io.rtc import parse_rtc
     from orion_tpu_torch.ops import brute_intersect as bi

@@ -30,8 +30,8 @@ set. --sweep times builds of copies of the source with one of
 WALK_SWEEP's constants set to each of its values, and each --set
 NAME=V[,NAME=V] a copy with those set together. --root CHECKOUT probes
 another checkout's kernel and package (first on sys.path; the harness,
-chip_smoke.py's scene writer, sweep recorder and graph timing, is this
-tree's).
+chip_smoke.py's sweep recorder and graph timing, is this tree's, and so
+is cornell_scenes.py's writer where the checkout has none).
 
 --g8 probes G8 (kernel 11, `csrc/bvh_g8.cu`) on the leaf-128 tree of the
 same box, on two sets: (a) the 256x256 sweeps above (chip_smoke.py phase
@@ -55,7 +55,7 @@ constants (those the source defines) set to each of its values, --set a
 copy with several set; --root CHECKOUT probes another checkout's G8.
 
 Builds the two BVH kernels (`csrc/bvh_intersect.cu`, `csrc/bvh_path.cu`),
-writes the subdivided Cornell box (`chip_smoke.write_cornell(levels=)`,
+writes the subdivided Cornell box (`cornell_scenes.write_cornell(levels=)`,
 levels 5 = 34,818 triangles) and, for each leaf size:
 
   - kernel 5 (the walk) on 2^18 random rays from inside the box, nearest
@@ -290,7 +290,8 @@ def _walk_sets(tmp: Path, dev):
     """(tree's nodes, table, leaf width, {set: sweeps}) on the levels-5
     box: the engine's `--backend bvh` tree, and one wavefront sample's
     sweeps at each of WALK_SETS' resolutions."""
-    from chip_smoke import BIG_LEVELS, SECOND, record_sweeps, write_cornell
+    from chip_smoke import BIG_LEVELS, SECOND, record_sweeps
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.engine import prepare
     from orion_tpu_torch.io.rtc import parse_rtc
@@ -495,8 +496,8 @@ def _g8_sets(tmp: Path, dev):
     box: phase 10's 256x256 sweeps (kernel 5's wavefront over the engine's
     tree) and the 1080p depth-1 bounce wavefront of the binned renderer at
     chip_smoke.TRAIN's shapes (phase 13 (d)'s two sets)."""
-    from chip_smoke import (BIG_LEVELS, SECOND, TRAIN, _resized,
-                            record_sweeps, write_cornell)
+    from chip_smoke import BIG_LEVELS, SECOND, TRAIN, _resized, record_sweeps
+    from cornell_scenes import write_cornell
     from orion_tpu_torch import engine
     from orion_tpu_torch.accel.bvh import build_scene_bvh
     from orion_tpu_torch.camera import camera_from_rtc
@@ -679,7 +680,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import random_rays, write_cornell
+    from cornell_scenes import random_rays, write_cornell
     from orion_tpu_torch import native
     from orion_tpu_torch.accel.bvh import build_scene_bvh
     from orion_tpu_torch.camera import camera_from_rtc

@@ -29,7 +29,8 @@ from tools.ab_turns import TRAIN_SEED, card, red_wall  # noqa: E402
 def main() -> int:
     import torch
 
-    from chip_smoke import TRAIN, write_cornell
+    from chip_smoke import TRAIN
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.engine import prepare
     from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.ops import fused_path as fp

@@ -12,7 +12,7 @@ kernel 8 (the BVH path kernel) at chip_smoke.py phase 9's (the
 launches, median. The checkouts run in the order old, new, new,
 old, so a drift of the card's clock shows as a gap between the two runs
 of one version. Each run is a process of its own that imports
-`orion_tpu_torch` and `chip_smoke.write_cornell` from its checkout and
+`orion_tpu_torch` and `cornell_scenes.write_cornell` from its checkout and
 builds the kernels there. The image mean is printed with each run: two
 versions that compute the same image print the same mean, two that
 differ only in rounding print means a few ulps apart.
@@ -44,7 +44,8 @@ def _time_one(root: str, label: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from chip_smoke import BIG_LEVELS, write_cornell
+    from chip_smoke import BIG_LEVELS
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import fused_path as fp

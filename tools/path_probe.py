@@ -319,7 +319,8 @@ def _probe_path_kernels(tmp: Path, dev, kernels) -> None:
     shapes."""
     import torch
 
-    from chip_smoke import BIG_LEVELS, write_cornell
+    from chip_smoke import BIG_LEVELS
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import fused_path as fp
@@ -518,7 +519,8 @@ def _probe_pair(pair: str, tmp: Path, dev) -> None:
     """Kernels 3a and 3b (pair "3", the Cornell box at phase 7's shapes)
     or 9a and 9b (pair "9", the subdivided box at phase 12 (c)'s), the
     sweep of their resident blocks, and the train step."""
-    from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
+    from chip_smoke import BIG_LEVELS, TRAIN
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import bvh_prb as bvp
     from orion_tpu_torch.ops import cuda_build
@@ -729,7 +731,8 @@ def whitted_sweep_sources(src: Path) -> dict:
 def _probe_whitted(tmp: Path, dev) -> None:
     """Kernels 7a and 7b at chip_smoke.py phase 12's shapes, and the sweep
     of their resident blocks."""
-    from chip_smoke import BIG_LEVELS, WHITTED, write_cornell_whitted
+    from chip_smoke import BIG_LEVELS, WHITTED
+    from cornell_scenes import write_cornell_whitted
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.engine import octant_signs
     from orion_tpu_torch.ops import bvh_whitted as bw
@@ -930,7 +933,8 @@ def sass_loops(sass: str, kernel: str, *also: str) -> list:
 def _probe_whitted4(tmp: Path, dev) -> None:
     """Kernel 4 at chip_smoke.py phase 8's shapes, the loops of its SASS,
     and (persistent lanes) the sweep of its resident blocks."""
-    from chip_smoke import WHITTED, write_cornell_whitted
+    from chip_smoke import WHITTED
+    from cornell_scenes import write_cornell_whitted
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.ops import whitted as wh

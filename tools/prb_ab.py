@@ -43,7 +43,8 @@ def cornell_case(tmp, device, shapes: dict | None = None) -> dict:
     """ab_turns.train_case of the Cornell pair (3a/3b): the red wall
     problem on `write_cornell`'s box, its target from the fused render
     kernel (`shapes` overrides chip_smoke.TRAIN's)."""
-    from chip_smoke import TRAIN, write_cornell
+    from chip_smoke import TRAIN
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.ops import fused_path as fp
     from orion_tpu_torch.ops import prb
 
@@ -58,7 +59,8 @@ def cornell_case(tmp, device, shapes: dict | None = None) -> dict:
 def bvh_case(tmp, device, shapes: dict | None = None) -> dict:
     """ab_turns.train_case of the BVH pair (9a/9b): the red wall problem
     on the subdivided box, its target from the BVH path kernel."""
-    from chip_smoke import BIG_LEVELS, TRAIN, write_cornell
+    from chip_smoke import BIG_LEVELS, TRAIN
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.ops import bvh_path as bp
     from orion_tpu_torch.ops import bvh_prb as bvp
 

@@ -24,6 +24,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from cornell_scenes import write_cornell
     from orion_tpu_torch.camera import camera_from_rtc
     from orion_tpu_torch.ops import cuda_build
     from orion_tpu_torch.scene import load_scene
@@ -42,10 +43,10 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        rtc_path = cs.write_cornell(tmp, xres=64, yres=64, depth=4)
+        rtc_path = write_cornell(tmp, xres=64, yres=64, depth=4)
         cornell, rtc = load_scene(rtc_path, device=dev)
-        big_rtc = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
-                                   levels=cs.BIG_LEVELS)
+        big_rtc = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                                levels=cs.BIG_LEVELS)
         t0 = time.perf_counter()
         cs._phase_shard(tmp, dev, card, cornell, rtc_path, big_rtc,
                         camera_from_rtc(rtc, device=dev))

@@ -25,6 +25,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from cornell_scenes import write_cornell, write_cornell_whitted
     from orion_tpu_torch.ops import cuda_build
 
     if not torch.cuda.is_available():
@@ -41,11 +42,11 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        rtc_path = cs.write_cornell(tmp, xres=64, yres=64, depth=4)
-        wrtc = cs.write_cornell_whitted(tmp / "whitted64", xres=64, yres=64,
-                                        depth=4)
-        big_rtc = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
-                                   levels=cs.BIG_LEVELS)
+        rtc_path = write_cornell(tmp, xres=64, yres=64, depth=4)
+        wrtc = write_cornell_whitted(tmp / "whitted64", xres=64, yres=64,
+                                     depth=4)
+        big_rtc = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                                levels=cs.BIG_LEVELS)
         t0 = time.perf_counter()
         launches = cs._phase_slice17(tmp, dev, card, rtc_path, big_rtc, wrtc)
         print(f"[phase 16] {time.perf_counter() - t0:.1f} s wall")

@@ -22,8 +22,8 @@ levels-5 subdivided Cornell box (34,818 triangles):
   of its (t, row) over each set (case g8). The checkouts run in the order old,
 new, new, old, each in a process of its own with its checkout's
 `orion_tpu_torch` first on sys.path (the kernels built there); the
-harness (`chip_smoke`'s scene writer, sweep recorder and graph timing) is
-this tree's. The first old and new runs keep the textured image, and the
+harness (`cornell_scenes`' writers, `chip_smoke`'s sweep recorder and
+graph timing) is this tree's. The first old and new runs keep the textured image, and the
 comparison prints its pixels off by more than 1e-4 + 1e-3 |ref| and the
 means.
 """
@@ -38,6 +38,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (this tree's harness)
+from cornell_scenes import write_cornell, write_cornell_whitted  # noqa: E402
 from tools.ab_turns import ab_main, events, runs  # noqa: E402
 from tools.bvh_probe import G8_SETS, WALK_SETS, _g8_sets  # noqa: E402
 
@@ -85,8 +86,8 @@ def _time_one(root: str, label: str, keep: str | None = None) -> None:
         tmp = Path(tmp)
         if "g8" in cases:
             _time_g8(tmp, dev, label)
-        rtc = cs.write_cornell(tmp / "box", xres=256, yres=256, depth=4,
-                               levels=cs.BIG_LEVELS)
+        rtc = write_cornell(tmp / "box", xres=256, yres=256, depth=4,
+                            levels=cs.BIG_LEVELS)
         ps = prepare(rtc, device=dev, force_backend="bvh")
         nodes, tri = bx._bvh_device_layout(ps.bvh, dev)
         leaf = ps.bvh.leaf_width
@@ -117,9 +118,9 @@ def _time_one(root: str, label: str, keep: str | None = None) -> None:
             return
 
         W = cs.WHITTED
-        rtc_t = cs.write_cornell_whitted(tmp / "tex", xres=W["xres"],
-                                         yres=W["yres"], depth=W["depth"],
-                                         levels=cs.BIG_LEVELS, checker=True)
+        rtc_t = write_cornell_whitted(tmp / "tex", xres=W["xres"],
+                                      yres=W["yres"], depth=W["depth"],
+                                      levels=cs.BIG_LEVELS, checker=True)
         secs = []
         for k in range(2):
             _, report = cs.run_cli(rtc_t, tmp / f"t{k}.hdr", W, report=True)

@@ -36,7 +36,8 @@ def _time_one(root: str, label: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from chip_smoke import BIG_LEVELS, write_cornell, write_cornell_whitted
+    from chip_smoke import BIG_LEVELS
+    from cornell_scenes import write_cornell, write_cornell_whitted
     from orion_tpu_torch import engine
     from orion_tpu_torch.regen import render_regen
     from orion_tpu_torch.render import render

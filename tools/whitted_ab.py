@@ -32,8 +32,8 @@ round (kernel 10) of two checkouts on one card in one call.
 
 The checkouts run in the order old, new, new, old, each in a process of
 its own with its checkout's `orion_tpu_torch` first on sys.path (the
-kernels built there); the harness (`chip_smoke`'s scene writers, sweep
-recorder and graph timing) is this tree's. The first old and new runs
+kernels built there); the harness (`cornell_scenes`' writers,
+`chip_smoke`'s sweep recorder and graph timing) is this tree's. The first old and new runs
 keep the two images, and the comparison prints their pixels off by more
 than 1e-4 + 1e-3 |ref|, the means and the largest difference.
 """
@@ -47,6 +47,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (this tree's harness)
+from cornell_scenes import write_cornell, write_cornell_whitted  # noqa: E402
 from tools.ab_turns import ab_main, events, runs  # noqa: E402
 from tools.brute_probe import SETS  # noqa: E402
 from tools.walk_ab import digest, pixels_off  # noqa: E402
@@ -79,7 +80,7 @@ def _time_one(root: str, label: str, keep: str | None = None) -> None:
     cases = os.environ.get(CASES_ENV, ",".join(CASES)).split(",")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        rtc = cs.write_cornell(tmp / "box", xres=256, yres=256, depth=4)
+        rtc = write_cornell(tmp / "box", xres=256, yres=256, depth=4)
         cornell, _ = load_scene(rtc, device=dev)
         if "4" in cases:
             _kernel4(tmp, dev, label, keep)
@@ -114,9 +115,9 @@ def _time_one(root: str, label: str, keep: str | None = None) -> None:
         W = cs.WHITTED
         for textured, tag in ((False, "7a"), (True, "7b")) \
                 if "7" in cases else ():
-            rtc_w = cs.write_cornell_whitted(
-                tmp / f"w{tag}", xres=W["xres"], yres=W["yres"],
-                depth=W["depth"], levels=cs.BIG_LEVELS, checker=textured)
+            rtc_w = write_cornell_whitted(
+             tmp / f"w{tag}", xres=W["xres"], yres=W["yres"],
+             depth=W["depth"], levels=cs.BIG_LEVELS, checker=textured)
             scene, r = load_scene(rtc_w, device=dev)
             cam = camera_from_rtc(cs._resized(r, W), device=dev)
             make = (bw.make_bvh_whitted_deferred if textured
@@ -143,8 +144,8 @@ def _kernel4(tmp: Path, dev, label: str, keep: str | None) -> None:
     from orion_tpu_torch.scene import load_scene
 
     W = chip_smoke.WHITTED
-    rtc = chip_smoke.write_cornell_whitted(tmp / "w4", xres=W["xres"],
-                                           yres=W["yres"], depth=W["depth"])
+    rtc = write_cornell_whitted(tmp / "w4", xres=W["xres"],
+                                yres=W["yres"], depth=W["depth"])
     scene, r = load_scene(rtc, device=dev)
     args = wh.whitted_args(scene, camera_from_rtc(r, device=dev))
     cfg = (W["xres"], W["yres"], W["samples"], W["depth"],
@@ -174,8 +175,8 @@ def _kernel10(tmp: Path, dev, label: str) -> None:
     T = cs.TRAIN
     cfg = dict(samples=T["samples"], max_depth=T["depth"],
                light_samples=T["light_samples"])
-    big = cs.write_cornell(tmp / "big", xres=64, yres=64, depth=4,
-                           levels=cs.BIG_LEVELS)
+    big = write_cornell(tmp / "big", xres=64, yres=64, depth=4,
+                        levels=cs.BIG_LEVELS)
     lv5, _ = load_scene(big, device=dev)
     rtc = parse_rtc(big)
     fn_q = bn.make_binned_path_renderer(
